@@ -1,0 +1,75 @@
+"""The CUDA kernel build helper, as far as a host without nvcc can check it.
+
+Building needs nvcc and running needs a GPU; ``chip_smoke.py`` does both on
+the card. Here: the sources are found, the build key follows their content,
+a missing toolchain raises (no fallback), and importing the kernels'
+modules builds nothing.
+"""
+
+import ctypes
+import os
+import shutil
+
+import pytest
+
+from ircl_tpu_torch.utils import kernel_build as kb
+
+
+def test_sources_are_the_package_csrc():
+    names = sorted(os.path.basename(p) for p in kb.sources())
+    assert names == ["light_add_topk.cu", "membership_slab.cu"]
+    for path in kb.sources():
+        text = open(path, encoding="utf-8").read()
+        assert 'extern "C"' in text and "cudaGetLastError()" in text
+        assert "Replaces" in text or "replaces" in text
+
+
+def test_every_entry_point_has_a_signature():
+    text = "".join(open(p, encoding="utf-8").read() for p in kb.sources())
+    for name, (argtypes, restype) in kb._SIGNATURES.items():
+        assert f"{name}(" in text
+        assert restype is not None
+    # pointers and the stream cross as c_void_p, never as a 32-bit int
+    assert ctypes.c_int not in kb._SIGNATURES["ircl_membership_slab"][0]
+    assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
+
+
+def test_source_key_follows_content(tmp_path):
+    a = tmp_path / "a.cu"
+    a.write_text("int x;\n")
+    k1 = kb._source_key([str(a)])
+    assert kb._source_key([str(a)]) == k1
+    a.write_text("int y;\n")
+    assert kb._source_key([str(a)]) != k1
+
+
+def test_flags_target_hopper():
+    flags = " ".join(kb.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-fPIC" in flags
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    if shutil.which("nvcc"):
+        pytest.skip("this host has nvcc")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    a = tmp_path / "k.cu"
+    a.write_text("int x;\n")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kb._nvcc()
+    monkeypatch.setattr(kb, "package_root", lambda: str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kb.build([str(a)])
+
+
+def test_failed_launch_code_raises():
+    class _Lib:
+        @staticmethod
+        def ircl_cuda_error_string(code):
+            return b"invalid configuration argument"
+
+    lib = kb.KernelLibrary(lib=_Lib(), path="x", build_seconds=0.0, build_log="")
+    lib.check(0, "ok")
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        lib.check(9, "a launch")

@@ -1,0 +1,108 @@
+"""The port runs without JAX: it never imports it, directly or transitively.
+
+The check runs in a subprocess, because this test process has loaded JAX
+already (``tests/conftest.py``).
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SERVE_ONE_REQUEST = r"""
+import io, json, os, sys, tempfile
+import ircl_tpu_torch
+from ircl_tpu.corpus.store import MemoryDocStore
+from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu_torch.index.build import build_count_index
+from ircl_tpu_torch.index.ranker import TfidfRanker
+from ircl_tpu_torch.index.tfidf import tfidf_transform
+from ircl_tpu_torch.serve import RetrievalService, make_service, serve_stdin
+
+wiki = generate(num_docs=60, num_claims=3, seed=3)
+store = MemoryDocStore({d: r["text"] for d, r in wiki.docs.items()})
+index = tfidf_transform(build_count_index(store, ngram=2, hash_size=1 << 18))
+claim = wiki.claims[0].claim
+for svc in (
+    RetrievalService(TfidfRanker(index, "cpu", mode="hybrid", df_threshold=4,
+                                 width_buckets=2), batch_size=4),
+    None,
+):
+    if svc is None:
+        with tempfile.TemporaryDirectory() as d:
+            index.save(os.path.join(d, "i.npz"))
+            svc = make_service(os.path.join(d, "i.npz"), device="cpu")
+    out = io.StringIO()
+    served = serve_stdin(svc, io.StringIO(json.dumps({"query": claim}) + "\n"), out)
+    reply = json.loads(out.getvalue())
+    assert served == 1 and reply["results"][0], reply
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+print("JAX_MODULES", loaded)
+"""
+
+
+def test_port_serves_a_request_without_loading_jax():
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_ONE_REQUEST],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+
+
+def _port_files():
+    for base in ("ircl_tpu_torch",):
+        for dirpath, _, files in os.walk(os.path.join(ROOT, base)):
+            if "_build" in dirpath or "__pycache__" in dirpath:
+                continue
+            for f in files:
+                if f.endswith((".py", ".cu", ".cuh")):
+                    yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize(
+    "banned",
+    ["import jax", "from jax", "torch.compile", "scaled_dot_product_attention"],
+)
+def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
+    files = list(_port_files())
+    assert len(files) >= 15
+    offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
+    assert not offenders, offenders
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """Only ``ircl_tpu.corpus`` (JAX-free) may be shared with the reference."""
+    offenders = []
+    for path in _port_files():
+        for line in open(path, encoding="utf-8"):
+            s = line.strip()
+            if s.startswith(("import ircl_tpu", "from ircl_tpu")) and not (
+                s.startswith(("from ircl_tpu.corpus", "from ircl_tpu_torch",
+                              "import ircl_tpu_torch"))
+            ):
+                offenders.append(f"{path}: {s}")
+    assert not offenders, offenders
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    """No CUDA device: the smoke exits non-zero and prints no result, both
+    in the checkout and as a lone script."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; chip_smoke.py runs for real there")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    for script in (os.path.join(ROOT, "chip_smoke.py"), str(lone)):
+        proc = subprocess.run(
+            [sys.executable, script], cwd=os.path.dirname(script),
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout and "kernels" not in proc.stdout
