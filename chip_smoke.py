@@ -16,12 +16,26 @@ Phases, each printed as it runs:
    every reply held against scipy's top-k;
 4. the served path, ELL (20K docs, ``mode="auto"``), checked the same way;
 5. the judged ranker (``bench.py``'s settings) on all 4096 claims, held to
-   the bench's full-batch scipy gate, then q/s and a per-stage split.
+   the bench's full-batch scipy gate, then q/s and a per-stage split;
+6. the dense chunk-max kernel (``cosine_topk_fused``'s phase 1) against its
+   plain version at ``bench_dense.py``'s shape and on a small ragged shape,
+   for fold/high3, loop/highest and a bf16 corpus with slack chunks;
+7. ``bench_dense.py``'s configuration on the port (1M x 128 corpus, 1024
+   queries, top-5): the fused, two-phase and scan engines, the fused one
+   held to the bench's full-batch numpy gate, then q/s;
+8. the sentence encoder at full width (12-layer 768-wide transformer over a
+   WordPiece vocab trained on 5,000 docs, BiLSTM 3 x 256 -> 128), random
+   weights from a seed: the card against the CPU, rows against their batch,
+   then every sentence of those docs embedded;
+9. served sentence search over those docs (``make_service`` with a
+   precomputed sentence table, ``serve_stdin``), every reply checked, and
+   the dense top-k over the sentence table against numpy.
 
-Kernel launch counts are zeroed before phase 3 and read after phase 5;
-every kernel must have run there. The script exits non-zero at the first
-failure, and when no CUDA device is present. The line before the last is a
-JSON object of the kernels' numbers; the last line is
+Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
+sparse path), and zeroed again before phase 7 and read after phase 9 (the
+dense path); every kernel must have run on its path. The script exits
+non-zero at the first failure, and when no CUDA device is present. The line
+before the last is a JSON object of the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -43,6 +57,16 @@ NUM_CLAIMS = 4096
 HASH_SIZE = 1 << 24
 K = 5
 DEVICE = "cuda"
+# bench_dense.py's configuration
+DENSE_M, DENSE_D, DENSE_B = 1_000_000, 128, 1024
+DENSE_TILE, DENSE_CHUNK = 8192, 32
+DENSE_SCAN_BLOCK = 200_000  # divides M; the scan engine's corpus rows per step
+CMAX_ATOL = 1e-6  # chunk maxima: unit cosines, fp32 summation order only
+# the encoder phases
+ENC_DOCS = 5_000
+ENC_BATCH = 256
+ENC_SEED = 0  # the BiLSTM head's generator (the transformer uses its config's)
+ENC_DEVICE_ATOL = 1e-4  # card against CPU: fp32 through 12 layers, TF32 off
 
 
 def log(msg: str) -> None:
@@ -119,6 +143,376 @@ def check_replies(replies, requests, index, label):
     return checked
 
 
+def _topk_ref_blocked(queries, corpus, k, block=125_000):
+    """Exact numpy f32 top-k over the full query batch, corpus-blocked so
+    the score matrix transient stays ~0.5GB. Returns (sorted scores [B,k],
+    list of B id sets). Copied from ``bench_dense.py``, which imports JAX."""
+    B = queries.shape[0]
+    m = corpus.shape[0]
+    best_s = np.full((B, k), -np.inf, np.float32)
+    best_i = np.full((B, k), -1, np.int64)
+    for lo in range(0, m, block):
+        s = queries @ corpus[lo : lo + block].T  # [B, <=block]
+        part = np.argpartition(-s, k - 1, axis=1)[:, :k]
+        ps = np.take_along_axis(s, part, axis=1)
+        cat_s = np.concatenate([best_s, ps], axis=1)
+        cat_i = np.concatenate([best_i, part + lo], axis=1)
+        sel = np.argpartition(-cat_s, k - 1, axis=1)[:, :k]
+        best_s = np.take_along_axis(cat_s, sel, axis=1)
+        best_i = np.take_along_axis(cat_i, sel, axis=1)
+    order = np.argsort(-best_s, axis=1, kind="stable")
+    best_s = np.take_along_axis(best_s, order, axis=1)
+    best_i = np.take_along_axis(best_i, order, axis=1)
+    return best_s, [set(row.tolist()) for row in best_i]
+
+
+def unit_rows(rng, n, d):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x
+
+
+def same_topk(s1, i1, s2, i2, rtol):
+    """Scores within rtol; ids equal except where the scores tie."""
+    import torch
+
+    if not torch.allclose(s1, s2, rtol=rtol, atol=0.0):
+        return False
+    return bool(((i1 == i2) | (s1 == s2)).all())
+
+
+def phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results):
+    """Kernel #4 against its plain version, at the bench shape and on a small
+    ragged shape. Chunk maxima within CMAX_ATOL (with the same -inf pads);
+    the final top-k of both phase 1s equal, ids up to exact ties."""
+    import torch
+
+    from ircl_tpu_torch.ops.dense_topk_cuda import (
+        chunk_max, chunk_max_ref, pad_corpus_t, select_rescore,
+    )
+
+    rng = np.random.default_rng(6)
+    sq = torch.tensor(unit_rows(rng, 37, DENSE_D), device=dev)
+    s_ct, s_m = pad_corpus_t(torch.tensor(unit_rows(rng, 5000, DENSE_D), device=dev),
+                             1024)  # 5000 real columns of 5120
+    s_rows = s_ct.T.contiguous()
+    shapes = {
+        "bench": (q_d, ct_d, rows_d, m_real, DENSE_TILE),
+        "ragged": (sq, s_ct, s_rows, s_m, 1024),
+    }
+    configs = [  # (label, precision, epilogue, extra_chunks, bf16 corpus)
+        ("fold/high3", "high3", "fold", 0, False),
+        ("loop/highest", "highest", "loop", 0, False),
+        ("bf16 corpus/extra 2", "default", "fold", 2, True),
+    ]
+    for shape, (q, ct, rows, m, tile) in shapes.items():
+        for label, prec, epi, extra, bf16 in configs:
+            c = ct.to(torch.bfloat16) if bf16 else ct
+            args = (q, c, DENSE_CHUNK, tile, m, prec, epi)
+            got = chunk_max(*args)
+            ref = chunk_max_ref(*args)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ref)
+            if not torch.equal(torch.isfinite(got), fin):
+                fail(f"phase 6: {shape} {label}: the -inf pads differ")
+            err = float((got[fin] - ref[fin]).abs().max())
+            if err > CMAX_ATOL:
+                fail(f"phase 6: {shape} {label}: chunk maxima differ by {err}")
+            s1, i1 = select_rescore(q, c, got, K, DENSE_CHUNK, tile, m, extra,
+                                    epi, rows)
+            s2, i2 = select_rescore(q, c, ref, K, DENSE_CHUNK, tile, m, extra,
+                                    epi, rows)
+            if not same_topk(s1, i1, s2, i2, 1e-6):
+                fail(f"phase 6: {shape} {label}: top-{K} differs from the plain path")
+            t_k = cuda_ms(lambda: chunk_max(*args))
+            t_p = cuda_ms(lambda: chunk_max_ref(*args), reps=2)
+            log(f"phase 6: {shape} B={q.shape[0]} M_pad={c.shape[1]} "
+                f"(m_real {m}) {label}: chunk maxima within {err:.3g} "
+                f"(bound {CMAX_ATOL}), top-{K} equal ({int((i1 != i2).sum())} ids "
+                f"differ, all at ties); kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+            if shape == "bench" and label == "fold/high3":
+                results["cosine_topk_fused"] = dict(
+                    max_abs_err=err, ms=t_k, plain_ms=t_p
+                )
+            del got, ref
+
+
+def timed_qps(fn, batch, reps=10):
+    """Queries per second of ``fn`` by the host clock around synchronized
+    runs (one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return batch * reps / (time.perf_counter() - t0)
+
+
+def phase7_dense_bench(dev, queries, corpus, q_d, ct_d, rows_d, m_real):
+    """bench_dense.py on the port: the engines, the full-batch numpy gate on
+    the fused one, q/s."""
+    import torch
+
+    from ircl_tpu_torch.dense.scorer import cosine_topk_scan, cosine_topk_twophase
+    from ircl_tpu_torch.ops.dense_topk_cuda import cosine_topk_fused
+
+    corpus_d = torch.tensor(corpus, device=dev)
+    fused = lambda prec: lambda: cosine_topk_fused(  # noqa: E731
+        q_d, ct_d, k=K, chunk=DENSE_CHUNK, m_tile=DENSE_TILE, m_real=m_real,
+        epilogue="fold", precision=prec, corpus_rows=rows_d,
+    )
+    engines = {
+        "fused_fold_high3": fused("high3"),
+        "twophase_highest": lambda: cosine_topk_twophase(
+            q_d, corpus_d, k=K, chunk=128, precision="highest"),
+        "scan_highest": lambda: cosine_topk_scan(
+            q_d, corpus_d, k=K, chunk=64, block=DENSE_SCAN_BLOCK, precision="highest"),
+        "fused_fold_None (informational)": fused(None),
+    }
+    t0 = time.perf_counter()
+    ref_s, ref_sets = _topk_ref_blocked(queries, corpus, K)
+    log(f"phase 7: full-batch numpy f32 reference (bench_dense.py's) in "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    torch.cuda.reset_peak_memory_stats()
+    for name, fn in engines.items():
+        s, i = (x.cpu().numpy() for x in fn())
+        bad_s = sum(
+            not np.allclose(s[b], ref_s[b], rtol=1e-5) for b in range(DENSE_B)
+        )
+        bad_i = sum(set(i[b].tolist()) != ref_sets[b] for b in range(DENSE_B))
+        qps = timed_qps(fn, DENSE_B)
+        log(f"phase 7: {name}: full-batch score parity {DENSE_B - bad_s}/"
+            f"{DENSE_B} (rtol 1e-5; id-set tie swaps {bad_i}); {qps:.1f} q/s")
+        if name == "fused_fold_high3" and bad_s:
+            fail(f"phase 7: the fused engine failed the full-batch gate on "
+                 f"{bad_s} queries")
+    log(f"phase 7: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB (engines and data)")
+    del corpus_d
+
+
+def phase8_encoder(dev, wiki, doc_ids):
+    """The encoder at full width: the card against the CPU on 16 sentences,
+    a row alone against the same row in a full batch, then every sentence
+    of the docs embedded."""
+    import torch
+
+    from ircl_tpu_torch.contrastive.state import TrainConfig
+    from ircl_tpu_torch.contrastive.train import make_embed_fn
+    from ircl_tpu_torch.dense.embed import embed_corpus
+    from ircl_tpu_torch.models.encoder import init_encoder_params
+    from ircl_tpu_torch.models.featurizer import FeaturizerConfig, TransformerFeaturizer
+    from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from ircl_tpu_torch.utils.convert import to_device
+
+    t0 = time.perf_counter()
+    fcfg = FeaturizerConfig(kind="transformer")
+    tok = WordPieceTokenizer.train(
+        [wiki.docs[d]["text"] for d in doc_ids], vocab_size=fcfg.wp_vocab
+    )
+    feat = TransformerFeaturizer.random_init(tok, fcfg, device=dev)
+    tcfg = TrainConfig()
+    params = init_encoder_params(
+        torch.Generator().manual_seed(ENC_SEED), tcfg.encoder, device=dev
+    )
+    embed_fn = make_embed_fn(tcfg, feat)
+    n_tf = sum(t.numel() for t in _leaves(feat.params))
+    n_enc = sum(t.numel() for t in _leaves(params))
+    log(f"phase 8: vocab {tok.vocab_size}, transformer {feat.tcfg.layers} x "
+        f"{feat.tcfg.hidden} ({n_tf / 1e6:.1f}M params), BiLSTM "
+        f"{tcfg.encoder.num_layers} x {tcfg.encoder.hidden_size} -> "
+        f"{tcfg.encoder.output_size} ({n_enc / 1e6:.2f}M); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    doc_sentences = {d: wiki.sentences[d] for d in doc_ids}
+    sents = [s for d in doc_ids for s in doc_sentences[d] if s]
+
+    # the card against the CPU, same weights
+    feat_cpu = TransformerFeaturizer(tok, feat.tcfg, to_device(feat.params, "cpu"),
+                                     fcfg, device="cpu")
+    ids, mask = feat.encode_host(sents[:16])
+    e_dev = embed_fn(params, ids, mask).cpu()
+    e_cpu = make_embed_fn(tcfg, feat_cpu)(to_device(params, "cpu"), ids, mask)
+    err = float((e_dev - e_cpu).abs().max())
+    if err > ENC_DEVICE_ATOL:
+        fail(f"phase 8: the card and the CPU differ by {err}")
+    log(f"phase 8: 16 sentences on the card and on the CPU agree within "
+        f"{err:.3g} (bound {ENC_DEVICE_ATOL})")
+    del feat_cpu
+
+    # rows do not depend on their batch position or the padding
+    batch = sents[:ENC_BATCH]
+    inside = embed_corpus(embed_fn, params, feat, batch, ENC_BATCH)[37]
+    alone = embed_corpus(embed_fn, params, feat, [batch[37]], ENC_BATCH)[0]
+    moved = embed_corpus(embed_fn, params, feat, [batch[37]] + batch[:-1],
+                         ENC_BATCH)[0]
+    d_alone = float(np.abs(inside - alone).max())
+    d_moved = float(np.abs(inside - moved).max())
+    if max(d_alone, d_moved) > 1e-6:
+        fail(f"phase 8: a row depends on its batch ({d_alone}, {d_moved})")
+    log(f"phase 8: row 37 alone ({ENC_BATCH - 1} pad rows) differs by {d_alone:.3g}, at "
+        f"position 0 of a full batch by {d_moved:.3g}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = embed_corpus(embed_fn, params, feat, sents, ENC_BATCH)
+    dt = time.perf_counter() - t0
+    norms = np.linalg.norm(table, axis=1)
+    if table.shape != (len(sents), tcfg.encoder.output_size):
+        fail(f"phase 8: table shape {table.shape}")
+    if not np.isfinite(table).all() or not np.allclose(norms, 1.0, atol=1e-5):
+        fail("phase 8: sentence embeddings are not finite unit rows")
+    log(f"phase 8: embedded {len(sents)} sentences of {len(doc_ids)} docs at "
+        f"batch {ENC_BATCH} in {dt:.2f} s: {len(sents) / dt:.1f} sentences/s "
+        f"(host tokenization included); all finite, unit norm within 1e-5")
+    return tcfg, feat, params, doc_sentences, table
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def same_keys_up_to_ties(a, b, atol=1e-6):
+    """Two score-desc hit lists with the same (doc_id, sent_id) sequence,
+    except where the scores of the differing places tie within atol."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        same = (x["doc_id"], x["sent_id"]) == (y["doc_id"], y["sent_id"])
+        if not same and abs(x["score"] - y["score"]) > atol:
+            return False
+    return True
+
+
+def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, params,
+                           doc_sentences, table, tmpdir):
+    """Served sentence search over the encoder docs, each reply checked; then
+    the dense top-k over the sentence table against numpy."""
+    import torch
+
+    from ircl_tpu_torch.index.build import build_count_index
+    from ircl_tpu_torch.index.tfidf import tfidf_transform
+    from ircl_tpu_torch.ops.dense_topk_cuda import chunk_max, cosine_topk_fused, pad_corpus_t
+    from ircl_tpu_torch.pipeline.dense_scorer import (
+        ContrastiveSentenceScorer, PrecomputedSentenceScorer,
+    )
+    from ircl_tpu_torch.pipeline.retrieve import gather_candidates
+    from ircl_tpu_torch.serve import RetrievalService, make_service
+
+    index = tfidf_transform(build_count_index(
+        store, ngram=2, hash_size=HASH_SIZE, doc_ids=doc_ids
+    ))
+    path = os.path.join(tmpdir, "index_sentences.npz")
+    index.save(path)
+    fly = ContrastiveSentenceScorer(tcfg, feat, params, batch_size=ENC_BATCH)
+    pre = PrecomputedSentenceScorer(fly.embed, doc_sentences, table=table)
+    svc = make_service(path, device=dev, doc_sentences=doc_sentences,
+                       sentence_scorer=pre)
+    svc.warmup()
+    row_of = {}
+    for d in doc_ids:
+        for si, s in enumerate(doc_sentences[d]):
+            if s:
+                row_of[(d, si)] = len(row_of)
+    own = set(doc_ids)
+    mine = [c.claim for c in wiki.claims if set(c.evidences) & own]
+    if len(mine) < 111:
+        fail(f"phase 9: {len(mine)} claims have evidence in these docs; 111 needed")
+    log(f"phase 9: index of {index.num_docs} docs, {table.shape[0]} table rows; "
+        f"{len(mine)} of the claims have evidence in these docs")
+    requests = [
+        ([mine[0]], 5, 5),
+        (mine[1:101], 5, 3),
+        (mine[101:111], 2, 7),
+        None,
+    ]
+    lines = [
+        json.dumps({"query": mine[0], "sentences": True}),
+        json.dumps({"queries": mine[1:101], "k_sents": 3}),
+        json.dumps({"queries": mine[101:111], "k": 2, "k_sents": 7}),
+        json.dumps({"queries": [mine[0]], "k_sents": -1}),
+    ]
+    t0 = time.perf_counter()
+    served, replies = serve_lines(svc, lines)
+    log(f"phase 9: served {served} sentence requests in "
+        f"{time.perf_counter() - t0:.2f} s; metrics {svc.metrics.snapshot()}")
+    svc_fly = RetrievalService(svc.ranker, batch_size=svc.batch_size,
+                               doc_sentences=doc_sentences, sentence_scorer=fly)
+    checked = 0
+    for req, rep in zip(requests, replies):
+        if req is None:
+            if "error" not in rep:
+                fail(f"phase 9: malformed line answered without an error: {rep}")
+            continue
+        if "results" not in rep:
+            fail(f"phase 9: request failed: {rep}")
+        queries, k, k_sents = req
+        docs = svc.search(queries, k=k)
+        check_replies([{"results": docs}], [(queries, k)], index, "phase 9 docs")
+        doc_lists = [[h["doc_id"] for h in hits] for hits in docs]
+        _, cand_keys = gather_candidates(doc_lists, doc_sentences)
+        claim_emb = fly.embed(queries)
+        for q, hits in enumerate(rep["results"]):
+            rows = table[[row_of[key] for key in cand_keys[q]]]
+            all_scores = np.sort(rows @ claim_emb[q])[::-1][:k_sents]
+            got = np.array([h["score"] for h in hits], np.float32)
+            if len(got) != len(all_scores) or not np.allclose(got, all_scores,
+                                                              rtol=1e-5):
+                fail(f"phase 9: sentences are not the top {k_sents} of their "
+                     f"candidates: {got} != {all_scores}")
+            for h in hits:
+                if h["doc_id"] not in doc_lists[q]:
+                    fail(f"phase 9: {h['doc_id']} is not among the top {k} docs")
+                want = float(table[row_of[(h["doc_id"], h["sent_id"])]] @ claim_emb[q])
+                if not np.isclose(h["score"], want, rtol=1e-5, atol=0.0):
+                    fail(f"phase 9: score {h['score']} != table dot {want}")
+                if h["sentence"] != doc_sentences[h["doc_id"]][h["sent_id"]]:
+                    fail("phase 9: a reply names the wrong sentence")
+            checked += 1
+        on_the_fly = svc_fly.search_sentences(queries, k=k, k_sents=k_sents)
+        for a, b in zip(rep["results"], on_the_fly):
+            if not same_keys_up_to_ties(a, b):
+                fail("phase 9: the precomputed and on-the-fly services differ")
+    log(f"phase 9: {checked} sentence results checked: docs against scipy "
+        f"(rtol 1e-4), every score the table row's dot with the claim (rtol "
+        f"1e-5), the top k_sents of the candidates, and the same (doc, sent) "
+        f"lists from the on-the-fly scorer; the malformed line got an error")
+
+    # dense search over the sentence table with the claims' embeddings
+    before = chunk_max.launches
+    q_emb = fly.embed(claims[:DENSE_B])
+    tab_d = torch.tensor(table, device=dev)
+    ct, m = pad_corpus_t(tab_d, DENSE_TILE)
+    rows = ct.T.contiguous()
+    s, i = cosine_topk_fused(
+        torch.tensor(q_emb, device=dev), ct, k=K, chunk=DENSE_CHUNK,
+        m_tile=DENSE_TILE, m_real=m, epilogue="fold", precision="high3",
+        corpus_rows=rows,
+    )
+    if chunk_max.launches == before:
+        fail("phase 9: the dense top-k did not launch the chunk-max kernel")
+    ref = q_emb @ table.T
+    ref_s = -np.sort(-ref, axis=1)[:, :K]
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    # the table repeats some sentences, so equal rows tie: every returned id
+    # must carry its own numpy score, and the scores be numpy's top-K
+    own = np.take_along_axis(ref, i.astype(np.int64), axis=1)
+    bad = (~np.isclose(s, ref_s, rtol=1e-5, atol=0.0)).any(axis=1) | (
+        ~np.isclose(own, s, rtol=1e-5, atol=0.0)).any(axis=1)
+    if bad.any() or i.max() >= m or any(len(set(r)) < K for r in i):
+        fail(f"phase 9: dense top-{K} over the sentence table differs from "
+             f"numpy on {int(bad.sum())} claims")
+    log(f"phase 9: dense top-{K} of {DENSE_B} claims over {m} sentence rows "
+        f"(fold/high3) equals numpy's exact top-{K} (rtol 1e-5; distinct ids, "
+        f"each carrying its own score)")
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -188,6 +582,7 @@ def main() -> None:
     log(f"phase 0: native host library loaded: {native_available()}")
 
     # ---- phase 1: corpus and index ----------------------------------------
+    t_sparse = time.perf_counter()
     t0 = time.perf_counter()
     wiki = generate(num_docs=NUM_DOCS, num_claims=NUM_CLAIMS, seed=11)
     claims = [c.claim for c in wiki.claims]
@@ -446,6 +841,53 @@ def main() -> None:
         f"{ev[1].elapsed_time(ev[2]):.3f} ms, light-add + top-k "
         f"{ev[2].elapsed_time(ev[3]):.3f} ms")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phases 1-5: {time.perf_counter() - t_sparse:.1f} s")
+    del ranker, m, wt, h_t, ts, ti, top_s, top_pos, u_pad, qb_t, qw_t, ld, lc
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: kernel #4 against its plain version ----------------------
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)  # bench_dense.py's data, in its order
+    dense_corpus = unit_rows(rng, DENSE_M, DENSE_D)
+    dense_queries = unit_rows(rng, DENSE_B, DENSE_D)
+    from ircl_tpu_torch.ops.dense_topk_cuda import chunk_max, pad_corpus_t
+
+    q_d = torch.tensor(dense_queries, device=dev)
+    ct_d, m_real = pad_corpus_t(torch.tensor(dense_corpus, device=dev), DENSE_TILE)
+    rows_d = ct_d.T.contiguous()  # [M_pad, D] f32 rescore rows
+    phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results)
+    log(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the dense path: phases 7-9, with fresh launch counts --------------
+    kernels["cosine_topk_fused"] = chunk_max  # launches kernel #4
+    for fn in kernels.values():
+        fn.launches = 0
+
+    # ---- phase 7: bench_dense.py's configuration ---------------------------
+    t_phase = time.perf_counter()
+    phase7_dense_bench(dev, dense_queries, dense_corpus, q_d, ct_d, rows_d, m_real)
+    del q_d, ct_d, rows_d, dense_corpus
+    torch.cuda.empty_cache()
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 8: the encoder at full width --------------------------------
+    t_phase = time.perf_counter()
+    enc_docs = store.get_doc_ids()[:ENC_DOCS]
+    tcfg, feat, enc_params, doc_sentences, table = phase8_encoder(dev, wiki, enc_docs)
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 9: served sentence search -----------------------------------
+    t_phase = time.perf_counter()
+    phase9_sentence_search(dev, store, wiki, claims, enc_docs, tcfg, feat,
+                           enc_params, doc_sentences, table, tmp.name)
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    if chunk_max.launches == 0:
+        fail("cosine_topk_fused was not launched on the dense path")
+    launches["cosine_topk_fused"] = chunk_max.launches
+    log(f"phases 7-9: kernel launches {{'cosine_topk_fused': {chunk_max.launches}}}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(phases 7-9)")
+
     tmp.cleanup()
     if "jax" in sys.modules:
         fail("JAX was imported")
@@ -462,6 +904,10 @@ def main() -> None:
         "light_add_topk_t": (
             "ircl_tpu_torch/csrc/light_add_topk.cu",
             "ircl_tpu/ops/light_add_pallas.py:54",
+        ),
+        "cosine_topk_fused": (
+            "ircl_tpu_torch/csrc/dense_cmax.cu",
+            "ircl_tpu/ops/dense_topk_pallas.py:59",
         ),
     }
     report = []

@@ -1,0 +1,106 @@
+"""Multi-layer bidirectional LSTM on tensors.
+
+Counterpart of ``ircl_tpu/ops/bilstm.py`` (``lax.scan`` there), which
+replaces the reference's cuDNN ``nn.LSTM`` encoder head
+(``src/model.py:16-22``). Same layout and numerics:
+
+- per layer and direction ``w_ih [4H, I]``, ``w_hh [4H, H]`` and one
+  folded bias ``b [4H]`` (torch gate order i, f, g, o);
+- the input projection ``x @ w_ih^T + b`` for the whole sequence is one
+  matrix product per layer and direction, hoisted out of the recurrence;
+- the recurrence is a Python loop over time in which both directions of a
+  layer step together as one batched product (the reverse direction walks
+  the sequence backwards);
+- init as the reference (``src/model.py:29-36``): Xavier-uniform ``w_ih``,
+  orthogonal ``[4H, H]`` ``w_hh``, zero bias, drawn from an explicit
+  ``torch.Generator``.
+
+cuDNN's LSTM is not used, so no TF32 switch applies to the recurrence; the
+products run in full fp32 under ``utils.precision.float32_precision`` at the
+callers (``contrastive.train.make_embed_fn``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+
+def _xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
+    fan_out, fan_in = shape[0], shape[1]
+    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+    return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+
+
+def _orthogonal(gen: torch.Generator, shape) -> torch.Tensor:
+    a = torch.randn(shape, generator=gen)
+    tall = shape[0] >= shape[1]
+    q, r = torch.linalg.qr(a if tall else a.T)
+    q = q * torch.sign(torch.diagonal(r))
+    return q if tall else q.T
+
+
+def init_bilstm_params(
+    gen: torch.Generator,
+    input_size: int,
+    hidden_size: int,
+    num_layers: int,
+    bidirectional: bool = True,
+    device="cpu",
+) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+    """Per-layer params ``{'fwd': {...}, 'bwd': {...}}`` (no ``bwd`` when
+    unidirectional), drawn on the CPU from ``gen`` and moved to ``device``,
+    so one seed gives the same weights on every device."""
+    dirs = 2 if bidirectional else 1
+    layers = []
+    for layer in range(num_layers):
+        in_size = input_size if layer == 0 else hidden_size * dirs
+        layer_params = {}
+        for d in range(dirs):
+            # orthogonal init over the whole [4H, H] gate stack, as the
+            # reference's init_weights does over the named parameters
+            w_ih = _xavier_uniform(gen, (4 * hidden_size, in_size))
+            w_hh = _orthogonal(gen, (4 * hidden_size, hidden_size))
+            layer_params["bwd" if d else "fwd"] = {
+                "w_ih": w_ih.to(device),
+                "w_hh": w_hh.to(device),
+                "b": torch.zeros(4 * hidden_size, device=device),
+            }
+        layers.append(layer_params)
+    return layers
+
+
+def _bilstm_layer(dirs: List[Dict[str, torch.Tensor]], x: torch.Tensor):
+    """One layer, its directions stepping together. x: [B, L, I] ->
+    [B, L, H * len(dirs)]; dirs[1], when present, runs backwards."""
+    B, L, _ = x.shape
+    H = dirs[0]["w_hh"].shape[1]
+    n = len(dirs)
+    # hoisted input projections: [n, B, L, 4H]
+    xp = torch.stack([x @ p["w_ih"].T + p["b"] for p in dirs])
+    w_hh_t = torch.stack([p["w_hh"].T for p in dirs])  # [n, H, 4H]
+    h = x.new_zeros((n, B, H))
+    c = x.new_zeros((n, B, H))
+    out = x.new_empty((n, B, L, H))
+    for s in range(L):
+        t = [s, L - 1 - s][:n]  # the time step of each direction
+        xt = torch.stack([xp[d, :, t[d]] for d in range(n)])
+        gates = xt + torch.bmm(h, w_hh_t)  # [n, B, 4H]
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        for d in range(n):
+            out[d, :, t[d]] = h[d]
+    return torch.cat(list(out), dim=-1)
+
+
+def bilstm_apply(layers, x: torch.Tensor) -> torch.Tensor:
+    """Full stack. x: [B, L, I] -> [B, L, H * dirs]."""
+    out = x
+    for layer_params in layers:
+        dirs = [layer_params["fwd"]]
+        if "bwd" in layer_params:
+            dirs.append(layer_params["bwd"])
+        out = _bilstm_layer(dirs, out)
+    return out

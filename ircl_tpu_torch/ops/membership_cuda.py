@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ircl_tpu_torch.utils.precision import float32_precision
+
 
 def _check_slab_args(u_sorted, terms_t, contrib_t) -> None:
     if u_sorted.dim() != 1 or terms_t.dim() != 2:
@@ -146,18 +148,11 @@ def pad_for_slab(terms_t, contrib_t, d_tile: int, k_multiple: int = 8):
 
 
 def scores_matmul(a: torch.Tensor, b: torch.Tensor, tf32: bool = False):
-    """The scoring GEMM ``a @ b``. Full fp32 unless ``tf32``: it sets
-    ``torch.backends.cuda.matmul.allow_tf32`` to ``tf32`` for the call and
-    restores the caller's fp32 matmul precision after, so a global TF32
-    setting cannot lower an exact engine's scores. The switch is
-    process-wide; callers that score from several threads serialize (the
-    service holds a lock)."""
-    prev = torch.get_float32_matmul_precision()
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    try:
+    """The scoring GEMM ``a @ b``. Full fp32 unless ``tf32``, whatever the
+    caller's global TF32 setting, so it cannot lower an exact engine's
+    scores (``utils/precision.py``)."""
+    with float32_precision(tf32):
         return torch.matmul(a, b)
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def membership_topk_fused(

@@ -13,12 +13,15 @@ stdin transport:
   error reply instead of killing the loop.
 - **Bulk stdin.** ``serve_stdin`` drains the lines already buffered and
   scores the plain doc searches among them together.
+- **Two-stage sentence search.** With ``doc_sentences`` and a
+  ``sentence_scorer`` (``pipeline/dense_scorer.py``), ``search_sentences``
+  re-ranks every sentence of the top docs; a scorer with ``score_keys``
+  (the precomputed table) is scored by key, without re-embedding.
 
-Not ported yet (ROADMAP.md queue 1 item 7): the sentence stage, the verdict
-stage, the chunked engine (``chunk_docs``), ``BatchingService`` and both
-HTTP fronts. Their constructor arguments raise ``NotImplementedError``;
-sentence and claim requests get the same error reply as a reference
-service built without those stages.
+Not ported yet (ROADMAP.md queue 1 item 7): the verdict stage, the chunked
+engine (``chunk_docs``), ``BatchingService`` and both HTTP fronts. Their
+constructor arguments raise ``NotImplementedError``; claim requests get
+the same error reply as a reference service built without a verdict stage.
 """
 
 from __future__ import annotations
@@ -30,8 +33,11 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ircl_tpu_torch.index.build import CountIndex
 from ircl_tpu_torch.index.ranker import TfidfRanker
+from ircl_tpu_torch.pipeline.retrieve import gather_candidates
 
 _NO_SENTENCES = (
     "sentence search unavailable: service was built without a "
@@ -156,12 +162,11 @@ class RetrievalService:
         batch_size: int = 256,
         default_k: int = 5,
         k_max: Optional[int] = None,
-        doc_sentences=None,
+        doc_sentences: Optional[Dict[str, List[str]]] = None,
         sentence_scorer=None,
+        default_k_sents: int = 5,
         verdict_classifier=None,
     ):
-        if doc_sentences is not None or sentence_scorer is not None:
-            raise _not_ported("the sentence stage")
         if verdict_classifier is not None:
             raise _not_ported("the verdict stage")
         if batch_size <= 0:
@@ -178,6 +183,9 @@ class RetrievalService:
             max(default_k, k_max if k_max is not None else 2 * default_k),
             max(1, _ranker_num_docs(ranker)),
         )
+        self.doc_sentences = doc_sentences
+        self.sentence_scorer = sentence_scorer
+        self.default_k_sents = default_k_sents
         self.metrics = ServiceMetrics()
         self._lock = threading.Lock()
 
@@ -185,9 +193,16 @@ class RetrievalService:
     def num_docs(self) -> int:
         return _ranker_num_docs(self.ranker)
 
+    @property
+    def has_sentence_stage(self) -> bool:
+        return self.sentence_scorer is not None and self.doc_sentences is not None
+
     def warmup(self) -> None:
-        """Run one batch before traffic (kernel build, first allocations)."""
+        """Run one batch before traffic (kernel build, first allocations),
+        and one sentence-scorer call when the sentence stage is set."""
         self.search(["warmup"])
+        if self.has_sentence_stage:
+            self.sentence_scorer(["warmup"], [["warmup sentence"]])
 
     def _validate(self, queries, k: Optional[int]) -> int:
         if isinstance(queries, str) or not all(
@@ -227,6 +242,63 @@ class RetrievalService:
             for ids, scores in self._ranked(queries, k)
         ]
 
+    def search_sentences(
+        self,
+        queries: Sequence[str],
+        k: Optional[int] = None,
+        k_sents: Optional[int] = None,
+    ) -> List[List[dict]]:
+        """Two-stage search: sparse top-k docs, then the sentence scorer
+        re-ranks every sentence of those docs. Per query, a score-desc list
+        of ``{"doc_id", "sent_id", "sentence", "score"}``."""
+        k = self._validate(queries, k)
+        k_sents = self.default_k_sents if k_sents is None else k_sents
+        n = len(queries)
+        return self.search_sentences_multi(queries, [k] * n, [k_sents] * n)
+
+    def search_sentences_multi(
+        self,
+        queries: Sequence[str],
+        ks: Sequence[int],
+        k_sents: Sequence[int],
+    ) -> List[List[dict]]:
+        """Per-query (k, k_sents) variant of ``search_sentences``: one shared
+        stage-1 batch and one stage-2 scoring pass. Exact: the top-``ki``
+        docs of a top-``max(ks)`` ranking are that query's own top-``ki``,
+        and stage-2 scores are per query."""
+        if not self.has_sentence_stage:
+            raise ValueError(_NO_SENTENCES)
+        if not queries:
+            return []
+        doc_ids = [
+            ids[:ki]
+            for (ids, _), ki in zip(self._ranked(queries, max(ks)), ks)
+        ]
+        cand_sents, cand_keys = gather_candidates(doc_ids, self.doc_sentences)
+        if hasattr(self.sentence_scorer, "score_keys"):
+            # precomputed-table scorer: candidates come from the same
+            # doc_sentences its table indexes, so stage 2 is a row gather
+            # and a dot, with no sentence re-embedded
+            scores = self.sentence_scorer.score_keys(list(queries), cand_keys)
+        else:
+            scores = self.sentence_scorer(list(queries), cand_sents)
+        out: List[List[dict]] = []
+        for sents, keys, sc, ksent in zip(cand_sents, cand_keys, scores, k_sents):
+            sc = np.asarray(sc)
+            order = np.argsort(-sc)[:ksent]
+            out.append(
+                [
+                    {
+                        "doc_id": keys[j][0],
+                        "sent_id": keys[j][1],
+                        "sentence": sents[j],
+                        "score": float(sc[j]),
+                    }
+                    for j in order
+                ]
+            )
+        return out
+
 
 def make_service(
     index_path: str,
@@ -238,8 +310,9 @@ def make_service(
     split_path: Optional[str] = None,
     mode: str = "auto",
     k_max: Optional[int] = None,
-    doc_sentences=None,
+    doc_sentences: Optional[Dict[str, List[str]]] = None,
     sentence_scorer=None,
+    default_k_sents: int = 5,
     verdict_classifier=None,
     chunk_docs: Optional[int] = None,
     *,
@@ -249,11 +322,10 @@ def make_service(
     reference's ``cli build-index`` writes) into a serving-configured ranker
     on ``device``: shapes pinned (``fixed_max_terms``, ``fixed_union_cap``,
     ``union_round``, service-level ``k_max``), df-split optionally preloaded
-    (``index/split.py::save_split``) to skip the cold-start rebuild."""
+    (``index/split.py::save_split``) to skip the cold-start rebuild. Pass
+    ``doc_sentences`` + ``sentence_scorer`` to enable ``search_sentences``."""
     if chunk_docs:
         raise _not_ported("the chunked engine (chunk_docs)")
-    if doc_sentences is not None or sentence_scorer is not None:
-        raise _not_ported("the sentence stage")
     if verdict_classifier is not None:
         raise _not_ported("the verdict stage")
     index = CountIndex.load(index_path)
@@ -272,14 +344,20 @@ def make_service(
         split=split,
     )
     return RetrievalService(
-        ranker, batch_size=batch_size, default_k=default_k, k_max=k_max
+        ranker,
+        batch_size=batch_size,
+        default_k=default_k,
+        k_max=k_max,
+        doc_sentences=doc_sentences,
+        sentence_scorer=sentence_scorer,
+        default_k_sents=default_k_sents,
     )
 
 
 def _handle(service: RetrievalService, req) -> dict:
     """Execute one decoded request: a reply payload, or ValueError on a
-    malformed request. Sentence and claim requests are refused with the
-    reference's replies for a service without those stages."""
+    malformed request. Claim requests are refused with the reference's
+    reply for a service without a verdict stage."""
     t0 = time.monotonic()
     try:
         if isinstance(req, dict) and ("claims" in req or "claim" in req):
@@ -287,8 +365,11 @@ def _handle(service: RetrievalService, req) -> dict:
             raise ValueError(_NO_VERDICT)
         queries, k, k_sents = parse_request(req)
         if req.get("sentences") or k_sents is not None:
-            raise ValueError(_NO_SENTENCES)
-        payload = {"results": service.search(queries, k=k)}
+            payload = {
+                "results": service.search_sentences(queries, k=k, k_sents=k_sents)
+            }
+        else:
+            payload = {"results": service.search(queries, k=k)}
     except BaseException:
         service.metrics.record_error()
         raise
@@ -331,14 +412,17 @@ _SKIP = object()  # blank input line: emit nothing
 
 def serve_stdin(service: RetrievalService, infile, outfile) -> int:
     """JSONL loop: one request object per line (``{"queries": [...], "k": n}``
-    or ``{"query": "..."}``), one ``{"results": ...}`` reply line each;
+    or ``{"query": "..."}``; add ``"sentences": true`` / ``"k_sents": n`` for
+    the two-stage reply), one ``{"results": ...}`` reply line each;
     blank lines skipped, malformed lines get an ``{"error": ...}`` line and
     the loop continues. Returns the number of requests served.
 
     Plain doc-search lines that are already buffered are drained together
     and share device batches — grouped by requested ``k``, scored in one
     ``service.search`` call per group, replies in input order. The engines
-    are exact, so each result is independent of its batch-mates."""
+    are exact, so each result is independent of its batch-mates. Sentence
+    lines and malformed lines keep their per-line handling inside the same
+    drain."""
     served = 0
     cap = max(1, service.batch_size)
     while True:

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``ircl_tpu_torch/csrc/*.cu``).
 
 Counterpart of ``ircl_tpu/utils/native_build.py``, which builds the C++
-host library with g++. Here nvcc compiles every ``csrc/*.cu`` into one
-shared library with a plain C interface, at first use, for Hopper:
+host library with g++. Here nvcc compiles every ``csrc/*.cu`` for Hopper,
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, at first use:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o libircl_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <source>.o csrc/<source>.cu
+    nvcc -shared -o libircl_kernels.so *.o
 
 The library lands in ``ircl_tpu_torch/_build/<hash>/``, keyed by a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one
@@ -34,9 +36,10 @@ from dataclasses import dataclass
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills per kernel
 )
+LINK_FLAGS = ("-shared",)
 LIB_NAME = "libircl_kernels.so"
 
 _P = ctypes.c_void_p
@@ -46,6 +49,8 @@ _SIGNATURES = {
     "ircl_membership_slab": ([_P, _I, _P, _P, _I, _I, _P, _P], ctypes.c_int),
     "ircl_light_add_topk": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
                             ctypes.c_int),
+    "ircl_dense_cmax": ([_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+                        ctypes.c_int),
     "ircl_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -73,7 +78,7 @@ def _nvcc() -> str:
 
 
 def _source_key(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in srcs:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -106,18 +111,44 @@ def build(srcs=None) -> tuple:
     if os.path.exists(out):
         return out, 0.0, ""
     os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [
+        os.path.join(out_dir, f"{os.path.basename(p)}.{os.getpid()}.o")
+        for p in srcs
+    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together; then one link
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in compiles
+    ]
+    outputs = [p.communicate()[0] for p in procs]
+    log = "".join(outputs)
+    try:
+        for cmd, p, text in zip(compiles, procs, outputs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {p.returncode}): {' '.join(cmd)}\n{text}"
+                )
+        link = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(link)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds, proc.stdout + proc.stderr
+    return out, seconds, log + proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,7 +17,7 @@ from ircl_tpu_torch.utils import kernel_build as kb
 
 def test_sources_are_the_package_csrc():
     names = sorted(os.path.basename(p) for p in kb.sources())
-    assert names == ["light_add_topk.cu", "membership_slab.cu"]
+    assert names == ["dense_cmax.cu", "light_add_topk.cu", "membership_slab.cu"]
     for path in kb.sources():
         text = open(path, encoding="utf-8").read()
         assert 'extern "C"' in text and "cudaGetLastError()" in text
@@ -32,6 +32,7 @@ def test_every_entry_point_has_a_signature():
     # pointers and the stream cross as c_void_p, never as a 32-bit int
     assert ctypes.c_int not in kb._SIGNATURES["ircl_membership_slab"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
+    assert ctypes.c_int not in kb._SIGNATURES["ircl_dense_cmax"][0]
 
 
 def test_source_key_follows_content(tmp_path):
@@ -44,7 +45,7 @@ def test_source_key_follows_content(tmp_path):
 
 
 def test_flags_target_hopper():
-    flags = " ".join(kb.NVCC_FLAGS)
+    flags = " ".join(kb.NVCC_FLAGS + kb.LINK_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags
 

@@ -44,14 +44,66 @@ print("JAX_MODULES", loaded)
 """
 
 
-def test_port_serves_a_request_without_loading_jax():
+_SERVE_ONE_SENTENCE_REQUEST = r"""
+import io, json, sys
+import torch
+from ircl_tpu.corpus.store import MemoryDocStore
+from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu_torch.contrastive.state import TrainConfig
+from ircl_tpu_torch.index.build import build_count_index
+from ircl_tpu_torch.index.ranker import TfidfRanker
+from ircl_tpu_torch.index.tfidf import tfidf_transform
+from ircl_tpu_torch.models.encoder import EncoderConfig, init_encoder_params
+from ircl_tpu_torch.models.featurizer import FeaturizerConfig, HashEmbedFeaturizer
+from ircl_tpu_torch.ops.dense_topk_cuda import cosine_topk_fused, pad_corpus_t
+from ircl_tpu_torch.pipeline.dense_scorer import (
+    ContrastiveSentenceScorer, PrecomputedSentenceScorer)
+from ircl_tpu_torch.serve import RetrievalService, serve_stdin
+
+wiki = generate(num_docs=40, num_claims=3, seed=3)
+store = MemoryDocStore({d: r["text"] for d, r in wiki.docs.items()})
+index = tfidf_transform(build_count_index(store, ngram=2, hash_size=1 << 18))
+feat = HashEmbedFeaturizer(FeaturizerConfig(dim=16, max_len=16, vocab_buckets=1 << 10))
+cfg = TrainConfig(encoder=EncoderConfig(input_size=16, hidden_size=8, output_size=8,
+                                        num_layers=1))
+params = init_encoder_params(torch.Generator().manual_seed(0), cfg.encoder)
+scorer = PrecomputedSentenceScorer.from_scorer(
+    ContrastiveSentenceScorer(cfg, feat, params, batch_size=8), wiki.sentences)
+svc = RetrievalService(TfidfRanker(index, "cpu"), batch_size=4,
+                       doc_sentences=wiki.sentences, sentence_scorer=scorer)
+out = io.StringIO()
+line = json.dumps({"query": wiki.claims[0].claim, "k_sents": 3})
+served = serve_stdin(svc, io.StringIO(line + "\n"), out)
+reply = json.loads(out.getvalue())
+assert served == 1 and len(reply["results"][0]) == 3, reply
+assert {"doc_id", "sent_id", "sentence", "score"} == set(reply["results"][0][0])
+ct, m = pad_corpus_t(torch.from_numpy(scorer.table), 64)
+q = torch.from_numpy(scorer._embed([wiki.claims[0].claim]))
+s, i = cosine_topk_fused(q, ct, k=3, chunk=16, m_tile=64, m_real=m, epilogue="fold")
+assert i.shape == (1, 3)
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+print("JAX_MODULES", loaded)
+"""
+
+
+def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
-        [sys.executable, "-c", _SERVE_ONE_REQUEST],
+        [sys.executable, "-c", script],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
+
+
+def test_port_serves_a_request_without_loading_jax():
+    _run_fresh(_SERVE_ONE_REQUEST)
+
+
+def test_port_serves_a_sentence_request_without_loading_jax():
+    """The hash-featurizer encoder, its sentence table, a sentence request
+    through ``serve_stdin`` and the dense top-k over the table."""
+    _run_fresh(_SERVE_ONE_SENTENCE_REQUEST)
 
 
 def _port_files():

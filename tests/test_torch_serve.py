@@ -132,8 +132,10 @@ def test_parse_request_rejects_like_the_reference(req):
     "kwargs",
     [
         dict(chunk_docs=1000),
-        dict(doc_sentences={"a": ["b"]}),
-        dict(sentence_scorer=object()),
+        # the sentence stage is ported; the stages still to port raise
+        # beside it as well
+        dict(chunk_docs=1000, doc_sentences={"a": ["b"]}),
+        dict(verdict_classifier=object(), sentence_scorer=object()),
         dict(verdict_classifier=object()),
     ],
 )
