@@ -29,11 +29,23 @@ Phases, each printed as it runs:
    then every sentence of those docs embedded;
 9. served sentence search over those docs (``make_service`` with a
    precomputed sentence table, ``serve_stdin``), every reply checked, and
-   the dense top-k over the sentence table against numpy.
+   the dense top-k over the sentence table against numpy;
+10. the flash-attention kernel against its plain version at the verdict
+    model's shape, ``[32, 12, 512, 64]``, with segment ids from tokenized
+    claim/evidence pairs, a batch with no pads and a row of one real token;
+11. the verdict classifier at roberta-base width (12 layers, 768 wide,
+    50,265-word embedding table, one token type, L=512, flash attention),
+    random weights from a seed: the card against the CPU, flash against the
+    "xla" path, a row against its batch, then pairs/s through
+    ``VerdictClassifier.classify`` at batch 32;
+12. served claim verification: the classifier saved and loaded back as a
+    checkpoint, ``make_service`` over phase 9's index and sentence table,
+    claim lines through ``serve_stdin``, every reply checked.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
-sparse path), and zeroed again before phase 7 and read after phase 9 (the
-dense path); every kernel must have run on its path. The script exits
+sparse path), zeroed again before phase 7 and read after phase 9 (the
+dense path), and again before phase 11 and read after phase 12 (the
+verdict path); every kernel must have run on its path. The script exits
 non-zero at the first failure, and when no CUDA device is present. The line
 before the last is a JSON object of the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +79,16 @@ ENC_DOCS = 5_000
 ENC_BATCH = 256
 ENC_SEED = 0  # the BiLSTM head's generator (the transformer uses its config's)
 ENC_DEVICE_ATOL = 1e-4  # card against CPU: fp32 through 12 layers, TF32 off
+# the verdict phases: bench_verdict.py's roberta-base shape, cli serve's batch
+VERDICT_L, VERDICT_BATCH, VERDICT_SEED = 512, 32, 3
+VERDICT_ENCODER = dict(  # bench_verdict.py:83-97, f32, flash attention
+    vocab_size=50265, hidden=768, layers=12, heads=12, intermediate=3072,
+    max_positions=512, type_vocab=1, position_offset=2, layernorm_eps=1e-5,
+    attention="flash",
+)
+VERDICT_PAIRS = 1024  # pairs through classify for pairs/s
+FLASH_ATOL = 1e-5  # kernel against plain version: fp32 summation order only
+VERDICT_DEVICE_ATOL = 1e-4  # logits, card against CPU and flash against xla
 
 
 def log(msg: str) -> None:
@@ -511,6 +533,238 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, params
     log(f"phase 9: dense top-{K} of {DENSE_B} claims over {m} sentence rows "
         f"(fold/high3) equals numpy's exact top-{K} (rtol 1e-5; distinct ids, "
         f"each carrying its own score)")
+    return path, pre, mine
+
+
+def verdict_pairs(wiki, doc_ids, claims, n):
+    """``n`` (claim, evidence text) pairs of mixed lengths: pair i's evidence
+    is the doc-id words and sentences of ``i % 6`` docs (none for 0), so
+    most pairs pad, each to its own length, and the longest are cut at L."""
+    pairs = []
+    for i in range(n):
+        docs = doc_ids[i % len(doc_ids):][: i % 6]
+        parts = []
+        for d in docs:
+            parts.extend(d.split("_"))
+            parts.extend(s for s in wiki.sentences[d] if s)
+        pairs.append((claims[i % len(claims)], " ".join(parts)))
+    return pairs
+
+
+def phase10_flash_kernel(dev, tok, pairs, results):
+    """Kernel #6a against its plain version at [32, 12, 512, 64]: segment
+    ids of 32 tokenized pairs (one row cut to a single real token), then of
+    a batch with no pads."""
+    import torch
+
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        SegmentIds, flash_attention, flash_attention_ref,
+    )
+
+    B = VERDICT_BATCH
+    H = VERDICT_ENCODER["heads"]
+    hd = VERDICT_ENCODER["hidden"] // H
+    scale = 1.0 / np.sqrt(hd)
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.tensor(rng.normal(size=(B, H, VERDICT_L, hd)).astype(np.float32),
+                            device=dev) for _ in range(3))
+    _, mask, _ = tok.encode_batch(pairs[:B], VERDICT_L)
+    seg = mask.astype(np.int32)
+    seg[B - 1] = 0
+    seg[B - 1, 0] = 1  # one real token
+    lengths = seg.sum(axis=1)
+    cases = {
+        "tokenized pairs": torch.tensor(seg, device=dev),
+        "no pads": torch.ones(B, VERDICT_L, dtype=torch.int32, device=dev),
+    }
+    err_all = 0.0
+    for label, s in cases.items():
+        ids = SegmentIds(q=s, kv=s)
+        got = flash_attention(q, k, v, segment_ids=ids, sm_scale=scale)
+        ref = flash_attention_ref(q, k, v, ids, scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"phase 10: {label}: the kernel wrote non-finite values")
+        err = float((got - ref).abs().max())
+        if err > FLASH_ATOL:
+            fail(f"phase 10: {label}: kernel and plain version differ by {err}")
+        err_all = max(err_all, err)
+        log(f"phase 10: {label}: every row within {err:.3g} of the plain version "
+            f"(bound {FLASH_ATOL})")
+        del got, ref
+    ids = SegmentIds(q=cases["tokenized pairs"], kv=cases["tokenized pairs"])
+    t_k = cuda_ms(lambda: flash_attention(q, k, v, segment_ids=ids, sm_scale=scale),
+                  reps=10)
+    t_p = cuda_ms(lambda: flash_attention_ref(q, k, v, ids, scale), reps=5)
+    results["flash_attention"] = dict(max_abs_err=err_all, ms=t_k, plain_ms=t_p)
+    log(f"phase 10: q, k, v [{B}, {H}, {VERDICT_L}, {hd}] f32, real lengths "
+        f"{int(lengths.min())}-{int(lengths.max())} (median "
+        f"{int(np.median(lengths))}): kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+
+
+def phase11_verdict(dev, tok, pairs):
+    """The verdict classifier at full width: card against CPU, flash against
+    xla, a row against its batch, then pairs/s through ``classify``."""
+    import dataclasses
+
+    import torch
+
+    from ircl_tpu_torch.models.transformer import TransformerConfig
+    from ircl_tpu_torch.ops.flash_attention_cuda import flash_attention
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.verdict.infer import VerdictClassifier
+    from ircl_tpu_torch.verdict.model import (
+        VerdictConfig, init_verdict_params, verdict_apply,
+    )
+
+    t0 = time.perf_counter()
+    enc = TransformerConfig(**VERDICT_ENCODER)
+    cfg = VerdictConfig(encoder=enc, max_length=VERDICT_L)
+    params = init_verdict_params(torch.Generator().manual_seed(VERDICT_SEED), cfg, dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    clf = VerdictClassifier(cfg, params, tok, batch_size=VERDICT_BATCH)
+    log(f"phase 11: verdict model {enc.layers} x {enc.hidden}, {enc.heads} heads, "
+        f"vocab {enc.vocab_size}, type_vocab {enc.type_vocab}, L={VERDICT_L} "
+        f"({n_params / 1e6:.1f}M params), tokenizer vocab {tok.vocab_size}; built "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    def logits(c, p, batch, device):
+        ids, mask, types = (torch.as_tensor(x, device=device)
+                            for x in tok.encode_batch(batch, VERDICT_L))
+        return verdict_apply(p, c, ids.long(), mask, types.long())
+
+    # the card against the CPU, 4 pairs (type ids 1 past the first [SEP])
+    four = [pairs[i] for i in (0, 5, 16, 33)]
+    t0 = time.perf_counter()
+    l_dev = logits(cfg, params, four, dev).cpu()
+    l_cpu = logits(cfg, to_device(params, "cpu"), four, "cpu")
+    err = float((l_dev - l_cpu).abs().max())
+    if not torch.isfinite(l_dev).all() or err > VERDICT_DEVICE_ATOL:
+        fail(f"phase 11: logits on the card and the CPU differ by {err}")
+    log(f"phase 11: logits of 4 pairs on the card and on the CPU agree within "
+        f"{err:.3g} (bound {VERDICT_DEVICE_ATOL}; {time.perf_counter() - t0:.1f} s)")
+
+    # flash against xla on the card, 32 pairs: logits and labels of real rows
+    batch = pairs[:VERDICT_BATCH]
+    xla = dataclasses.replace(cfg, encoder=dataclasses.replace(enc, attention="xla"))
+    l_flash, l_xla = logits(cfg, params, batch, dev), logits(xla, params, batch, dev)
+    d = float((l_flash - l_xla).abs().max())
+    margin = (l_xla[:, 1] - l_xla[:, 0]).abs()
+    clear = margin > 2 * VERDICT_DEVICE_ATOL
+    same = l_flash.argmax(-1) == l_xla.argmax(-1)
+    if d > VERDICT_DEVICE_ATOL or not bool(same[clear].all()):
+        fail(f"phase 11: flash and xla differ: logits by {d}, labels "
+             f"{int((~same).sum())}")
+    log(f"phase 11: flash and xla attention on the card, {VERDICT_BATCH} pairs: "
+        f"logits within {d:.3g}, labels equal on {int(same.sum())}/{VERDICT_BATCH} "
+        f"({int(clear.sum())} with a margin over {2 * VERDICT_DEVICE_ATOL})")
+
+    # a row alone against the same row in its batch
+    inside = clf.classify([c for c, _ in batch], [e for _, e in batch])
+    rows = (3, VERDICT_BATCH // 2)
+    for i in rows:
+        (alone,) = clf.classify([batch[i][0]], [batch[i][1]])
+        dc = abs(alone["confidence"] - inside[i]["confidence"])
+        if alone["label_id"] != inside[i]["label_id"] or dc > 1e-6:
+            fail(f"phase 11: row {i} alone differs from its batch: {alone} "
+                 f"against {inside[i]}")
+    log(f"phase 11: rows {rows} alone ({VERDICT_BATCH - 1} pad rows) classify "
+        f"as inside their batch (confidence within 1e-6)")
+
+    # pairs/s through classify, host tokenization included
+    sweep = (pairs * (VERDICT_PAIRS // len(pairs) + 1))[:VERDICT_PAIRS]
+    clf.warmup()
+    before = flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = clf.classify([c for c, _ in sweep], [e for _, e in sweep])
+    dt = time.perf_counter() - t0
+    batches = -(-VERDICT_PAIRS // VERDICT_BATCH)
+    per_batch = (flash_attention.launches - before) / batches
+    if per_batch != enc.layers:
+        fail(f"phase 11: {per_batch} flash launches per batch, not {enc.layers}")
+    conf = np.array([r["confidence"] for r in out])
+    if len(out) != VERDICT_PAIRS or not (np.isfinite(conf).all() and
+                                         (conf >= 0.5).all() and (conf <= 1).all()):
+        fail("phase 11: classify returned wrong or non-finite verdicts")
+    log(f"phase 11: classified {VERDICT_PAIRS} pairs in {batches} batches of "
+        f"{VERDICT_BATCH} x {VERDICT_L} in {dt:.2f} s: {VERDICT_PAIRS / dt:.1f} "
+        f"pairs/s (host tokenization included); {int(per_batch)} flash launches a "
+        f"batch; labels {np.bincount([r['label_id'] for r in out], minlength=2)}")
+    return cfg, params
+
+
+def phase12_verdict_service(dev, tok, cfg, params, index_path, doc_sentences, pre,
+                            claims, tmpdir):
+    """Served claim verification from a saved checkpoint: every reply's
+    evidence is the sentence search for its claims, and its verdicts are
+    ``classify`` of the evidence text assembled here."""
+    from ircl_tpu_torch.serve import make_service
+    from ircl_tpu_torch.verdict.infer import VerdictClassifier, save_verdict_checkpoint
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmpdir, "verdict_ckpt")
+    save_verdict_checkpoint(ckpt, cfg, params, tok)
+    clf = VerdictClassifier.from_checkpoint(ckpt, batch_size=VERDICT_BATCH, device=dev)
+    if clf.cfg != cfg:
+        fail("phase 12: the checkpoint's config does not load back")
+    svc = make_service(index_path, device=dev, doc_sentences=doc_sentences,
+                       sentence_scorer=pre, verdict_classifier=clf)
+    svc.warmup()
+    log(f"phase 12: checkpoint saved and loaded, service built and warmed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    requests = [
+        ([claims[0]], None, None),
+        (claims[1:9], 3, 2),
+        (claims[9:49], None, 4),
+        None,
+    ]
+    lines = [
+        json.dumps({"claim": claims[0]}),
+        json.dumps({"claims": claims[1:9], "k": 3, "k_sents": 2}),
+        json.dumps({"claims": claims[9:49], "k_sents": 4}),
+        json.dumps({"claims": [claims[0], 7]}),
+    ]
+    t0 = time.perf_counter()
+    served, replies = serve_lines(svc, lines)
+    snap = svc.metrics.snapshot()
+    log(f"phase 12: served {served} claim requests in {time.perf_counter() - t0:.2f} "
+        f"s; metrics {snap}")
+    checked = 0
+    for req, rep in zip(requests, replies):
+        if req is None:
+            if "error" not in rep:
+                fail(f"phase 12: malformed line answered without an error: {rep}")
+            continue
+        if "results" not in rep:
+            fail(f"phase 12: request failed: {rep}")
+        queries, k, k_sents = req
+        evidence = svc.search_sentences(queries, k=k, k_sents=k_sents)
+        texts = []
+        for hits in evidence:  # serve.py:363-374's assembly
+            by_doc = {}
+            for h in hits:
+                by_doc.setdefault(h["doc_id"], []).append(h.get("sentence", ""))
+            parts = []
+            for doc_id, sents in by_doc.items():
+                parts.extend(doc_id.split("_"))
+                parts.extend(x for x in sents if x)
+            texts.append(" ".join(parts))
+        want = clf.classify(queries, texts)
+        if len(rep["results"]) != len(queries):
+            fail(f"phase 12: {len(rep['results'])} verdicts for {len(queries)} claims")
+        for got, ev, w in zip(rep["results"], evidence, want):
+            if got["evidence"] != ev:
+                fail("phase 12: a reply's evidence is not the sentence search")
+            if (got["label"], got["label_id"]) != (w["label"], w["label_id"]) or abs(
+                    got["confidence"] - w["confidence"]) > 1e-6:
+                fail(f"phase 12: verdict {got['label']} {got['confidence']} != "
+                     f"classify's {w['label']} {w['confidence']}")
+            checked += 1
+    log(f"phase 12: {checked} verdicts checked: evidence equal to search_sentences, "
+        f"label and confidence equal to classify on the assembled evidence (1e-6); "
+        f"the malformed line got an error; p50 {snap['latency_p50_ms']} ms over "
+        f"{snap['requests']} requests")
 
 
 def serve_lines(service, lines):
@@ -878,8 +1132,9 @@ def main() -> None:
 
     # ---- phase 9: served sentence search -----------------------------------
     t_phase = time.perf_counter()
-    phase9_sentence_search(dev, store, wiki, claims, enc_docs, tcfg, feat,
-                           enc_params, doc_sentences, table, tmp.name)
+    index_path, pre, mine = phase9_sentence_search(
+        dev, store, wiki, claims, enc_docs, tcfg, feat, enc_params, doc_sentences,
+        table, tmp.name)
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     if chunk_max.launches == 0:
         fail("cosine_topk_fused was not launched on the dense path")
@@ -887,6 +1142,41 @@ def main() -> None:
     log(f"phases 7-9: kernel launches {{'cosine_topk_fused': {chunk_max.launches}}}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(phases 7-9)")
+    del table, enc_params
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: kernel #6a against its plain version --------------------
+    from ircl_tpu_torch.ops.flash_attention_cuda import flash_attention
+
+    t_phase = time.perf_counter()
+    vtok = feat.tokenizer  # the WordPiece vocab trained on phase 8's docs
+    pairs = verdict_pairs(wiki, enc_docs, mine, 256)
+    phase10_flash_kernel(dev, vtok, pairs, results)
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the verdict path: phases 11-12, with fresh launch counts ----------
+    kernels["flash_attention"] = flash_attention
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 11: the verdict classifier at full width --------------------
+    t_phase = time.perf_counter()
+    vcfg, vparams = phase11_verdict(dev, vtok, pairs)
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 12: served claim verification -------------------------------
+    t_phase = time.perf_counter()
+    phase12_verdict_service(dev, vtok, vcfg, vparams, index_path, doc_sentences, pre,
+                            mine, tmp.name)
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    if flash_attention.launches == 0:
+        fail("flash_attention was not launched on the verdict path")
+    launches["flash_attention"] = flash_attention.launches
+    log(f"phases 11-12: kernel launches {{'flash_attention': "
+        f"{flash_attention.launches}}}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(phases 11-12)")
 
     tmp.cleanup()
     if "jax" in sys.modules:
@@ -908,6 +1198,10 @@ def main() -> None:
         "cosine_topk_fused": (
             "ircl_tpu_torch/csrc/dense_cmax.cu",
             "ircl_tpu/ops/dense_topk_pallas.py:59",
+        ),
+        "flash_attention": (
+            "ircl_tpu_torch/csrc/flash_attention.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
         ),
     }
     report = []

@@ -1,7 +1,8 @@
 """ircl_tpu_torch — the PyTorch + CUDA port of ``ircl_tpu``.
 
 The port mirrors ``ircl_tpu``'s layout; each module names its counterpart.
-Ported so far: sparse stage-1 retrieval and the dense stage 2.
+Ported so far: sparse stage-1 retrieval, the dense stage 2 and served claim
+verification.
 
 - ``index``        host-side index build, tf-idf, df split (numpy, carried
                    over) and ``TfidfRanker`` with the ``"ell"`` and
@@ -15,8 +16,10 @@ Ported so far: sparse stage-1 retrieval and the dense stage 2.
                    WordPiece vocab) and the contrastive encoder head.
 - ``contrastive``  ``TrainConfig`` and the embed function.
 - ``pipeline``     two-stage retrieval and the dense sentence scorers.
-- ``serve``        ``RetrievalService`` (doc and sentence search),
-                   ``make_service`` and the JSONL stdin loop.
+- ``verdict``      the claim-verdict classifier's forward, pinned-shape
+                   ``VerdictClassifier`` and its checkpoint files.
+- ``serve``        ``RetrievalService`` (doc and sentence search, claim
+                   verification), ``make_service`` and the JSONL stdin loop.
 - ``utils``        the kernel build, full-fp32 matmuls, and the weights
                    carried across from the JAX package.
 

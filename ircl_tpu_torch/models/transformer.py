@@ -8,13 +8,18 @@ GELU FFN -> Add&LN). Parameters are a plain dict of tensors with the JAX
 package's layout (dense weights ``[in, out]``), so ``utils/convert.py``
 carries them across unchanged.
 
-Ported: the dense model on the ``"xla"`` attention path (an additive -1e9
-pad bias and a plain softmax). LayerNorm is the population variance with
-``layernorm_eps`` (1e-12), as ``_ln`` computes it. Not ported yet, and
-refused with ``NotImplementedError``: the MoE FFN (ROADMAP.md queue 1 item
-9), the explicit-collective axes ``model_axis``/``expert_axis``/
-``seq_axis`` (item 12), ``attention="flash"``
-(item 11: only the verdict model reaches it), and ``from_huggingface``.
+Ported: the dense model on both attention paths. ``"xla"`` adds a -1e9
+pad bias and takes a plain softmax; ``"flash"`` (the verdict model's)
+gives pads segment 0 and real tokens segment 1 and calls
+``ops/flash_attention_cuda.py::flash_attention``, which launches a CUDA
+kernel on the card. LayerNorm is the population variance with
+``layernorm_eps`` (1e-12), as ``_ln`` computes it. The embedding gathers
+clamp their indices into range, as JAX's gather does: the verdict model has
+one token type while the pair encoder writes type 1 after the first
+``[SEP]``, and the reference then reads row 0. Not ported yet, and refused
+with ``NotImplementedError``: the MoE FFN (ROADMAP.md queue 1 item 9), the
+explicit-collective axes ``model_axis``/``expert_axis``/``seq_axis`` (item
+12), and ``from_huggingface``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ircl_tpu_torch.ops.flash_attention_cuda import SegmentIds, flash_attention
 from ircl_tpu_torch.utils.convert import to_device
 
 
@@ -48,13 +54,13 @@ class TransformerConfig:
     # roberta uses padding_idx-offset position ids (first real position = 2)
     position_offset: int = 0
     dtype: Any = torch.float32
-    attention: str = "xla"  # "flash" is not ported (item 11)
+    # "xla" (a plain softmax) or "flash" (the CUDA flash-attention kernel;
+    # pads are kept apart by segment ids)
+    attention: str = "xla"
     moe: Optional[Any] = None  # a MoE FFN is not ported (item 9)
 
     def __post_init__(self):
-        if self.attention == "flash":
-            raise _not_ported("attention='flash'", 11)
-        if self.attention != "xla":
+        if self.attention not in ("xla", "flash"):
             raise ValueError(f"unknown attention {self.attention!r}")
         if self.moe is not None:
             raise _not_ported("the MoE FFN (TransformerConfig.moe)", 9)
@@ -108,22 +114,36 @@ def transformer_embed(
     ids: torch.Tensor,  # [B, L] int
     type_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Embedding sum + embedding layernorm -> [B, L, hidden]."""
+    """Embedding sum + embedding layernorm -> [B, L, hidden]. Every gather
+    index is clamped into its table, as JAX's gather clamps it."""
+
+    def rows(table, idx):
+        return table[idx.clamp(0, table.shape[0] - 1)]
+
     L = ids.shape[1]
     pos = torch.arange(L, device=ids.device) + cfg.position_offset
     types = (
-        params["type_emb"][type_ids]
+        rows(params["type_emb"], type_ids)
         if type_ids is not None
         else params["type_emb"][0][None, None, :]
     )
-    x = (params["tok_emb"][ids] + params["pos_emb"][pos][None, :, :] + types).to(
-        cfg.dtype
-    )
+    x = (
+        rows(params["tok_emb"], ids)
+        + rows(params["pos_emb"], pos)[None, :, :]
+        + types
+    ).to(cfg.dtype)
     return _ln(x, params["emb_ln"], cfg.layernorm_eps)
 
 
 def attention_mask_inputs(cfg: TransformerConfig, mask: torch.Tensor):
-    """Additive pad bias [B, 1, 1, L]: 0 on real tokens, -1e9 on pads."""
+    """Per-batch attention context: an additive pad bias [B, 1, 1, L] (0 on
+    real tokens, -1e9 on pads) for "xla", ``SegmentIds`` for "flash"."""
+    if cfg.attention == "flash":
+        # pads get segment 0 and real tokens segment 1: every real query
+        # row sees the real keys only, as under the pad bias; pad rows
+        # attend to the pads, and pooling never reads them
+        seg = mask.to(torch.int32)
+        return SegmentIds(q=seg, kv=seg)
     neg = torch.tensor(-1e9, dtype=cfg.dtype, device=mask.device)
     return (1.0 - mask[:, None, None, :].to(cfg.dtype)) * neg
 
@@ -147,9 +167,15 @@ def attention_sublayer(
         return _dense(x, p).reshape(B, L, nh, hd).transpose(1, 2)
 
     q, k, v = heads(lp["q"]), heads(lp["k"]), heads(lp["v"])
-    logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd) + attn_ctx
-    probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-    ctx = (probs @ v).to(cfg.dtype)
+    if cfg.attention == "flash":
+        ctx = flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), segment_ids=attn_ctx,
+            causal=False, sm_scale=1.0 / math.sqrt(hd),
+        ).to(cfg.dtype)
+    else:
+        logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd) + attn_ctx
+        probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+        ctx = (probs @ v).to(cfg.dtype)
     ctx = ctx.transpose(1, 2).reshape(B, L, nh * hd)
     proj = (ctx @ lp["o"]["w"].to(cfg.dtype)).to(cfg.dtype)
     return _ln(x + (proj + lp["o"]["b"]), lp["attn_ln"], cfg.layernorm_eps)

@@ -1,7 +1,7 @@
 """Serving endpoint for the ported retrieval engines.
 
-Counterpart of ``ircl_tpu/serve.py``, ported as far as doc search over the
-stdin transport:
+Counterpart of ``ircl_tpu/serve.py``, ported as far as the three stages
+over the stdin transport:
 
 - **Pinned batch shapes.** ``RetrievalService`` pads every request up to
   ``batch_size`` with empty queries (zero terms, zero scores), splits larger
@@ -17,11 +17,15 @@ stdin transport:
   ``sentence_scorer`` (``pipeline/dense_scorer.py``), ``search_sentences``
   re-ranks every sentence of the top docs; a scorer with ``score_keys``
   (the precomputed table) is scored by key, without re-embedding.
+- **Claim verification.** With a ``verdict_classifier``
+  (``verdict/infer.py``), ``verify_claims`` retrieves each claim's evidence
+  (sentences when stage 2 is set, else doc ids) and classifies the claim
+  against it; a service without the stage answers claim requests with an
+  error.
 
-Not ported yet (ROADMAP.md queue 1 item 7): the verdict stage, the chunked
-engine (``chunk_docs``), ``BatchingService`` and both HTTP fronts. Their
-constructor arguments raise ``NotImplementedError``; claim requests get
-the same error reply as a reference service built without a verdict stage.
+Not ported yet (ROADMAP.md queue 1 item 7): the chunked engine
+(``chunk_docs``), ``BatchingService`` and both HTTP fronts; ``chunk_docs``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -165,10 +169,8 @@ class RetrievalService:
         doc_sentences: Optional[Dict[str, List[str]]] = None,
         sentence_scorer=None,
         default_k_sents: int = 5,
-        verdict_classifier=None,
+        verdict_classifier=None,  # verdict.infer.VerdictClassifier
     ):
-        if verdict_classifier is not None:
-            raise _not_ported("the verdict stage")
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         if default_k <= 0:
@@ -186,6 +188,7 @@ class RetrievalService:
         self.doc_sentences = doc_sentences
         self.sentence_scorer = sentence_scorer
         self.default_k_sents = default_k_sents
+        self.verdict_classifier = verdict_classifier
         self.metrics = ServiceMetrics()
         self._lock = threading.Lock()
 
@@ -197,12 +200,18 @@ class RetrievalService:
     def has_sentence_stage(self) -> bool:
         return self.sentence_scorer is not None and self.doc_sentences is not None
 
+    @property
+    def has_verdict_stage(self) -> bool:
+        return self.verdict_classifier is not None
+
     def warmup(self) -> None:
         """Run one batch before traffic (kernel build, first allocations),
-        and one sentence-scorer call when the sentence stage is set."""
+        and one call of each later stage that is set."""
         self.search(["warmup"])
         if self.has_sentence_stage:
             self.sentence_scorer(["warmup"], [["warmup sentence"]])
+        if self.has_verdict_stage:
+            self.verdict_classifier.warmup()
 
     def _validate(self, queries, k: Optional[int]) -> int:
         if isinstance(queries, str) or not all(
@@ -299,6 +308,40 @@ class RetrievalService:
             )
         return out
 
+    def verify_claims(
+        self,
+        claims: Sequence[str],
+        k: Optional[int] = None,
+        k_sents: Optional[int] = None,
+    ) -> List[dict]:
+        """End-to-end claim verification: retrieve evidence, classify.
+
+        Evidence per claim is the two-stage sentence results when stage 2
+        is configured (grouped by doc in score order: doc-id words + its
+        selected sentences, as ``verdict/data.py::build_examples``
+        assembles it), else the top-k doc-id words. Returns one
+        ``{"label", "label_id", "confidence", "evidence"}`` per claim."""
+        if not self.has_verdict_stage:
+            raise ValueError(_NO_VERDICT)
+        # _validate also covers the claims list (same str-sequence contract)
+        self._validate(claims, k)
+        if self.has_sentence_stage:
+            per_claim = self.search_sentences(claims, k=k, k_sents=k_sents)
+        else:
+            per_claim = self.search(claims, k=k)
+        evidence_texts = []
+        for results in per_claim:
+            by_doc: Dict[str, List[str]] = {}
+            for r in results:  # score-desc; dict keeps first-seen doc order
+                by_doc.setdefault(r["doc_id"], []).append(r.get("sentence", ""))
+            parts: List[str] = []
+            for doc_id, sents in by_doc.items():
+                parts.extend(doc_id.split("_"))
+                parts.extend(s for s in sents if s)
+            evidence_texts.append(" ".join(parts))
+        verdicts = self.verdict_classifier.classify(list(claims), evidence_texts)
+        return [dict(v, evidence=results) for v, results in zip(verdicts, per_claim)]
+
 
 def make_service(
     index_path: str,
@@ -323,11 +366,11 @@ def make_service(
     on ``device``: shapes pinned (``fixed_max_terms``, ``fixed_union_cap``,
     ``union_round``, service-level ``k_max``), df-split optionally preloaded
     (``index/split.py::save_split``) to skip the cold-start rebuild. Pass
-    ``doc_sentences`` + ``sentence_scorer`` to enable ``search_sentences``."""
+    ``doc_sentences`` + ``sentence_scorer`` to enable ``search_sentences``,
+    and a ``verdict_classifier`` (``verdict/infer.py::VerdictClassifier``)
+    to enable ``verify_claims``."""
     if chunk_docs:
         raise _not_ported("the chunked engine (chunk_docs)")
-    if verdict_classifier is not None:
-        raise _not_ported("the verdict stage")
     index = CountIndex.load(index_path)
     split = None
     if split_path:
@@ -351,25 +394,28 @@ def make_service(
         doc_sentences=doc_sentences,
         sentence_scorer=sentence_scorer,
         default_k_sents=default_k_sents,
+        verdict_classifier=verdict_classifier,
     )
 
 
 def _handle(service: RetrievalService, req) -> dict:
     """Execute one decoded request: a reply payload, or ValueError on a
-    malformed request. Claim requests are refused with the reference's
-    reply for a service without a verdict stage."""
+    malformed request. A "claims"/"claim" key selects claim verification."""
     t0 = time.monotonic()
     try:
         if isinstance(req, dict) and ("claims" in req or "claim" in req):
-            parse_request(req, key="claims")
-            raise ValueError(_NO_VERDICT)
-        queries, k, k_sents = parse_request(req)
-        if req.get("sentences") or k_sents is not None:
+            queries, k, k_sents = parse_request(req, key="claims")
             payload = {
-                "results": service.search_sentences(queries, k=k, k_sents=k_sents)
+                "results": service.verify_claims(queries, k=k, k_sents=k_sents)
             }
         else:
-            payload = {"results": service.search(queries, k=k)}
+            queries, k, k_sents = parse_request(req)
+            if req.get("sentences") or k_sents is not None:
+                payload = {
+                    "results": service.search_sentences(queries, k=k, k_sents=k_sents)
+                }
+            else:
+                payload = {"results": service.search(queries, k=k)}
     except BaseException:
         service.metrics.record_error()
         raise
@@ -413,7 +459,8 @@ _SKIP = object()  # blank input line: emit nothing
 def serve_stdin(service: RetrievalService, infile, outfile) -> int:
     """JSONL loop: one request object per line (``{"queries": [...], "k": n}``
     or ``{"query": "..."}``; add ``"sentences": true`` / ``"k_sents": n`` for
-    the two-stage reply), one ``{"results": ...}`` reply line each;
+    the two-stage reply; ``{"claims": [...]}`` / ``{"claim": "..."}`` for
+    claim verification), one ``{"results": ...}`` reply line each;
     blank lines skipped, malformed lines get an ``{"error": ...}`` line and
     the loop continues. Returns the number of requests served.
 
@@ -421,8 +468,8 @@ def serve_stdin(service: RetrievalService, infile, outfile) -> int:
     and share device batches — grouped by requested ``k``, scored in one
     ``service.search`` call per group, replies in input order. The engines
     are exact, so each result is independent of its batch-mates. Sentence
-    lines and malformed lines keep their per-line handling inside the same
-    drain."""
+    and claim lines and malformed lines keep their per-line handling inside
+    the same drain."""
     served = 0
     cap = max(1, service.batch_size)
     while True:

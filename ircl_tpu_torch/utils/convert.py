@@ -10,7 +10,9 @@ same weights:
 - ``transformer_params_from_numpy``: embeddings, LayerNorms, the dense
   layers (``[in, out]`` weights);
 - ``hash_featurizer_params_from_numpy``: the hash featurizer's ``table``
-  and ``pos``.
+  and ``pos``;
+- ``verdict_params_from_numpy``: the verdict model's ``body`` (a
+  transformer tree), ``head_dense`` and ``head_out``.
 """
 
 from __future__ import annotations
@@ -66,3 +68,16 @@ def hash_featurizer_params_from_numpy(params, device="cpu"):
     """``HashEmbedFeaturizer.params`` (``{"table", "pos"}``) -> tensors."""
     _require(params, ("table", "pos"), "hash featurizer params")
     return _from_numpy({"table": params["table"], "pos": params["pos"]}, device)
+
+
+def verdict_params_from_numpy(params, device="cpu"):
+    """``init_verdict_params``' tree (``body``, ``head_dense``,
+    ``head_out``) of numpy arrays -> f32 tensors."""
+    _require(params, ("body", "head_dense", "head_out"), "verdict params")
+    for name in ("head_dense", "head_out"):
+        _require(params[name], ("w", "b"), f"the verdict {name}")
+    return {
+        "body": transformer_params_from_numpy(params["body"], device),
+        "head_dense": _from_numpy(params["head_dense"], device),
+        "head_out": _from_numpy(params["head_out"], device),
+    }

@@ -13,8 +13,8 @@ The library lands in ``ircl_tpu_torch/_build/<hash>/``, keyed by a hash of
 the sources and flags, so an edited kernel rebuilds and an unchanged one
 loads at once. It is loaded with ``ctypes``; PyTorch's extension builder
 is not used, because a source that includes PyTorch's headers takes
-minutes to compile. Every pointer and the stream cross as ``c_void_p`` and
-every size as ``c_int64``. Each C entry point returns ``cudaGetLastError()``
+minutes to compile. Every pointer and the stream cross as ``c_void_p``,
+every size as ``c_int64`` and a scale as ``c_float``. Each C entry point returns ``cudaGetLastError()``
 and ``check`` turns a non-zero code into an exception.
 
 Nothing here runs at import: the CPU tests import every module, on hosts
@@ -51,6 +51,8 @@ _SIGNATURES = {
                             ctypes.c_int),
     "ircl_dense_cmax": ([_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
                         ctypes.c_int),
+    "ircl_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P, _P], ctypes.c_int),
     "ircl_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

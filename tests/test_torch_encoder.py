@@ -37,6 +37,7 @@ from ircl_tpu_torch.models import featurizer as t_feat
 from ircl_tpu_torch.models import transformer as t_tf
 from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
 from ircl_tpu_torch.ops import bilstm as t_lstm
+from ircl_tpu_torch.ops.flash_attention_cuda import flash_attention
 from ircl_tpu_torch.utils import convert
 
 ATOL = 1e-5
@@ -265,7 +266,9 @@ def test_transformer_init_matches_the_reference_layout():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: t_tf.TransformerConfig(attention="flash"),
+    # flash attention is ported for the served float32 path; bf16 comes
+    # with verdict training
+    lambda: flash_attention(*(torch.zeros(1, 1, 128, 16, dtype=torch.bfloat16),) * 3),
     lambda: t_tf.TransformerConfig(moe=object()),
 ], ids=["flash", "moe"])
 def test_unported_transformer_options_raise(make):

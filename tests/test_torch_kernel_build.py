@@ -17,7 +17,8 @@ from ircl_tpu_torch.utils import kernel_build as kb
 
 def test_sources_are_the_package_csrc():
     names = sorted(os.path.basename(p) for p in kb.sources())
-    assert names == ["dense_cmax.cu", "light_add_topk.cu", "membership_slab.cu"]
+    assert names == ["dense_cmax.cu", "flash_attention.cu", "light_add_topk.cu",
+                     "membership_slab.cu"]
     for path in kb.sources():
         text = open(path, encoding="utf-8").read()
         assert 'extern "C"' in text and "cudaGetLastError()" in text
@@ -33,6 +34,7 @@ def test_every_entry_point_has_a_signature():
     assert ctypes.c_int not in kb._SIGNATURES["ircl_membership_slab"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_dense_cmax"][0]
+    assert ctypes.c_int not in kb._SIGNATURES["ircl_flash_attention"][0]
 
 
 def test_source_key_follows_content(tmp_path):

@@ -86,6 +86,42 @@ print("JAX_MODULES", loaded)
 """
 
 
+_SERVE_ONE_CLAIM_REQUEST = r"""
+import io, json, sys
+import torch
+from ircl_tpu.corpus.store import MemoryDocStore
+from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu_torch.index.build import build_count_index
+from ircl_tpu_torch.index.ranker import TfidfRanker
+from ircl_tpu_torch.index.tfidf import tfidf_transform
+from ircl_tpu_torch.models.transformer import TransformerConfig
+from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
+from ircl_tpu_torch.serve import RetrievalService, serve_stdin
+from ircl_tpu_torch.verdict.infer import VerdictClassifier
+from ircl_tpu_torch.verdict.model import VerdictConfig, init_verdict_params
+
+wiki = generate(num_docs=40, num_claims=3, seed=3)
+store = MemoryDocStore({d: r["text"] for d, r in wiki.docs.items()})
+index = tfidf_transform(build_count_index(store, ngram=2, hash_size=1 << 18))
+tok = WordPieceTokenizer.train([r["text"] for r in wiki.docs.values()], vocab_size=128)
+cfg = VerdictConfig(encoder=TransformerConfig(
+    vocab_size=tok.vocab_size, hidden=16, layers=1, heads=2, intermediate=32,
+    max_positions=128, type_vocab=1, position_offset=2, attention="flash"),
+    max_length=128)
+params = init_verdict_params(torch.Generator().manual_seed(0), cfg)
+svc = RetrievalService(TfidfRanker(index, "cpu"), batch_size=4,
+                       verdict_classifier=VerdictClassifier(cfg, params, tok, batch_size=4))
+out = io.StringIO()
+line = json.dumps({"claim": wiki.claims[0].claim})
+served = serve_stdin(svc, io.StringIO(line + "\n"), out)
+reply = json.loads(out.getvalue())
+assert served == 1 and reply["results"][0]["label"] in ("SUPPORTS", "REFUTES"), reply
+assert reply["results"][0]["evidence"], reply
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+print("JAX_MODULES", loaded)
+"""
+
+
 def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
@@ -104,6 +140,12 @@ def test_port_serves_a_sentence_request_without_loading_jax():
     """The hash-featurizer encoder, its sentence table, a sentence request
     through ``serve_stdin`` and the dense top-k over the table."""
     _run_fresh(_SERVE_ONE_SENTENCE_REQUEST)
+
+
+def test_port_serves_a_claim_request_without_loading_jax():
+    """The verdict stage with ``attention="flash"`` on a claim line through
+    ``serve_stdin``."""
+    _run_fresh(_SERVE_ONE_CLAIM_REQUEST)
 
 
 def _port_files():

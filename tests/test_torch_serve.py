@@ -132,11 +132,11 @@ def test_parse_request_rejects_like_the_reference(req):
     "kwargs",
     [
         dict(chunk_docs=1000),
-        # the sentence stage is ported; the stages still to port raise
-        # beside it as well
+        # the sentence and verdict stages are ported; the chunked engine
+        # still raises beside them
         dict(chunk_docs=1000, doc_sentences={"a": ["b"]}),
-        dict(verdict_classifier=object(), sentence_scorer=object()),
-        dict(verdict_classifier=object()),
+        dict(chunk_docs=1000, verdict_classifier=object(), sentence_scorer=object()),
+        dict(chunk_docs=1000, verdict_classifier=object()),
     ],
 )
 def test_unported_stages_raise(saved, kwargs):
