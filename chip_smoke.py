@@ -40,15 +40,32 @@ Phases, each printed as it runs:
     ``VerdictClassifier.classify`` at batch 32;
 12. served claim verification: the classifier saved and loaded back as a
     checkpoint, ``make_service`` over phase 9's index and sentence table,
-    claim lines through ``serve_stdin``, every reply checked.
+    claim lines through ``serve_stdin``, every reply checked;
+13. the two flash-attention backward kernels against their plain version
+    and against autograd through the plain forward at the training shape,
+    ``[8, 12, 512, 64]``: the forward's softmax statistics, then dq, dk, dv,
+    with CUDA-event times of each beside PyTorch's own fused attention as a
+    yardstick;
+14. the verdict train step at roberta-base width, B=8, L=512: flash against
+    "xla" on the card (loss and every gradient leaf), one step of two pairs
+    on the card against the CPU, the body frozen bit for bit until
+    ``warmup_steps``, then 20 timed steps of each attention path: steps/s,
+    device ms a step, peak memory, kernel launches a step;
+15. the trainer end to end: ``train_verdict`` on 256 seeded pairs for 2
+    epochs with a validation split, its checkpoint loaded by
+    ``VerdictClassifier`` and held to ``predict_in_batches``, whose
+    examples/s at batch 64 is printed.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
-dense path), and again before phase 11 and read after phase 12 (the
-verdict path); every kernel must have run on its path. The script exits
-non-zero at the first failure, and when no CUDA device is present. The line
-before the last is a JSON object of the kernels' numbers; the last line is
-``{"ok": true, "device": {...}}``.
+dense path), before phase 11 and read after phase 12 (the verdict path),
+and before phase 14 and read after phase 15 (the training path); every
+kernel must have run on its path. The script exits non-zero at the first
+failure, and when no CUDA device is present. The line before the last is a
+JSON object of the kernels' numbers, each with the least time the card could
+take for the same work (``bound_ms``: its tensors moved once at 3.35 TB/s
+against its operations at the card's published peak for their type); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -89,6 +106,15 @@ VERDICT_ENCODER = dict(  # bench_verdict.py:83-97, f32, flash attention
 VERDICT_PAIRS = 1024  # pairs through classify for pairs/s
 FLASH_ATOL = 1e-5  # kernel against plain version: fp32 summation order only
 VERDICT_DEVICE_ATOL = 1e-4  # logits, card against CPU and flash against xla
+# the training phases: bench_verdict.py's train batch, a short warmup
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_LR, TRAIN_TIMED_STEPS = 8, 3, 1e-5, 20
+TRAIN_GRAD_ATOL = 1e-5  # gradient leaves, flash against xla: fp32 through 12 layers
+TRAIN_GRAD_RTOL = 1e-2  # and of each leaf's largest element
+TRAINER_PAIRS, TRAINER_EPOCHS, PREDICT_BATCH = 256, 2, 64
+# published peaks of one H100 SXM (NVIDIA's data sheet), for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # outside the tensor cores; one FMA is two
+BF16_FLOPS = 989e12  # tensor cores, dense
 
 
 def log(msg: str) -> None:
@@ -115,6 +141,16 @@ def cuda_ms(fn, reps: int = 5, warm: int = 1) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def least_time(tensors, operations, rate):
+    """``bound_ms`` and ``bound_by`` of one kernel call: the larger of its
+    tensors moved once at the card's memory rate and its operations at the
+    card's peak ``rate`` for their type."""
+    moved = sum(t.numel() * t.element_size() for t in tensors)
+    t_bytes, t_ops = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * operations / rate
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def scipy_topk(mat, buckets, weights, k):
@@ -253,8 +289,12 @@ def phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results):
                 f"(bound {CMAX_ATOL}), top-{K} equal ({int((i1 != i2).sum())} ids "
                 f"differ, all at ties); kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
             if shape == "bench" and label == "fold/high3":
+                # high3 is three products of bf16 halves summed in f32:
+                # the tensor cores' bf16 rate is the card's peak for them
                 results["cosine_topk_fused"] = dict(
-                    max_abs_err=err, ms=t_k, plain_ms=t_p
+                    max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+                    **least_time((q, c, got), 3 * 2 * q.shape[0] * q.shape[1] * m,
+                                 BF16_FLOPS),
                 )
             del got, ref
 
@@ -393,11 +433,7 @@ def phase8_encoder(dev, wiki, doc_ids):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+    return [leaf for _, leaf in named_leaves(tree)]
 
 
 def same_keys_up_to_ties(a, b, atol=1e-6):
@@ -596,10 +632,22 @@ def phase10_flash_kernel(dev, tok, pairs, results):
     t_k = cuda_ms(lambda: flash_attention(q, k, v, segment_ids=ids, sm_scale=scale),
                   reps=10)
     t_p = cuda_ms(lambda: flash_attention_ref(q, k, v, ids, scale), reps=5)
-    results["flash_attention"] = dict(max_abs_err=err_all, ms=t_k, plain_ms=t_p)
+    s = cases["tokenized pairs"]
+    t_lib = cuda_ms(lambda: sdpa(q, k, v, s, scale), reps=10)
+    e_lib = float((sdpa(q, k, v, s, scale) - flash_attention(
+        q, k, v, segment_ids=ids, sm_scale=scale)).abs().max())
+    if e_lib > 1e-4:
+        fail(f"phase 10: the library yardstick computes another function ({e_lib})")
+    results["flash_attention"] = dict(
+        max_abs_err=err_all, ms=t_k, plain_ms=t_p, library_ms=t_lib,
+        **attention_bounds(s, H, hd, 2, (q, k, v, s, s, q)))
     log(f"phase 10: q, k, v [{B}, {H}, {VERDICT_L}, {hd}] f32, real lengths "
         f"{int(lengths.min())}-{int(lengths.max())} (median "
-        f"{int(np.median(lengths))}): kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
+        f"{int(np.median(lengths))}): kernel {t_k:.3f} ms (bound "
+        f"{results['flash_attention']['bound_ms']:.3f} ms for the pairs these masks "
+        f"leave, {least_time((), 2 * 2 * hd * B * H * VERDICT_L ** 2, F32_FLOPS)['bound_ms']:.3f}"
+        f" ms for all), plain {t_p:.3f} ms, scaled_dot_product_attention (f32, "
+        f"boolean mask, within {e_lib:.3g}) {t_lib:.3f} ms")
 
 
 def phase11_verdict(dev, tok, pairs):
@@ -767,6 +815,377 @@ def phase12_verdict_service(dev, tok, cfg, params, index_path, doc_sentences, pr
         f"{snap['requests']} requests")
 
 
+def attention_bounds(seg, H, hd, products, tensors):
+    """The least time one attention kernel could take on this card, ms:
+    ``products`` matrix products of 2 * hd FLOP for every (query, key) pair
+    of one segment (what this batch's masks need; masked pairs need none)
+    at the f32 rate, against its tensors moved once."""
+    pairs = H * int((seg[:, :, None] == seg[:, None, :]).sum())
+    return least_time(tensors, products * 2 * hd * pairs, F32_FLOPS)
+
+
+def sdpa(q, k, v, seg, scale):
+    """The yardstick: the one PyTorch call that computes the same function,
+    f32 with a boolean mask. Timed here; the port never calls it."""
+    import torch.nn.functional as F
+
+    same = (seg[:, None, :, None] == seg[:, None, None, :])
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+
+
+def phase13_flash_backward(dev, tok, pairs, results):
+    """Kernels #6b and #6c against their plain version at the training shape
+    [8, 12, 512, 64]: the forward's statistics, then dq, dk, dv, with
+    segment ids of 8 tokenized pairs (one row cut to a single real token)
+    and of a batch with no pads."""
+    import torch
+
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        SegmentIds, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
+        flash_attention_ref,
+    )
+
+    B, H = TRAIN_BATCH, VERDICT_ENCODER["heads"]
+    hd = VERDICT_ENCODER["hidden"] // H
+    scale = 1.0 / np.sqrt(hd)
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.tensor(rng.normal(size=(B, H, VERDICT_L, hd)).astype(np.float32),
+                                device=dev) for _ in range(4))
+    _, mask, _ = tok.encode_batch(pairs[:B], VERDICT_L)
+    seg = mask.astype(np.int32)
+    seg[B - 1] = 0
+    seg[B - 1, 0] = 1  # one real token
+    cases = {
+        "tokenized pairs": torch.tensor(seg, device=dev),
+        "no pads": torch.ones(B, VERDICT_L, dtype=torch.int32, device=dev),
+    }
+    # autograd hands the backward a transposed view (the head merge)
+    do_view = do.transpose(1, 2).contiguous().transpose(1, 2)
+    worst = {"dkv": 0.0, "dq": 0.0}
+    for label, s in cases.items():
+        ids = SegmentIds(q=s, kv=s)
+        o, stats = flash_attention_fwd(q, k, v, ids, scale)
+        o_ref, stats_ref = flash_attention_fwd_ref(q, k, v, ids, scale)
+        torch.cuda.synchronize()
+        e_o = float((o - o_ref).abs().max())
+        e_l = float(((stats.l - stats_ref.l).abs() / stats_ref.l).max())
+        e_m = float((stats.m - stats_ref.m).abs().max())
+        if max(e_o, e_l, e_m) > FLASH_ATOL or not torch.isfinite(stats.l).all():
+            fail(f"phase 13: {label}: forward with statistics: o {e_o}, l {e_l} "
+                 f"(relative), m {e_m}")
+        dk, dv = flash_attention_bwd_dkv(q, k, v, ids, o, stats, do, scale)
+        dq = flash_attention_bwd_dq(q, k, v, ids, o, stats, do, scale)
+        want = flash_attention_bwd_ref(q, k, v, ids, o, stats, do, scale)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention_ref(*leaves, ids, scale).backward(do)
+        through = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_attention(*through, segment_ids=ids, sm_scale=scale).backward(do_view)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, w, auto, fn in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                          leaves, through):
+            if not torch.isfinite(got).all():
+                fail(f"phase 13: {label}: {name} has non-finite values")
+            if not torch.equal(fn.grad, got):
+                fail(f"phase 13: {label}: {name} through autograd.Function differs "
+                     f"from the kernel wrapper's")
+            errs[name] = (float((got - w).abs().max()),
+                          float((got - auto.grad).abs().max()))
+            if max(errs[name]) > FLASH_ATOL:
+                fail(f"phase 13: {label}: {name} differs from the plain version by "
+                     f"{errs[name][0]}, from autograd by {errs[name][1]}")
+        worst["dq"] = max(worst["dq"], *errs["dq"])
+        worst["dkv"] = max(worst["dkv"], *errs["dk"], *errs["dv"])
+        log(f"phase 13: {label}: o within {e_o:.3g}, l within {e_l:.3g} (relative), "
+            f"m within {e_m:.3g}; (plain, autograd) dq {errs['dq'][0]:.3g}, "
+            f"{errs['dq'][1]:.3g}; dk {errs['dk'][0]:.3g}, {errs['dk'][1]:.3g}; dv "
+            f"{errs['dv'][0]:.3g}, {errs['dv'][1]:.3g} (bound {FLASH_ATOL}); the "
+            f"autograd.Function's gradients equal the wrappers'")
+        del leaves, through, want
+
+    s = cases["tokenized pairs"]
+    ids = SegmentIds(q=s, kv=s)
+    o, stats = flash_attention_fwd(q, k, v, ids, scale)
+    args = (q, k, v, ids, o, stats, do, scale)
+    t_fwd = cuda_ms(lambda: flash_attention_fwd(q, k, v, ids, scale), reps=10)
+    t_dkv = cuda_ms(lambda: flash_attention_bwd_dkv(*args), reps=10)
+    t_dq = cuda_ms(lambda: flash_attention_bwd_dq(*args), reps=10)
+    t_plain = cuda_ms(lambda: flash_attention_bwd_ref(*args), reps=5)
+    # the yardstick: autograd through the library call, one grad call each
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+    lo = sdpa(lq, lk, lv, s, scale)
+    lib = lambda wrt: lambda: torch.autograd.grad(lo, wrt, do, retain_graph=True)  # noqa: E731
+    e_lib = float((lo - o).abs().max())
+    if e_lib > 1e-4:
+        fail(f"phase 13: the library yardstick computes another function ({e_lib})")
+    t_lib_fwd = cuda_ms(lambda: sdpa(q, k, v, s, scale), reps=10)
+    t_lib_dkv = cuda_ms(lib((lk, lv)), reps=5)
+    t_lib_dq = cuda_ms(lib((lq,)), reps=5)
+    t_lib_all = cuda_ms(lib((lq, lk, lv)), reps=5)
+    stat_t = (stats.l, stats.m, stats.l)  # l, m and di: [B, H, L] f32 each
+    results["flash_attention_bwd_dkv"] = dict(
+        max_abs_err=worst["dkv"], ms=t_dkv, plain_ms=t_plain, library_ms=t_lib_dkv,
+        **attention_bounds(s, H, hd, 4, (q, k, v, do, *stat_t, s, s, k, v)))
+    results["flash_attention_bwd_dq"] = dict(
+        max_abs_err=worst["dq"], ms=t_dq, plain_ms=t_plain, library_ms=t_lib_dq,
+        **attention_bounds(s, H, hd, 3, (q, k, v, do, *stat_t, s, s, q)))
+    log(f"phase 13: q, k, v, do [{B}, {H}, {VERDICT_L}, {hd}] f32: forward with "
+        f"statistics {t_fwd:.3f} ms, dK/dV {t_dkv:.3f} ms (bound "
+        f"{results['flash_attention_bwd_dkv']['bound_ms']:.3f}), dQ {t_dq:.3f} ms "
+        f"(bound {results['flash_attention_bwd_dq']['bound_ms']:.3f}), plain backward "
+        f"(both) {t_plain:.3f} ms; library yardstick (scaled_dot_product_attention, "
+        f"f32, boolean mask; output within {e_lib:.3g} of the kernel's): forward "
+        f"{t_lib_fwd:.3f} ms, backward for k, v {t_lib_dkv:.3f} ms, for q "
+        f"{t_lib_dq:.3f} ms, for all three {t_lib_all:.3f} ms")
+
+
+def train_batch(tok, pairs, rows, seed):
+    """Token arrays of ``rows`` pairs and seeded labels."""
+    ids, mask, types = tok.encode_batch([pairs[i] for i in rows], VERDICT_L)
+    labels = np.random.default_rng(seed).integers(0, 2, size=len(rows))
+    return ids, mask, types, labels.astype(np.int32)
+
+
+def phase14_train_step(dev, tok, pairs):
+    """The train step at roberta-base width, B=8, L=512: flash against "xla"
+    on the card (loss and every gradient leaf), one step of a cut batch on
+    the card against the CPU, the freeze, then timed steps of both paths."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from ircl_tpu_torch.models.transformer import TransformerConfig
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    )
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.utils.tree import tree_leaves, tree_map
+    from ircl_tpu_torch.verdict.model import (
+        VerdictConfig, init_verdict_params, make_verdict_train_step,
+        value_and_grad, verdict_apply_with_aux,
+    )
+
+    enc = TransformerConfig(**VERDICT_ENCODER)
+    cfg = VerdictConfig(encoder=enc, max_length=VERDICT_L, learning_rate=TRAIN_LR,
+                        warmup_steps=TRAIN_WARMUP, total_steps=200)
+    xla = dataclasses.replace(cfg, encoder=dataclasses.replace(enc, attention="xla"))
+    init = init_verdict_params(torch.Generator().manual_seed(VERDICT_SEED), cfg, "cpu")
+    names = [n for n, _ in named_leaves(init)]
+    batch = train_batch(tok, pairs, range(3, 3 + TRAIN_BATCH), 14)
+    real = batch[1].sum(axis=1).astype(int)
+    log(f"phase 14: train step of the verdict model {enc.layers} x {enc.hidden}, "
+        f"B={TRAIN_BATCH}, L={VERDICT_L}, real lengths {real.tolist()}, "
+        f"warmup_steps {TRAIN_WARMUP}, learning rate {TRAIN_LR}")
+
+    def loss_and_grads(c, params, b, device):
+        ids, mask, types, labels = b
+
+        def loss_fn(p, *t):
+            logits, _ = verdict_apply_with_aux(p, c, t[0], t[1], t[2])
+            return F.cross_entropy(logits, t[3]), logits
+
+        loss, _, grads = value_and_grad(
+            loss_fn, params, torch.as_tensor(ids, device=device).long(),
+            torch.as_tensor(mask, device=device),
+            torch.as_tensor(types, device=device).long(),
+            torch.as_tensor(labels, device=device).long())
+        return float(loss), grads
+
+    # flash against xla on the card: loss and every gradient leaf
+    params = to_device(init, dev)
+    l_flash, g_flash = loss_and_grads(cfg, params, batch, dev)
+    l_xla, g_xla = loss_and_grads(xla, params, batch, dev)
+    worst_abs, worst_rel = (0.0, ""), (0.0, "")
+    for name, a, b in zip(names, tree_leaves(g_flash), tree_leaves(g_xla)):
+        if not torch.isfinite(a).all():
+            fail(f"phase 14: the flash gradient of {name} is not finite")
+        d, size = float((a - b).abs().max()), float(b.abs().max())
+        worst_abs = max(worst_abs, (d, name))
+        if size > 1e-6:  # k/b is zero in exact arithmetic: noise on both paths
+            worst_rel = max(worst_rel, (d / size, name))
+    if abs(l_flash - l_xla) > 1e-5 or worst_abs[0] > TRAIN_GRAD_ATOL or (
+            worst_rel[0] > TRAIN_GRAD_RTOL):
+        fail(f"phase 14: flash and xla differ: loss {l_flash} against {l_xla}, "
+             f"gradients by {worst_abs} absolute, {worst_rel} of a leaf's largest")
+    log(f"phase 14: flash and xla on the card: loss {l_flash:.6f} against "
+        f"{l_xla:.6f}; {len(names)} gradient leaves within {worst_abs[0]:.3g} "
+        f"({worst_abs[1]}; bound {TRAIN_GRAD_ATOL}) and within {worst_rel[0]:.3g} "
+        f"of each leaf's largest element ({worst_rel[1]}; bound {TRAIN_GRAD_RTOL})")
+    del g_flash, g_xla
+
+    # one step at B=2, from a count past the warmup: the card against the CPU
+    t0 = time.perf_counter()
+    small = train_batch(tok, pairs, (5, 16), 15)
+    outs = {}
+    for device in (dev, "cpu"):
+        p = tree_map(lambda t: t.to(device, copy=True), init)  # updated in place
+        step, tx = make_verdict_train_step(cfg, device=device)
+        state = dict(tx.init(p), count=TRAIN_WARMUP)
+        _, _, loss, preds = step(p, state, TRAIN_WARMUP, *small)
+        outs[str(device)] = (float(loss), preds.cpu(), to_device(p, "cpu"))
+    (l_d, p_d, w_d), (l_c, p_c, w_c) = outs[str(dev)], outs["cpu"]
+    far, frac = (0.0, ""), (0.0, "")
+    moved = 0.0
+    for name, a, b, start in zip(names, tree_leaves(w_d), tree_leaves(w_c),
+                                 tree_leaves(init)):
+        d = (a - b).abs()
+        far = max(far, (float(d.max()), name))
+        moved = max(moved, float((a - start).abs().max()))
+        if not name.endswith("/k/b"):
+            frac = max(frac, (float((d > 0.1 * TRAIN_LR).float().mean()), name))
+    if abs(l_d - l_c) > 1e-5 or not torch.equal(p_d, p_c) or (
+            far[0] > 2.1 * TRAIN_LR or frac[0] > 1e-2 or moved < 0.25 * TRAIN_LR):
+        fail(f"phase 14: one step on the card and the CPU differ: loss {l_d} "
+             f"against {l_c}, parameters by {far}, share over lr/10 {frac}")
+    log(f"phase 14: one step at B=2 on the card and on the CPU: loss {l_d:.6f} "
+        f"against {l_c:.6f}, predictions equal; parameters moved by up to "
+        f"{moved:.3g} and differ by at most {far[0]:.3g} ({far[1]}; Adam turns a "
+        f"gradient's rounding noise into a step of the learning rate {TRAIN_LR}, "
+        f"bound 2.1 of it), the share of a leaf's elements that differ by more than "
+        f"a tenth of it at most {frac[0]:.3g} ({frac[1]}; bound 1e-2, k/b leaves "
+        f"apart); {time.perf_counter() - t0:.1f} s")
+    del outs, w_d, w_c
+
+    # the freeze: body bit-unchanged before warmup_steps, changed after
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    step, tx = make_verdict_train_step(cfg, device=dev)
+    state = tx.init(params)
+    start = tree_map(torch.clone, params)
+    rows = lambda s: [(7 * s + i) % len(pairs) for i in range(TRAIN_BATCH)]  # noqa: E731
+    losses = []
+    for s in range(TRAIN_WARMUP + 2):
+        before = [fn.launches for fn in counters]
+        _, _, loss, _ = step(params, state, s, *train_batch(tok, pairs, rows(s), s))
+        per_step = [fn.launches - b for fn, b in zip(counters, before)]
+        if per_step != [enc.layers] * 3:
+            fail(f"phase 14: step {s} launched {per_step} (forward, dK/dV, dQ), not "
+                 f"{enc.layers} each")
+        losses.append(float(loss))
+        body_same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params["body"]), tree_leaves(start["body"])))
+        head_same = torch.equal(params["head_out"]["w"], start["head_out"]["w"])
+        if s < TRAIN_WARMUP and not body_same:
+            fail(f"phase 14: the frozen body changed at step {s}")
+        if s >= TRAIN_WARMUP and body_same:
+            fail(f"phase 14: the body did not change at step {s}")
+        if head_same != (s == 0):  # the first learning rate is exactly 0
+            fail(f"phase 14: the head at step {s}: unchanged is {head_same}")
+    if not np.isfinite(losses).all():
+        fail(f"phase 14: losses {losses}")
+    log(f"phase 14: steps 0-{TRAIN_WARMUP + 1}: the body keeps its bits while "
+        f"frozen (steps 0-{TRAIN_WARMUP - 1}) and moves after; the head moves from "
+        f"step 1 (the first learning rate is 0); {enc.layers} forward, dK/dV and dQ "
+        f"launches a step; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    del start
+
+    # timed steps, both paths in turns, past the warmup (every leaf updated)
+    fixed = train_batch(tok, pairs, rows(1), 1)
+    timings = {}
+    for label, c in (("flash", cfg), ("xla", xla), ("xla", xla), ("flash", cfg)):
+        p = to_device(init, dev)
+        step, tx = make_verdict_train_step(c, device=dev)
+        state = dict(tx.init(p), count=TRAIN_WARMUP)
+        step(p, state, TRAIN_WARMUP, *fixed)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = [fn.launches for fn in counters]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        for s in range(TRAIN_TIMED_STEPS):
+            _, _, loss, _ = step(p, state, TRAIN_WARMUP + 1 + s, *fixed)
+        e1.record()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        per_step = [(fn.launches - b) / TRAIN_TIMED_STEPS
+                    for fn, b in zip(counters, before)]
+        want = [enc.layers] * 3 if label == "flash" else [0] * 3
+        if per_step != want or not np.isfinite(float(loss)):
+            fail(f"phase 14: {label}: {per_step} launches a step (want {want}), "
+                 f"loss {float(loss)}")
+        timings.setdefault(label, []).append(
+            (TRAIN_TIMED_STEPS / dt, e0.elapsed_time(e1) / TRAIN_TIMED_STEPS,
+             torch.cuda.max_memory_allocated() / 2**30))
+        del p, state
+    for label, runs in timings.items():
+        log(f"phase 14: {label}: {TRAIN_TIMED_STEPS} steps, two runs: "
+            + "; ".join(f"{sps:.2f} steps/s, {ms:.2f} ms of device time a step, "
+                        f"peak {gib:.2f} GiB" for sps, ms, gib in runs))
+    return cfg
+
+
+def phase15_trainer(dev, tok, cfg, pairs, tmpdir):
+    """The trainer end to end: ``train_verdict`` on seeded pairs, its
+    checkpoint served by ``VerdictClassifier``, ``predict_in_batches``."""
+    import dataclasses
+
+    import torch
+
+    from ircl_tpu_torch.verdict.data import VerdictExample, encode_examples
+    from ircl_tpu_torch.verdict.infer import VerdictClassifier
+    from ircl_tpu_torch.verdict.train import predict_in_batches, train_verdict
+
+    labels = np.random.default_rng(15).integers(0, 2, size=TRAINER_PAIRS)
+    examples = [VerdictExample(c, e, int(y))
+                for (c, e), y in zip(pairs[:TRAINER_PAIRS], labels)]
+    ids, mask, types, y = encode_examples(examples, tok, VERDICT_L)
+    n_val = int(TRAINER_PAIRS * 0.1)
+    steps = TRAINER_EPOCHS * ((TRAINER_PAIRS - n_val) // TRAIN_BATCH)
+    cfg = dataclasses.replace(cfg, total_steps=steps)
+    ckpt = os.path.join(tmpdir, "trained_ckpt")
+    t0 = time.perf_counter()
+    params, history = train_verdict(
+        cfg, ids, mask, types, y, epochs=TRAINER_EPOCHS, batch_size=TRAIN_BATCH,
+        val_fraction=0.1, seed=1009, save_path=ckpt, tokenizer=tok, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if len(history) != TRAINER_EPOCHS or any(
+            h["train_loss"] is None or not np.isfinite(h["train_loss"])
+            or h["val_macro_f1"] is None or not 0.0 <= h["val_macro_f1"] <= 1.0
+            for h in history):
+        fail(f"phase 15: history {history}")
+    log(f"phase 15: train_verdict on {TRAINER_PAIRS} pairs ({n_val} held out), "
+        f"{TRAINER_EPOCHS} epochs, {steps} steps of {TRAIN_BATCH} x {VERDICT_L} in "
+        f"{dt:.1f} s ({steps / dt:.2f} steps/s, validation and the checkpoint "
+        f"included): " + "; ".join(
+            f"epoch {h['epoch']} loss {h['train_loss']:.4f}, macro-F1 "
+            f"{h['val_macro_f1']:.3f}" for h in history))
+
+    run = lambda: predict_in_batches(  # noqa: E731
+        params, cfg, ids, mask, types, PREDICT_BATCH, device=dev)
+    preds = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = run()
+    dt = time.perf_counter() - t0
+    clf = VerdictClassifier.from_checkpoint(ckpt, batch_size=PREDICT_BATCH, device=dev)
+    served = clf.classify([e.claim for e in examples],
+                          [e.evidence_text for e in examples])
+    got = np.array([r["label_id"] for r in served])
+    if preds.shape != (TRAINER_PAIRS,) or not np.array_equal(preds, again) or (
+            not np.array_equal(got, preds)):
+        fail(f"phase 15: the served checkpoint gives {int((got != preds).sum())} "
+             f"other labels than predict_in_batches")
+    log(f"phase 15: the checkpoint loaded by VerdictClassifier classifies the "
+        f"{TRAINER_PAIRS} pairs as predict_in_batches does (labels "
+        f"{np.bincount(preds, minlength=2)}); predict_in_batches at batch "
+        f"{PREDICT_BATCH}: {TRAINER_PAIRS / dt:.1f} examples/s")
+
+
+def named_leaves(tree, prefix=""):
+    """(path, leaf) in ``utils/tree.py``'s order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -795,9 +1214,9 @@ def main() -> None:
     if pkg_root != root:  # the kernels must build from this checkout's sources
         fail(f"ircl_tpu_torch was imported from {pkg_root}, not from {root}")
 
-    from ircl_tpu.corpus.hashing import native_available
-    from ircl_tpu.corpus.store import MemoryDocStore
-    from ircl_tpu.corpus.synthetic import generate
+    from ircl_tpu_torch.corpus.hashing import native_available
+    from ircl_tpu_torch.corpus.store import MemoryDocStore
+    from ircl_tpu_torch.corpus.synthetic import generate
     from ircl_tpu_torch.index.build import CountIndex, build_count_index, to_scipy
     from ircl_tpu_torch.index.ranker import TfidfRanker, vectorize_queries
     from ircl_tpu_torch.index.tfidf import tfidf_transform
@@ -880,7 +1299,7 @@ def main() -> None:
     results = {}
 
     def compare_slabs(name, fn, cases):
-        err, ms, plain_ms = 0.0, 0.0, 0.0
+        err, ms, plain_ms, bound_ms, by = 0.0, 0.0, 0.0, 0.0, (0.0, "")
         for label, args in cases.items():
             got = fn(*args)
             ref = membership_slab_ref(*args)
@@ -888,13 +1307,21 @@ def main() -> None:
             if not torch.equal(got, ref):
                 fail(f"{name} ({label}) differs from its plain version")
             err = max(err, float((got - ref).abs().max()))
+            # every real term: a binary search of the union and one add,
+            # integer and f32 steps at one a lane and cycle
+            steps = int(np.ceil(np.log2(max(args[0].shape[0], 2)))) + 1
+            least = least_time((*args, got), int((args[1] >= 0).sum()) * steps,
+                               F32_FLOPS / 2)
+            bound_ms += least["bound_ms"]
+            by = max(by, (least["bound_ms"], least["bound_by"]))
             t_k = cuda_ms(lambda: fn(*args))
             t_p = cuda_ms(lambda: membership_slab_ref(*args), reps=2)
             ms, plain_ms = ms + t_k, plain_ms + t_p
             log(f"phase 2: {name} {label}: U={args[0].shape[0]} "
                 f"K={args[1].shape[0]} N={args[1].shape[1]}: equal; "
                 f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=by[1], library_ms=None)
 
     compare_slabs("membership_slab_windowed", membership_slab_windowed, slab_cases)
 
@@ -919,6 +1346,10 @@ def main() -> None:
         plain_ms=cuda_ms(
             lambda: light_add_topk_t_ref(h_t, sd, sv, k=K, d_tile=d_lt), reps=2
         ),
+        # one compare a row and column, one add a pool entry, at one a lane
+        # and cycle
+        **least_time((h_t, sd, sv, s1, i1), h_t.numel() + sd.numel(), F32_FLOPS / 2),
+        library_ms=None,
     )
     log(f"phase 2: light_add_topk_t H_T={tuple(h_t.shape)} P={sd.shape[0]} "
         f"d_tile={d_lt}: scores within rtol 1e-6 ({int((i1 != i2).sum())} "
@@ -1177,10 +1608,54 @@ def main() -> None:
         f"{flash_attention.launches}}}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(phases 11-12)")
+    del vparams
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: kernels #6b and #6c against their plain version ---------
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+
+    t_phase = time.perf_counter()
+    phase13_flash_backward(dev, vtok, pairs, results)
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the training path: phases 14-15, with fresh launch counts ---------
+    kernels["flash_attention_bwd_dkv"] = flash_attention_bwd_dkv
+    kernels["flash_attention_bwd_dq"] = flash_attention_bwd_dq
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- phase 14: the train step at full width ----------------------------
+    t_phase = time.perf_counter()
+    train_cfg = phase14_train_step(dev, vtok, pairs)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- phase 15: the trainer end to end ----------------------------------
+    t_phase = time.perf_counter()
+    phase15_trainer(dev, vtok, train_cfg, pairs, tmp.name)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    train_launches = {
+        name: kernels[name].launches
+        for name in ("flash_attention", "flash_attention_bwd_dkv",
+                     "flash_attention_bwd_dq")
+    }
+    for name, count in train_launches.items():
+        if count == 0:
+            fail(f"{name} was not launched on the training path")
+    launches["flash_attention_bwd_dkv"] = train_launches["flash_attention_bwd_dkv"]
+    launches["flash_attention_bwd_dq"] = train_launches["flash_attention_bwd_dq"]
+    log(f"phases 14-15: kernel launches {train_launches}")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(phases 14-15)")
 
     tmp.cleanup()
-    if "jax" in sys.modules:
-        fail("JAX was imported")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
+    if loaded:
+        fail(f"JAX or the JAX package was imported: {loaded}")
 
     sources = {
         "membership_slab": (
@@ -1203,6 +1678,14 @@ def main() -> None:
             "ircl_tpu_torch/csrc/flash_attention.cu",
             "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
         ),
+        "flash_attention_bwd_dkv": (
+            "ircl_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+        ),
+        "flash_attention_bwd_dq": (
+            "ircl_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+        ),
     }
     report = []
     for name, (src, replaces) in sources.items():
@@ -1210,6 +1693,8 @@ def main() -> None:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], **results[name],
         ))
+        if name == "flash_attention":  # it also runs on the training path
+            report[-1]["launches_training_path"] = train_launches[name]
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

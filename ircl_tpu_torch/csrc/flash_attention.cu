@@ -49,70 +49,30 @@
 // half the f32 rate. TF32 or split-bf16 tensor cores (wgmma) are the next
 // step and need a parity bound first.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int kHD = 64;           // head width
 constexpr int kBQ = 64;           // query rows per block
 constexpr int kBK = 64;           // keys per tile
-constexpr int kThreads = 128;
-constexpr int kLanesPerRow = 8;   // lanes sharing a group of rows
 constexpr int kRows = kBQ / (kThreads / kLanesPerRow);  // 4 rows per lane
 constexpr int kCols = kBK / kLanesPerRow;               // 8 keys per lane
-constexpr int kPad = 4;           // floats of padding per shared row
-constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e+38);
-
-constexpr int kQS = kHD + kPad;   // shared row stride of q, k, v
 constexpr int kPS = kBK + kPad;   // shared row stride of the probabilities
 constexpr size_t kSmemBytes =
     sizeof(float) * (kBQ * kQS + 2 * kBK * kQS + kBQ * kPS) + sizeof(int32_t) * kBK;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [row0, row0 + 64) of a [n_rows, 64] f32 matrix into a shared tile of
-// row stride kQS, 16 bytes a copy; rows past n_rows read zero.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int64_t row0, int64_t n_rows, int tid) {
-  constexpr int kVecs = kHD / 4;
-  for (int idx = tid; idx < 64 * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = 4 * (idx % kVecs);
-    float* d = dst + r * kQS + c;
-    if (row0 + r < n_rows) {
-      cp_async16(d, src + (row0 + r) * kHD + c);
-    } else {
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
+// kStats also writes each query row's softmax statistics, the row maximum m
+// and the row sum l = sum_j exp(s_ij - m_i), f32 [B, H, Lq] each: what the
+// backward kernels (flash_attention_bwd.cu) recompute the probabilities
+// from, as the library's forward does under differentiation (:246-251).
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const int32_t* __restrict__ seg_q,
                        const int32_t* __restrict__ seg_kv, int64_t H, int64_t Lq,
-                       int64_t Lk, float sm_scale, float* __restrict__ out) {
+                       int64_t Lk, float sm_scale, float* __restrict__ out,
+                       float* __restrict__ l_out, float* __restrict__ m_out) {
   static_assert(kBQ == 64 && kBK == 64, "stage_rows stages 64 rows");
   constexpr int kOut = kHD / 32;   // float4 output columns per lane
   extern __shared__ float4 smem4[];
@@ -274,7 +234,42 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float4*>(ob + row * kHD + d) =
           make_float4(a[0] / l[i], a[1] / l[i], a[2] / l[i], a[3] / l[i]);
     }
+    if constexpr (kStats) {
+      if (cg == 0) {
+        l_out[(b * H + h) * Lq + row] = l[i];
+        m_out[(b * H + h) * Lq + row] = m[i];
+      }
+    }
   }
+}
+
+template <bool kStats>
+int launch_forward(const void* q, const void* k, const void* v, const void* seg_q,
+                   const void* seg_kv, int64_t B, int64_t H, int64_t Lq, int64_t Lk,
+                   int64_t hd, float sm_scale, void* out, void* l_out, void* m_out,
+                   void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (Lk <= 0 || Lk % kBK != 0 || hd != kHD || any % 16 != 0 || B > 65535 ||
+      H > 65535 || (seg_q == nullptr) != (seg_kv == nullptr) ||
+      (kStats && (l_out == nullptr || m_out == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((Lq + kBQ - 1) / kBQ),
+                  static_cast<unsigned>(H), static_cast<unsigned>(B));
+  flash_attention_kernel<kStats><<<grid, kThreads, kSmemBytes,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int32_t*>(seg_q),
+      static_cast<const int32_t*>(seg_kv), H, Lq, Lk, sm_scale,
+      static_cast<float*>(out), static_cast<float*>(l_out),
+      static_cast<float*>(m_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -289,24 +284,18 @@ extern "C" int ircl_flash_attention(const void* q, const void* k, const void* v,
                                     int64_t B, int64_t H, int64_t Lq, int64_t Lk,
                                     int64_t hd, float sm_scale, void* out,
                                     void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0) return static_cast<int>(cudaGetLastError());
-  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  if (Lk <= 0 || Lk % kBK != 0 || hd != kHD || any % 16 != 0 || B > 65535 ||
-      H > 65535 || (seg_q == nullptr) != (seg_kv == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((Lq + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_attention_kernel<<<grid, kThreads, kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int32_t*>(seg_q),
-      static_cast<const int32_t*>(seg_kv), H, Lq, Lk, sm_scale,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_forward<false>(q, k, v, seg_q, seg_kv, B, H, Lq, Lk, hd, sm_scale,
+                               out, nullptr, nullptr, stream);
+}
+
+// The same, and the softmax statistics l and m, f32 [B, H, Lq] each: the
+// forward of a differentiated call.
+extern "C" int ircl_flash_attention_stats(const void* q, const void* k, const void* v,
+                                          const void* seg_q, const void* seg_kv,
+                                          int64_t B, int64_t H, int64_t Lq,
+                                          int64_t Lk, int64_t hd, float sm_scale,
+                                          void* out, void* l_out, void* m_out,
+                                          void* stream) {
+  return launch_forward<true>(q, k, v, seg_q, seg_kv, B, H, Lq, Lk, hd, sm_scale,
+                              out, l_out, m_out, stream);
 }

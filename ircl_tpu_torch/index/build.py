@@ -26,9 +26,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ircl_tpu.corpus.filters import filter_ngram, normalize
-from ircl_tpu.corpus.hashing import hash_tokens
-from ircl_tpu.corpus.tokenizer import default_tokenizer
+from ircl_tpu_torch.corpus.filters import filter_ngram, normalize
+from ircl_tpu_torch.corpus.hashing import hash_tokens
+from ircl_tpu_torch.corpus.tokenizer import default_tokenizer
 
 DEFAULT_HASH_SIZE = 1 << 24
 DEFAULT_NGRAM = 2
@@ -130,7 +130,7 @@ def build_count_index(
     ``store`` exposes ``get_doc_ids`` / ``get_doc_text`` (see corpus.store).
     Documents stream through the native batch vectorizer in chunks.
     """
-    from ircl_tpu.corpus.fastpath import batch_vectorize
+    from ircl_tpu_torch.corpus.fastpath import batch_vectorize
 
     if doc_ids is None:
         doc_ids = store.get_doc_ids()
@@ -174,7 +174,7 @@ def build_count_index(
 def _native_csr_lib():
     import ctypes
 
-    from ircl_tpu.corpus.hashing import get_native
+    from ircl_tpu_torch.corpus.hashing import get_native
 
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)

@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ircl_tpu.corpus.fastpath import batch_vectorize
+from ircl_tpu_torch.corpus.fastpath import batch_vectorize
 from ircl_tpu_torch.index.build import CountIndex
 from ircl_tpu_torch.index.tfidf import idf_vector
 
@@ -46,9 +46,9 @@ def candidate_docs(
     Host-side, as in ``ircl_tpu``. The default ``bigram_only=False`` follows
     the reference's one exercised call site (``src/evaluation.py:101``).
     """
-    from ircl_tpu.corpus.filters import filter_ngram, normalize
-    from ircl_tpu.corpus.hashing import hash_token
-    from ircl_tpu.corpus.tokenizer import default_tokenizer
+    from ircl_tpu_torch.corpus.filters import filter_ngram, normalize
+    from ircl_tpu_torch.corpus.hashing import hash_token
+    from ircl_tpu_torch.corpus.tokenizer import default_tokenizer
 
     out: List[List[str]] = []
     tok = default_tokenizer()

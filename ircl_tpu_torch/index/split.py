@@ -278,7 +278,7 @@ def bucket_heavy(heavy: EllIndex, d_tile: int = 256) -> BucketedHeavy:
 def _native_split_lib():
     import ctypes
 
-    from ircl_tpu.corpus.hashing import get_native
+    from ircl_tpu_torch.corpus.hashing import get_native
 
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -299,7 +299,7 @@ def _native_split_lib():
 def _native_light_lib():
     import ctypes
 
-    from ircl_tpu.corpus.hashing import get_native
+    from ircl_tpu_torch.corpus.hashing import get_native
 
     i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)

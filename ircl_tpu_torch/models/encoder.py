@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ircl_tpu_torch.ops.bilstm import _xavier_uniform, bilstm_apply, init_bilstm_params
+from ircl_tpu_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -43,10 +44,11 @@ _ACTIVATIONS = {
 
 
 def init_encoder_params(
-    gen: torch.Generator, config: EncoderConfig, device="cpu"
+    gen: torch.Generator, config: EncoderConfig, device=None
 ) -> Dict[str, Any]:
     """BiLSTM layers, then the projection, drawn from ``gen`` on the CPU and
-    moved to ``device``."""
+    moved to ``device`` (by default the card)."""
+    device = resolve_device(device)
     dirs = 2 if config.bidirectional else 1
     lstm = init_bilstm_params(
         gen, config.input_size, config.hidden_size, config.num_layers,

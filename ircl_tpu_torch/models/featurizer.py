@@ -7,7 +7,7 @@ BiLSTM head (``src/contrastor/contrastive_module.py:32-41``):
 - ``HashEmbedFeaturizer``: frozen random token embeddings addressed by
   murmur3 token hashes, plus sinusoidal positions. The table comes from a
   ``torch.Generator`` seeded with ``config.seed``; ``encode_host`` is the
-  JAX package's, through ``ircl_tpu.corpus``'s native
+  JAX package's, through the port's ``corpus`` copy and the native
   ``ircl_tokenize_hash_seq``.
 - ``TransformerFeaturizer``: the reference's architecture, a frozen
   transformer over a corpus-trained WordPiece vocab, random-initialized.
@@ -26,11 +26,12 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ircl_tpu.corpus.filters import normalize
-from ircl_tpu.corpus.hashing import hash_tokens
-from ircl_tpu.corpus.tokenizer import default_tokenizer
+from ircl_tpu_torch.corpus.filters import normalize
+from ircl_tpu_torch.corpus.hashing import hash_tokens
+from ircl_tpu_torch.corpus.tokenizer import default_tokenizer
 from ircl_tpu_torch.models.transformer import from_huggingface
 from ircl_tpu_torch.utils.convert import to_device
+from ircl_tpu_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -57,7 +58,7 @@ class FeaturizerConfig:
 def _native_seq_lib():
     import ctypes
 
-    from ircl_tpu.corpus.hashing import get_native
+    from ircl_tpu_torch.corpus.hashing import get_native
 
     return get_native(
         "ircl_tokenize_hash_seq",
@@ -94,11 +95,11 @@ class HashEmbedFeaturizer:
     arrays instead."""
 
     def __init__(
-        self, config: FeaturizerConfig = FeaturizerConfig(), device="cpu",
+        self, config: FeaturizerConfig = FeaturizerConfig(), device=None,
         params=None,
     ):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if params is None:
             gen = torch.Generator().manual_seed(config.seed)
             table = torch.randn(
@@ -178,11 +179,11 @@ class TransformerFeaturizer:
     zeroed, feeds the BiLSTM head. ``params`` live on ``device``."""
 
     def __init__(self, tokenizer, tcfg, params, config: FeaturizerConfig,
-                 device="cpu"):
+                 device=None):
         self.tokenizer = tokenizer
         self.tcfg = tcfg
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = to_device(params, self.device)
 
     @classmethod
@@ -190,10 +191,11 @@ class TransformerFeaturizer:
         cls,
         tokenizer,
         config: FeaturizerConfig = FeaturizerConfig(kind="transformer"),
-        device="cpu",
+        device=None,
     ) -> "TransformerFeaturizer":
         """Random-init transformer over a given (word-piece) tokenizer, from a
         ``torch.Generator`` seeded with ``config.seed``."""
+        device = resolve_device(device)  # before the weights are drawn
         from ircl_tpu_torch.models.transformer import (
             TransformerConfig,
             init_transformer_params,
@@ -208,7 +210,7 @@ class TransformerFeaturizer:
             max_positions=max(config.max_len, 512),
         )
         gen = torch.Generator().manual_seed(config.seed)
-        params = init_transformer_params(gen, tcfg)
+        params = init_transformer_params(gen, tcfg, "cpu")
         return cls(tokenizer, tcfg, params, config, device=device)
 
     @classmethod
@@ -216,7 +218,7 @@ class TransformerFeaturizer:
         cls,
         texts,
         config: FeaturizerConfig = FeaturizerConfig(kind="transformer"),
-        device="cpu",
+        device=None,
     ) -> "TransformerFeaturizer":
         """Train a WordPiece vocab from the corpus (or read
         ``config.vocab_file``), then random-init the transformer over it."""
@@ -233,7 +235,7 @@ class TransformerFeaturizer:
         cls,
         name: str = "bert-base-uncased",
         config: FeaturizerConfig = FeaturizerConfig(kind="hf"),
-        device="cpu",
+        device=None,
     ) -> "TransformerFeaturizer":
         """Refused: see ``models.transformer.from_huggingface``."""
         from_huggingface(name)
@@ -256,7 +258,7 @@ class TransformerFeaturizer:
         return self.apply(self.params, *_on(self.device, ids, mask))
 
 
-def make_featurizer(config: FeaturizerConfig, corpus_texts=None, device="cpu"):
+def make_featurizer(config: FeaturizerConfig, corpus_texts=None, device=None):
     """Config-driven featurizer factory."""
     if config.kind == "hash":
         return HashEmbedFeaturizer(config, device=device)

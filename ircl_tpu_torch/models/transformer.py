@@ -11,14 +11,19 @@ carries them across unchanged.
 Ported: the dense model on both attention paths. ``"xla"`` adds a -1e9
 pad bias and takes a plain softmax; ``"flash"`` (the verdict model's)
 gives pads segment 0 and real tokens segment 1 and calls
-``ops/flash_attention_cuda.py::flash_attention``, which launches a CUDA
-kernel on the card. LayerNorm is the population variance with
+``ops/flash_attention_cuda.py::flash_attention``, which launches CUDA
+kernels on the card, forward and backward. Every function here runs under
+autograd: verdict training differentiates the whole body, the matrix
+products and LayerNorms through autograd and the flash attention through
+its own backward kernels. LayerNorm is the population variance with
 ``layernorm_eps`` (1e-12), as ``_ln`` computes it. The embedding gathers
 clamp their indices into range, as JAX's gather does: the verdict model has
 one token type while the pair encoder writes type 1 after the first
-``[SEP]``, and the reference then reads row 0. Not ported yet, and refused
-with ``NotImplementedError``: the MoE FFN (ROADMAP.md queue 1 item 9), the
-explicit-collective axes ``model_axis``/``expert_axis``/``seq_axis`` (item
+``[SEP]``, and the reference then reads row 0. Like the transpose of JAX's
+gather, the gradient of a clamped read is dropped, not added to the row it
+read. Not ported yet, and refused with ``NotImplementedError``: the MoE FFN
+(ROADMAP.md queue 1 item 9), the explicit-collective axes
+``model_axis``/``expert_axis``/``seq_axis`` and the sharding hooks (item
 12), and ``from_huggingface``.
 """
 
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from ircl_tpu_torch.ops.flash_attention_cuda import SegmentIds, flash_attention
 from ircl_tpu_torch.utils.convert import to_device
+from ircl_tpu_torch.utils.device import resolve_device
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -71,10 +77,12 @@ def _dense_init(gen, shape, scale=0.02):
 
 
 def init_transformer_params(
-    gen: torch.Generator, cfg: TransformerConfig, device="cpu"
+    gen: torch.Generator, cfg: TransformerConfig, device=None
 ) -> Dict:
     """N(0, 0.02) weights, zero biases, unit LayerNorm scales, drawn from
-    ``gen`` on the CPU in the reference's order and moved to ``device``."""
+    ``gen`` on the CPU in the reference's order and moved to ``device`` (by
+    default the card)."""
+    device = resolve_device(device)
     h, i = cfg.hidden, cfg.intermediate
 
     def ln():
@@ -115,10 +123,17 @@ def transformer_embed(
     type_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Embedding sum + embedding layernorm -> [B, L, hidden]. Every gather
-    index is clamped into its table, as JAX's gather clamps it."""
+    index is clamped into its table, as JAX's gather clamps it; an index
+    that was out of range passes no gradient to the row it read, as the
+    transpose of JAX's gather drops it."""
 
     def rows(table, idx):
-        return table[idx.clamp(0, table.shape[0] - 1)]
+        n = table.shape[0]
+        out = table[idx.clamp(0, n - 1)]
+        if not (torch.is_grad_enabled() and table.requires_grad):
+            return out
+        in_range = ((idx >= 0) & (idx < n))[..., None]
+        return torch.where(in_range, out, out.detach())
 
     L = ids.shape[1]
     pos = torch.arange(L, device=ids.device) + cfg.position_offset
@@ -199,6 +214,28 @@ def transformer_block(
     return _ln(x + ff, lp["ff_ln"], cfg.layernorm_eps)
 
 
+def transformer_apply_with_aux(
+    params: Dict,
+    cfg: TransformerConfig,
+    ids: torch.Tensor,  # [B, L] int
+    mask: torch.Tensor,  # [B, L] f32 (1 = real token)
+    type_ids: Optional[torch.Tensor] = None,
+    constrain=None,
+    ep_constrain=None,
+):
+    """(last hidden state [B, L, hidden], mean MoE aux loss: 0 for the dense
+    model, the only one ported). The reference's sharding hooks
+    (``constrain``, ``ep_constrain``) and ``pos_start`` (context
+    parallelism) wait for ROADMAP.md queue 1 item 12."""
+    if constrain is not None or ep_constrain is not None:
+        raise _not_ported("the constrain/ep_constrain sharding hooks", 12)
+    x = transformer_embed(params, cfg, ids, type_ids)
+    attn_ctx = attention_mask_inputs(cfg, mask)
+    for lp in params["layers"]:
+        x = transformer_block(x, lp, cfg, attn_ctx)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def transformer_apply(
     params: Dict,
     cfg: TransformerConfig,
@@ -206,14 +243,8 @@ def transformer_apply(
     mask: torch.Tensor,  # [B, L] f32 (1 = real token)
     type_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Last hidden state [B, L, hidden]. The reference's sharding hooks
-    (``constrain``, ``ep_constrain``) and ``pos_start`` (context
-    parallelism) wait for ROADMAP.md queue 1 item 12."""
-    x = transformer_embed(params, cfg, ids, type_ids)
-    attn_ctx = attention_mask_inputs(cfg, mask)
-    for lp in params["layers"]:
-        x = transformer_block(x, lp, cfg, attn_ctx)
-    return x
+    """Last hidden state [B, L, hidden] (the aux loss discarded)."""
+    return transformer_apply_with_aux(params, cfg, ids, mask, type_ids)[0]
 
 
 def from_huggingface(name: str = "bert-base-uncased"):

@@ -18,7 +18,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ircl_tpu.corpus.tokenizer import default_tokenizer
+from ircl_tpu_torch.corpus.tokenizer import default_tokenizer
 
 PAD, UNK, CLS, SEP, MSK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = [PAD, UNK, CLS, SEP, MSK]

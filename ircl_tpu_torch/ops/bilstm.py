@@ -26,6 +26,8 @@ from typing import Dict, List
 
 import torch
 
+from ircl_tpu_torch.utils.device import resolve_device
+
 
 def _xavier_uniform(gen: torch.Generator, shape) -> torch.Tensor:
     fan_out, fan_in = shape[0], shape[1]
@@ -47,11 +49,13 @@ def init_bilstm_params(
     hidden_size: int,
     num_layers: int,
     bidirectional: bool = True,
-    device="cpu",
+    device=None,
 ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
     """Per-layer params ``{'fwd': {...}, 'bwd': {...}}`` (no ``bwd`` when
-    unidirectional), drawn on the CPU from ``gen`` and moved to ``device``,
-    so one seed gives the same weights on every device."""
+    unidirectional), drawn on the CPU from ``gen`` and moved to ``device``
+    (by default the card), so one seed gives the same weights on every
+    device."""
+    device = resolve_device(device)
     dirs = 2 if bidirectional else 1
     layers = []
     for layer in range(num_layers):

@@ -16,8 +16,8 @@ from typing import Callable, Dict, List, Protocol, Sequence, Tuple
 
 import numpy as np
 
-from ircl_tpu.corpus.fever import nfkd as _nfkd
-from ircl_tpu.corpus.filters import normalize as _nfd
+from ircl_tpu_torch.corpus.fever import nfkd as _nfkd
+from ircl_tpu_torch.corpus.filters import normalize as _nfd
 from ircl_tpu_torch.index.ranker import TfidfRanker
 
 

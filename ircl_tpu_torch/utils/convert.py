@@ -4,7 +4,8 @@ The JAX package keeps parameters as nested dicts and lists of arrays; the
 port keeps the same trees of tensors with the same layouts. These helpers
 take the JAX side's trees after ``np.asarray`` on every leaf (this module
 never imports JAX), so both packages compute the same function from the
-same weights:
+same weights. Each converter puts the tensors on ``device``, by default the
+card (``utils/device.py``):
 
 - ``encoder_params_from_numpy``: the BiLSTM layers, ``proj_w``, ``proj_b``;
 - ``transformer_params_from_numpy``: embeddings, LayerNorms, the dense
@@ -12,7 +13,10 @@ same weights:
 - ``hash_featurizer_params_from_numpy``: the hash featurizer's ``table``
   and ``pos``;
 - ``verdict_params_from_numpy``: the verdict model's ``body`` (a
-  transformer tree), ``head_dense`` and ``head_out``.
+  transformer tree), ``head_dense`` and ``head_out``;
+- ``verdict_opt_state_from_numpy``: the reference's optax AdamW state
+  (its step count and both moment trees) as the port's optimizer state, so
+  that both packages resume training from the same point.
 """
 
 from __future__ import annotations
@@ -20,22 +24,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ircl_tpu_torch.utils.device import resolve_device
+from ircl_tpu_torch.utils.tree import tree_map
+
 
 def to_device(tree, device):
     """The same tree with every tensor moved to ``device``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def _from_numpy(tree, device):
-    if isinstance(tree, dict):
-        return {k: _from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_from_numpy(v, device) for v in tree]
-    return torch.tensor(np.asarray(tree, np.float32), device=device)
+    device = resolve_device(device)
+    return tree_map(
+        lambda a: torch.tensor(np.asarray(a, np.float32), device=device), tree
+    )
 
 
 def _require(tree, keys, what):
@@ -44,7 +46,7 @@ def _require(tree, keys, what):
         raise KeyError(f"{what} lacks {missing}")
 
 
-def encoder_params_from_numpy(params, device="cpu"):
+def encoder_params_from_numpy(params, device=None):
     """``{"lstm": [{"fwd": {w_ih, w_hh, b}, "bwd": ...}, ...], "proj_w",
     "proj_b"}`` of numpy arrays -> the same tree of f32 tensors."""
     _require(params, ("lstm", "proj_w", "proj_b"), "encoder params")
@@ -54,7 +56,7 @@ def encoder_params_from_numpy(params, device="cpu"):
     return _from_numpy(params, device)
 
 
-def transformer_params_from_numpy(params, device="cpu"):
+def transformer_params_from_numpy(params, device=None):
     """``init_transformer_params``' tree of numpy arrays -> f32 tensors."""
     _require(params, ("tok_emb", "pos_emb", "type_emb", "emb_ln", "layers"),
              "transformer params")
@@ -64,13 +66,13 @@ def transformer_params_from_numpy(params, device="cpu"):
     return _from_numpy(params, device)
 
 
-def hash_featurizer_params_from_numpy(params, device="cpu"):
+def hash_featurizer_params_from_numpy(params, device=None):
     """``HashEmbedFeaturizer.params`` (``{"table", "pos"}``) -> tensors."""
     _require(params, ("table", "pos"), "hash featurizer params")
     return _from_numpy({"table": params["table"], "pos": params["pos"]}, device)
 
 
-def verdict_params_from_numpy(params, device="cpu"):
+def verdict_params_from_numpy(params, device=None):
     """``init_verdict_params``' tree (``body``, ``head_dense``,
     ``head_out``) of numpy arrays -> f32 tensors."""
     _require(params, ("body", "head_dense", "head_out"), "verdict params")
@@ -80,4 +82,16 @@ def verdict_params_from_numpy(params, device="cpu"):
         "body": transformer_params_from_numpy(params["body"], device),
         "head_dense": _from_numpy(params["head_dense"], device),
         "head_out": _from_numpy(params["head_out"], device),
+    }
+
+
+def verdict_opt_state_from_numpy(count, mu, nu, device=None):
+    """The state of ``optax.adamw`` as ``make_verdict_optimizer`` keeps it:
+    ``count`` (the one step count that optax's Adam and its schedule share,
+    an int), ``mu`` and ``nu`` (the moment trees over ``init_verdict_params``'
+    structure, numpy arrays) -> ``{"count", "mu", "nu"}`` with f32 tensors."""
+    return {
+        "count": int(count),
+        "mu": verdict_params_from_numpy(mu, device),
+        "nu": verdict_params_from_numpy(nu, device),
     }

@@ -10,7 +10,7 @@ one shared library with a plain C interface, at first use:
     nvcc -shared -o libircl_kernels.so *.o
 
 The library lands in ``ircl_tpu_torch/_build/<hash>/``, keyed by a hash of
-the sources and flags, so an edited kernel rebuilds and an unchanged one
+the sources, the headers they share (``csrc/*.cuh``) and the flags, so an edited kernel rebuilds and an unchanged one
 loads at once. It is loaded with ``ctypes``; PyTorch's extension builder
 is not used, because a source that includes PyTorch's headers takes
 minutes to compile. Every pointer and the stream cross as ``c_void_p``,
@@ -53,6 +53,14 @@ _SIGNATURES = {
                         ctypes.c_int),
     "ircl_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P, _P], ctypes.c_int),
+    "ircl_flash_attention_stats": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    ctypes.c_float, _P, _P, _P, _P], ctypes.c_int),
+    "ircl_flash_attention_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, ctypes.c_float,
+                                      _P, _P, _P], ctypes.c_int),
+    "ircl_flash_attention_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, ctypes.c_float,
+                                     _P, _P], ctypes.c_int),
     "ircl_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -63,6 +71,11 @@ def package_root() -> str:
 
 def sources() -> list:
     return sorted(glob.glob(os.path.join(package_root(), "csrc", "*.cu")))
+
+
+def headers() -> list:
+    """The ``csrc/*.cuh`` files that the sources include."""
+    return sorted(glob.glob(os.path.join(package_root(), "csrc", "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -81,7 +94,7 @@ def _nvcc() -> str:
 
 def _source_key(srcs) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for path in srcs:
+    for path in [*srcs, *headers()]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())

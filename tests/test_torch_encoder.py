@@ -75,7 +75,8 @@ def test_bilstm_matches_jax(bidirectional, layers):
     x = rng.normal(size=(3, 7, 12)).astype(np.float32)
     want = np.asarray(j_lstm.bilstm_apply(j_params, jnp.asarray(x)))
     t_params = convert.encoder_params_from_numpy(
-        {"lstm": _np_tree(j_params), "proj_w": np.zeros((1, 1)), "proj_b": np.zeros(1)}
+        {"lstm": _np_tree(j_params), "proj_w": np.zeros((1, 1)), "proj_b": np.zeros(1)},
+        device="cpu",
     )["lstm"]
     got = t_lstm.bilstm_apply(t_params, _t(x)).numpy()
     assert got.shape == want.shape == (3, 7, 8 * (2 if bidirectional else 1))
@@ -85,7 +86,7 @@ def test_bilstm_matches_jax(bidirectional, layers):
 def test_bilstm_init_has_the_reference_shapes_and_laws():
     j_params = j_lstm.init_bilstm_params(jax.random.PRNGKey(0), 24, 16, 2, True)
     gen = torch.Generator().manual_seed(0)
-    t_params = t_lstm.init_bilstm_params(gen, 24, 16, 2, True)
+    t_params = t_lstm.init_bilstm_params(gen, 24, 16, 2, True, device="cpu")
     assert jax.tree.structure(_np_tree(j_params)) == jax.tree.structure(
         jax.tree.map(lambda t: t.numpy(), t_params)
     )
@@ -105,7 +106,8 @@ def test_bilstm_init_has_the_reference_shapes_and_laws():
             )
             assert not tl[d]["b"].any()
     # the same seed draws the same weights on every call
-    again = t_lstm.init_bilstm_params(torch.Generator().manual_seed(0), 24, 16, 2)
+    again = t_lstm.init_bilstm_params(torch.Generator().manual_seed(0), 24, 16, 2,
+                                      device="cpu")
     assert torch.equal(again[1]["bwd"]["w_hh"], t_params[1]["bwd"]["w_hh"])
 
 
@@ -119,7 +121,7 @@ def test_encoder_and_seq2vec_match_jax(masked_mean, activation):
     kw = _small_encoder(activation=activation, masked_mean=masked_mean)
     j_cfg, t_cfg = j_enc.EncoderConfig(**kw), t_enc.EncoderConfig(**kw)
     j_params = j_enc.init_encoder_params(jax.random.PRNGKey(3), j_cfg)
-    t_params = convert.encoder_params_from_numpy(_np_tree(j_params))
+    t_params = convert.encoder_params_from_numpy(_np_tree(j_params), device="cpu")
     rng = np.random.default_rng(1)
     x = rng.normal(size=(4, 9, 12)).astype(np.float32)
     mask = np.zeros((4, 9), np.float32)
@@ -140,7 +142,8 @@ def test_seq2vec_keeps_the_norm_floor():
     """An all-zero embedding stays zero (norm floored at 1e-12), as in the
     reference; no NaN."""
     cfg = t_enc.EncoderConfig(**_small_encoder())
-    params = t_enc.init_encoder_params(torch.Generator().manual_seed(0), cfg)
+    params = t_enc.init_encoder_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu")
     params["proj_w"] = torch.zeros_like(params["proj_w"])
     out = t_enc.seq2vec(params, cfg, torch.zeros(2, 3, 12))
     assert torch.equal(out, torch.zeros(2, 6))
@@ -149,7 +152,8 @@ def test_seq2vec_keeps_the_norm_floor():
 def test_encoder_init_matches_the_reference_layout():
     cfg = t_enc.EncoderConfig()
     j_params = j_enc.init_encoder_params(jax.random.PRNGKey(0), j_enc.EncoderConfig())
-    t_params = t_enc.init_encoder_params(torch.Generator().manual_seed(0), cfg)
+    t_params = t_enc.init_encoder_params(torch.Generator().manual_seed(0), cfg,
+                                       device="cpu")
     shapes = lambda tree: jax.tree.map(lambda a: tuple(np.shape(a)), tree)
     assert shapes(jax.tree.map(lambda t: t.numpy(), t_params)) == shapes(j_params)
     assert tuple(t_params["proj_w"].shape) == (128, 512)
@@ -196,7 +200,7 @@ def tf_pair():
                               jnp.float32),
         j_params,
     )
-    t_params = convert.transformer_params_from_numpy(_np_tree(j_params))
+    t_params = convert.transformer_params_from_numpy(_np_tree(j_params), device="cpu")
     rng = np.random.default_rng(2)
     ids = rng.integers(0, 50, size=(3, 16)).astype(np.int32)
     mask = np.zeros((3, 16), np.float32)
@@ -257,7 +261,8 @@ def test_transformer_init_matches_the_reference_layout():
         jax.random.PRNGKey(0), j_tf.TransformerConfig(**TF_KW)
     )
     t_params = t_tf.init_transformer_params(
-        torch.Generator().manual_seed(0), t_tf.TransformerConfig(**TF_KW)
+        torch.Generator().manual_seed(0), t_tf.TransformerConfig(**TF_KW),
+        device="cpu",
     )
     shapes = lambda tree: jax.tree.map(lambda a: tuple(np.shape(a)), tree)
     assert shapes(jax.tree.map(lambda t: t.numpy(), t_params)) == shapes(j_params)
@@ -299,7 +304,8 @@ def _hash_pair():
     j = j_feat.HashEmbedFeaturizer(j_feat.FeaturizerConfig(**HASH_CFG))
     t = t_feat.HashEmbedFeaturizer(
         t_feat.FeaturizerConfig(**HASH_CFG),
-        params=convert.hash_featurizer_params_from_numpy(_np_tree(j.params)),
+        device="cpu",
+        params=convert.hash_featurizer_params_from_numpy(_np_tree(j.params), device="cpu"),
     )
     return j, t
 
@@ -316,7 +322,7 @@ def test_hash_featurizer_matches_jax():
         np.asarray(j.features(jnp.asarray(ids), jnp.asarray(mask))),
     )
     # its own draw: the reference's positions, a unit-normal table
-    own = t_feat.HashEmbedFeaturizer(t_feat.FeaturizerConfig(**HASH_CFG))
+    own = t_feat.HashEmbedFeaturizer(t_feat.FeaturizerConfig(**HASH_CFG), device="cpu")
     np.testing.assert_allclose(own.params["pos"].numpy(), np.asarray(j.pos), atol=1e-7)
     assert own.params["table"].shape == (1 << 10, 16)
     assert abs(float(own.params["table"].std()) - 1.0) < 0.05
@@ -341,7 +347,8 @@ def tf_featurizers():
             f.name: getattr(j.tcfg, f.name)
             for f in dataclasses.fields(j.tcfg) if f.name not in ("dtype",)
         }),
-        convert.transformer_params_from_numpy(_np_tree(j.params)), t_cfg,
+        convert.transformer_params_from_numpy(_np_tree(j.params), device="cpu"), t_cfg,
+        device="cpu",
     )
     return texts, j, t
 
@@ -375,8 +382,8 @@ def test_transformer_featurizer_matches_jax(tf_featurizers):
 def test_transformer_featurizer_random_init_and_factory(tf_featurizers):
     texts, j, _ = tf_featurizers
     cfg = t_feat.FeaturizerConfig(**WP_CFG)
-    a = t_feat.make_featurizer(cfg, corpus_texts=texts)
-    b = t_feat.TransformerFeaturizer.train_from_corpus(texts, cfg)
+    a = t_feat.make_featurizer(cfg, corpus_texts=texts, device="cpu")
+    b = t_feat.TransformerFeaturizer.train_from_corpus(texts, cfg, device="cpu")
     assert a.tcfg == b.tcfg and a.tcfg.vocab_size == j.tcfg.vocab_size
     assert torch.equal(a.params["layers"][1]["q"]["w"], b.params["layers"][1]["q"]["w"])
     with pytest.raises(ValueError, match="corpus_texts"):
@@ -384,7 +391,7 @@ def test_transformer_featurizer_random_init_and_factory(tf_featurizers):
     with pytest.raises(ValueError, match="unknown featurizer"):
         t_feat.make_featurizer(t_feat.FeaturizerConfig(kind="bow"))
     assert isinstance(
-        t_feat.make_featurizer(t_feat.FeaturizerConfig(**HASH_CFG)),
+        t_feat.make_featurizer(t_feat.FeaturizerConfig(**HASH_CFG), device="cpu"),
         t_feat.HashEmbedFeaturizer,
     )
 
@@ -394,7 +401,7 @@ def _embed_pair(j_featurizer, t_featurizer, input_size):
     j_cfg = JTrainConfig(encoder=j_enc.EncoderConfig(**enc))
     t_cfg = TrainConfig(encoder=t_enc.EncoderConfig(**enc))
     j_params = j_enc.init_encoder_params(jax.random.PRNGKey(11), j_cfg.encoder)
-    t_params = convert.encoder_params_from_numpy(_np_tree(j_params))
+    t_params = convert.encoder_params_from_numpy(_np_tree(j_params), device="cpu")
     return (j_make_embed_fn(j_cfg, j_featurizer), j_params,
             make_embed_fn(t_cfg, t_featurizer), t_params)
 
@@ -432,7 +439,8 @@ def test_make_embed_fn_and_embed_corpus_match_jax(kind, tf_featurizers):
 def test_embed_corpus_edges():
     _, t = _hash_pair()
     cfg = TrainConfig(encoder=t_enc.EncoderConfig(**_small_encoder() | {"input_size": 16}))
-    params = t_enc.init_encoder_params(torch.Generator().manual_seed(0), cfg.encoder)
+    params = t_enc.init_encoder_params(torch.Generator().manual_seed(0), cfg.encoder,
+                                       device="cpu")
     fn = make_embed_fn(cfg, t)
     assert embed_corpus(fn, params, t, []).shape == (0, 0)
     with pytest.raises(NotImplementedError, match="item 12"):

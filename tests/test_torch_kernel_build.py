@@ -17,8 +17,8 @@ from ircl_tpu_torch.utils import kernel_build as kb
 
 def test_sources_are_the_package_csrc():
     names = sorted(os.path.basename(p) for p in kb.sources())
-    assert names == ["dense_cmax.cu", "flash_attention.cu", "light_add_topk.cu",
-                     "membership_slab.cu"]
+    assert names == ["dense_cmax.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+                     "light_add_topk.cu", "membership_slab.cu"]
     for path in kb.sources():
         text = open(path, encoding="utf-8").read()
         assert 'extern "C"' in text and "cudaGetLastError()" in text
@@ -35,6 +35,33 @@ def test_every_entry_point_has_a_signature():
     assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_dense_cmax"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_flash_attention"][0]
+    for name in ("ircl_flash_attention_stats", "ircl_flash_attention_bwd_dkv",
+                 "ircl_flash_attention_bwd_dq"):
+        assert ctypes.c_int not in kb._SIGNATURES[name][0]
+        # the stats entry adds l and m to the forward's arguments; the two
+        # backward entries differ by dK/dV's second output
+    assert len(kb._SIGNATURES["ircl_flash_attention_stats"][0]) == len(
+        kb._SIGNATURES["ircl_flash_attention"][0]) + 2
+    assert len(kb._SIGNATURES["ircl_flash_attention_bwd_dkv"][0]) == len(
+        kb._SIGNATURES["ircl_flash_attention_bwd_dq"][0]) + 1
+
+
+def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` rebuilds the sources that include it."""
+    names = [os.path.basename(p) for p in kb.headers()]
+    assert names == ["flash_attention_common.cuh"]
+    included = [p for p in kb.sources()
+                if f'#include "{names[0]}"' in open(p, encoding="utf-8").read()]
+    assert sorted(os.path.basename(p) for p in included) == [
+        "flash_attention.cu", "flash_attention_bwd.cu"]
+    a = tmp_path / "a.cu"
+    a.write_text("int x;\n")
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(kb, "headers", lambda: [str(header)])
+    k1 = kb._source_key([str(a)])
+    header.write_text("// two\n")
+    assert kb._source_key([str(a)]) != k1
 
 
 def test_source_key_follows_content(tmp_path):

@@ -1,4 +1,5 @@
-"""The port runs without JAX: it never imports it, directly or transitively.
+"""The port runs without JAX and without the JAX package ``ircl_tpu``: it
+never imports either, directly or transitively.
 
 The check runs in a subprocess, because this test process has loaded JAX
 already (``tests/conftest.py``).
@@ -15,8 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SERVE_ONE_REQUEST = r"""
 import io, json, os, sys, tempfile
 import ircl_tpu_torch
-from ircl_tpu.corpus.store import MemoryDocStore
-from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu_torch.corpus.store import MemoryDocStore
+from ircl_tpu_torch.corpus.synthetic import generate
 from ircl_tpu_torch.index.build import build_count_index
 from ircl_tpu_torch.index.ranker import TfidfRanker
 from ircl_tpu_torch.index.tfidf import tfidf_transform
@@ -39,16 +40,17 @@ for svc in (
     served = serve_stdin(svc, io.StringIO(json.dumps({"query": claim}) + "\n"), out)
     reply = json.loads(out.getvalue())
     assert served == 1 and reply["results"][0], reply
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAX_MODULES", loaded)
+print("JAX_MODULES", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
 """
 
 
 _SERVE_ONE_SENTENCE_REQUEST = r"""
 import io, json, sys
 import torch
-from ircl_tpu.corpus.store import MemoryDocStore
-from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu_torch.corpus.store import MemoryDocStore
+from ircl_tpu_torch.corpus.synthetic import generate
 from ircl_tpu_torch.contrastive.state import TrainConfig
 from ircl_tpu_torch.index.build import build_count_index
 from ircl_tpu_torch.index.ranker import TfidfRanker
@@ -63,10 +65,11 @@ from ircl_tpu_torch.serve import RetrievalService, serve_stdin
 wiki = generate(num_docs=40, num_claims=3, seed=3)
 store = MemoryDocStore({d: r["text"] for d, r in wiki.docs.items()})
 index = tfidf_transform(build_count_index(store, ngram=2, hash_size=1 << 18))
-feat = HashEmbedFeaturizer(FeaturizerConfig(dim=16, max_len=16, vocab_buckets=1 << 10))
+feat = HashEmbedFeaturizer(FeaturizerConfig(dim=16, max_len=16, vocab_buckets=1 << 10),
+                           device="cpu")
 cfg = TrainConfig(encoder=EncoderConfig(input_size=16, hidden_size=8, output_size=8,
                                         num_layers=1))
-params = init_encoder_params(torch.Generator().manual_seed(0), cfg.encoder)
+params = init_encoder_params(torch.Generator().manual_seed(0), cfg.encoder, device="cpu")
 scorer = PrecomputedSentenceScorer.from_scorer(
     ContrastiveSentenceScorer(cfg, feat, params, batch_size=8), wiki.sentences)
 svc = RetrievalService(TfidfRanker(index, "cpu"), batch_size=4,
@@ -81,16 +84,17 @@ ct, m = pad_corpus_t(torch.from_numpy(scorer.table), 64)
 q = torch.from_numpy(scorer._embed([wiki.claims[0].claim]))
 s, i = cosine_topk_fused(q, ct, k=3, chunk=16, m_tile=64, m_real=m, epilogue="fold")
 assert i.shape == (1, 3)
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAX_MODULES", loaded)
+print("JAX_MODULES", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
 """
 
 
 _SERVE_ONE_CLAIM_REQUEST = r"""
 import io, json, sys
 import torch
-from ircl_tpu.corpus.store import MemoryDocStore
-from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu_torch.corpus.store import MemoryDocStore
+from ircl_tpu_torch.corpus.synthetic import generate
 from ircl_tpu_torch.index.build import build_count_index
 from ircl_tpu_torch.index.ranker import TfidfRanker
 from ircl_tpu_torch.index.tfidf import tfidf_transform
@@ -108,7 +112,7 @@ cfg = VerdictConfig(encoder=TransformerConfig(
     vocab_size=tok.vocab_size, hidden=16, layers=1, heads=2, intermediate=32,
     max_positions=128, type_vocab=1, position_offset=2, attention="flash"),
     max_length=128)
-params = init_verdict_params(torch.Generator().manual_seed(0), cfg)
+params = init_verdict_params(torch.Generator().manual_seed(0), cfg, device="cpu")
 svc = RetrievalService(TfidfRanker(index, "cpu"), batch_size=4,
                        verdict_classifier=VerdictClassifier(cfg, params, tok, batch_size=4))
 out = io.StringIO()
@@ -117,8 +121,9 @@ served = serve_stdin(svc, io.StringIO(line + "\n"), out)
 reply = json.loads(out.getvalue())
 assert served == 1 and reply["results"][0]["label"] in ("SUPPORTS", "REFUTES"), reply
 assert reply["results"][0]["evidence"], reply
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAX_MODULES", loaded)
+print("JAX_MODULES", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
 """
 
 
@@ -165,20 +170,24 @@ def _port_files():
 )
 def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
     files = list(_port_files())
+    if banned == "scaled_dot_product_attention":
+        # chip_smoke.py times that call beside the flash kernels as a
+        # yardstick; the package itself never calls it
+        files = [p for p in files if os.path.basename(p) != "chip_smoke.py"]
     assert len(files) >= 15
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """Only ``ircl_tpu.corpus`` (JAX-free) may be shared with the reference."""
+    """No file of the port, nor ``chip_smoke.py``, imports a module of
+    ``ircl_tpu``, JAX-free or not: the port keeps its own copies."""
     offenders = []
     for path in _port_files():
         for line in open(path, encoding="utf-8"):
             s = line.strip()
             if s.startswith(("import ircl_tpu", "from ircl_tpu")) and not (
-                s.startswith(("from ircl_tpu.corpus", "from ircl_tpu_torch",
-                              "import ircl_tpu_torch"))
+                s.startswith(("from ircl_tpu_torch", "import ircl_tpu_torch"))
             ):
                 offenders.append(f"{path}: {s}")
     assert not offenders, offenders

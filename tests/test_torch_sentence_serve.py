@@ -159,14 +159,16 @@ def encoders():
     j_f = j_feat.HashEmbedFeaturizer(j_feat.FeaturizerConfig(**fcfg))
     t_f = t_feat.HashEmbedFeaturizer(
         t_feat.FeaturizerConfig(**fcfg),
+        device="cpu",
         params=convert.hash_featurizer_params_from_numpy(
-            jax.tree.map(np.asarray, j_f.params)
+            jax.tree.map(np.asarray, j_f.params), device="cpu"
         ),
     )
     j_cfg = JTrainConfig(encoder=j_enc.EncoderConfig(**enc))
     t_cfg = TrainConfig(encoder=t_enc.EncoderConfig(**enc))
     j_params = j_enc.init_encoder_params(jax.random.PRNGKey(21), j_cfg.encoder)
-    t_params = convert.encoder_params_from_numpy(jax.tree.map(np.asarray, j_params))
+    t_params = convert.encoder_params_from_numpy(
+        jax.tree.map(np.asarray, j_params), device="cpu")
 
     class _State:  # what ContrastiveSentenceScorer reads of a TrainState
         params_q = j_params

@@ -77,7 +77,8 @@ def _configs(vocab_size, attention):
 def _pair(tok, attention, seed=0):
     j_cfg, t_cfg = _configs(tok.vocab_size, attention)
     j_params = j_model.init_verdict_params(jax.random.PRNGKey(seed), j_cfg)
-    t_params = convert.verdict_params_from_numpy(jax.tree.map(np.asarray, j_params))
+    t_params = convert.verdict_params_from_numpy(
+        jax.tree.map(np.asarray, j_params), device="cpu")
     return j_cfg, t_cfg, j_params, t_params
 
 
@@ -128,7 +129,8 @@ def test_embedding_gathers_clamp_like_jax(case):
     kw = dict(TF_KW, vocab_size=50, max_positions=8, position_offset=2)
     j_cfg, t_cfg = j_tf.TransformerConfig(**kw), t_tf.TransformerConfig(**kw)
     j_params = j_tf.init_transformer_params(jax.random.PRNGKey(2), j_cfg)
-    t_params = convert.transformer_params_from_numpy(jax.tree.map(np.asarray, j_params))
+    t_params = convert.transformer_params_from_numpy(
+        jax.tree.map(np.asarray, j_params), device="cpu")
     rng = np.random.default_rng(0)
     n = 12 if case == "positions" else 8  # 12 positions > max_positions + offset
     ids = rng.integers(0, 50, size=(2, n)).astype(np.int32)
@@ -146,12 +148,14 @@ def test_embedding_gathers_clamp_like_jax(case):
 def test_init_matches_the_reference_layout(tok):
     j_cfg, t_cfg = _configs(tok.vocab_size, "flash")
     j_params = j_model.init_verdict_params(jax.random.PRNGKey(0), j_cfg)
-    t_params = t_model.init_verdict_params(torch.Generator().manual_seed(0), t_cfg)
+    t_params = t_model.init_verdict_params(torch.Generator().manual_seed(0), t_cfg,
+                                         device="cpu")
     shapes = lambda tree: jax.tree.map(lambda a: tuple(np.shape(a)), tree)  # noqa: E731
     assert shapes(jax.tree.map(lambda t: t.numpy(), t_params)) == shapes(j_params)
     w = t_params["head_dense"]["w"]
     assert abs(float(w.std()) - 0.02) < 0.002 and not t_params["head_out"]["b"].any()
-    again = t_model.init_verdict_params(torch.Generator().manual_seed(0), t_cfg)
+    again = t_model.init_verdict_params(torch.Generator().manual_seed(0), t_cfg,
+                                         device="cpu")
     assert torch.equal(again["head_out"]["w"], t_params["head_out"]["w"])
 
 

@@ -88,7 +88,7 @@ def classifiers(corpus, tmp_path_factory):
     tok.save_vocab(str(d / "vocab.txt"))
     t_infer.save_verdict_checkpoint(
         str(d), t_cfg,
-        convert.verdict_params_from_numpy(jax.tree.map(np.asarray, j_params)),
+        convert.verdict_params_from_numpy(jax.tree.map(np.asarray, j_params), device="cpu"),
         WordPieceTokenizer.from_vocab_file(str(d / "vocab.txt")))
     return (j_infer.VerdictClassifier(j_cfg, j_params, tok, batch_size=4),
             t_infer.VerdictClassifier.from_checkpoint(str(d), batch_size=4, device="cpu"))
