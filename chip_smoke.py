@@ -54,13 +54,31 @@ Phases, each printed as it runs:
 15. the trainer end to end: ``train_verdict`` on 256 seeded pairs for 2
     epochs with a validation split, its checkpoint loaded by
     ``VerdictClassifier`` and held to ``predict_in_batches``, whose
-    examples/s at batch 64 is printed.
+    examples/s at batch 64 is printed;
+16. the two probe kernels against their plain versions: the fused dot +
+    light add on phase 5's 50K-doc operands (slabs split into bf16 halves),
+    also held to the fused engine's top-5; the pre-split dense chunk-max on
+    phase 7's 1M x 128 corpus, bit for bit equal to the "high3" kernel, and
+    ``cosine_topk_fused_presplit`` through ``bench_dense.py``'s gate;
+17. sparse retrieval at scale, ``bench_scale.py``'s configuration: a
+    synthetic 1M-doc index, 1024 queries of 24 terms, the staged bucketed
+    engine, ``select_rescore=16`` and (on 32 queries) the ragged engine, each
+    held to the bench's scipy gate, then q/s, ms by stage and peak memory;
+18. the one-pass fused hybrid kernel against its plain version on both
+    buckets of that index, and ``hybrid_topk_onepass`` on phase 17's inputs
+    held to the staged engine's top-5 and to the scipy gate, with its ms a
+    batch and peak memory beside the staged engine's;
+19. ``ChunkedHybridRanker`` over the same index in two chunks of 500K docs,
+    held to the single ranker's scores and ids, then q/s.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
 dense path), before phase 11 and read after phase 12 (the verdict path),
-and before phase 14 and read after phase 15 (the training path); every
-kernel must have run on its path. The script exits non-zero at the first
+before phase 14 and read after phase 15 (the training path), inside phase
+16 after its comparisons (the probes' paths) and before phase 17, read after
+phase 19 (the scale path); every kernel must have run on its path, and
+launches made to compare a kernel with its plain version are not counted.
+The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
 take for the same work (``bound_ms``: its tensors moved once at 3.35 TB/s
@@ -111,6 +129,13 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_LR, TRAIN_TIMED_STEPS = 8, 3, 1e-5, 20
 TRAIN_GRAD_ATOL = 1e-5  # gradient leaves, flash against xla: fp32 through 12 layers
 TRAIN_GRAD_RTOL = 1e-2  # and of each leaf's largest element
 TRAINER_PAIRS, TRAINER_EPOCHS, PREDICT_BATCH = 256, 2, 64
+# the scale phases: bench_scale.py's configuration
+SCALE_DOCS, SCALE_TERMS, SCALE_VOCAB, SCALE_B = 1_000_000, 96, 2_000_000, 1024
+SCALE_RANKER = dict(mode="hybrid", df_threshold=256, width_buckets=2,
+                    precision="high", fixed_max_terms=24, d_tile=512)
+SCALE_PARITY, SCALE_RAGGED, SCALE_SELECT, SCALE_CHUNK = 256, 32, 16, 500_000
+FUSED_DOT_RTOL, FUSED_DOT_ATOL = 2e-5, 1e-5  # the probe's own bound
+ONEPASS_RTOL = 1e-5  # against the slab GEMM: another summation order
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores; one FMA is two
@@ -354,6 +379,7 @@ def phase7_dense_bench(dev, queries, corpus, q_d, ct_d, rows_d, m_real):
     log(f"phase 7: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB (engines and data)")
     del corpus_d
+    return ref_s, ref_sets
 
 
 def phase8_encoder(dev, wiki, doc_ids):
@@ -1174,6 +1200,509 @@ def phase15_trainer(dev, tok, cfg, pairs, tmpdir):
         f"{PREDICT_BATCH}: {TRAINER_PAIRS / dt:.1f} examples/s")
 
 
+def tiles_agree(got, ref, rtol, atol=0.0, own=None):
+    """Per-tile top-k outputs: scores within the tolerance and positions
+    equal. With ``own(rows, cols, positions)``, which gives the plain total
+    of each named position (NaN where it may not stand in that output row),
+    a position may differ where it carries its own total within the
+    tolerance: a tie, or two docs the tolerance cannot tell apart. Returns
+    (ok, max abs score difference, positions that differ)."""
+    import torch
+
+    (s1, i1), (s2, i2) = got, ref
+    ok = bool(torch.isclose(s1, s2, rtol=rtol, atol=atol).all())
+    r, c = (i1 != i2).nonzero(as_tuple=True)
+    if r.numel():
+        ok = ok and own is not None and bool(
+            torch.isclose(own(r, c, i1[r, c]), s1[r, c], rtol=rtol, atol=atol).all())
+    return ok, float((s1 - s2).abs().max()), int(r.numel())
+
+
+def plain_totals_at(h_t, docs_t, contribs_t, pos, cols):
+    """Heavy score plus light pool entries of doc ``pos[j]`` for column
+    ``cols[j]``, from the plain transposed scores ``h_t [N_pad, B]`` and the
+    pools ``[P, B]``; NaN for a negative position."""
+    import torch
+
+    light = (contribs_t[:, cols] * (docs_t[:, cols] == pos)).sum(0)
+    total = h_t[pos.long().clamp(min=0), cols] + light
+    return torch.where(pos >= 0, total, torch.nan)
+
+
+def ids_carry_scores(s, i, ref_i, cpu_results, rtol=1e-4):
+    """Top-k rows against another engine's: the (query, slot) places whose
+    id differs from ``ref_i`` and whose doc does NOT have the reported score
+    in the scipy matvec (so a differing id that passes is a real tie)."""
+    bad = 0
+    for b, j in zip(*np.nonzero(i != ref_i)):
+        _, _, all_ids, all_scores = cpu_results[b]
+        pos = min(np.searchsorted(all_ids, i[b, j]), len(all_ids) - 1)
+        if i[b, j] < 0 or not len(all_ids) or all_ids[pos] != i[b, j] or not np.isclose(
+                all_scores[pos], s[b, j], rtol=rtol, atol=0.0):
+            bad += 1
+    return bad
+
+
+def scale_gate(s, i, cpu_results, n):
+    """``bench_scale.py:190-200``: queries whose sorted top-k scores differ
+    from the scipy matvec's at rtol 1e-4. Beyond the bench's gate, every
+    returned doc must carry its own scipy score (the top-k here is full of
+    exact ties, so ids cannot be compared, but a shifted id would show)."""
+    bad = 0
+    for b in range(n):
+        ref_ids, ref_scores, all_ids, all_scores = cpu_results[b]
+        m = min(len(ref_ids), int((i[b] >= 0).sum()))
+        if not np.allclose(np.sort(ref_scores[:m]), np.sort(s[b][:m]), rtol=1e-4):
+            bad += 1
+            continue
+        got = i[b][i[b] >= 0]
+        pos = np.minimum(np.searchsorted(all_ids, got), len(all_ids) - 1)
+        if not (all_ids[pos] == got).all() or not np.allclose(
+                all_scores[pos], s[b][i[b] >= 0], rtol=1e-4):
+            bad += 1
+    return bad
+
+
+def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense_ref,
+                          results, launches):
+    """Kernels #7 and #8 against their plain versions, then each driven
+    through its entry point with fresh launch counts."""
+    import torch
+
+    from ircl_tpu_torch.index.ranker import TfidfRanker
+    from ircl_tpu_torch.ops import hybrid as hy
+    from ircl_tpu_torch.ops.dense_topk_cuda import (
+        chunk_max, chunk_max_presplit, chunk_max_presplit_ref,
+        cosine_topk_fused_presplit, pad_corpus_t,
+    )
+    from ircl_tpu_torch.ops.fused_dot_light_cuda import (
+        fused_dot_light_topk, fused_dot_light_topk_ref, high3_scores_t_ref, split_hi_lo,
+    )
+
+    put = lambda x: torch.tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    # ---- #7 on the judged configuration's operands (phase 5's) -------------
+    ranker = TfidfRanker(
+        index, dev, mode="hybrid", df_threshold=24, width_buckets=2,
+        fixed_union_cap=4096, fixed_max_terms=64, precision="high", union_round=512,
+    )
+    buckets, weights = ranker._vectorize(claims)
+    host = [put(x) for x in ranker.hybrid_host_inputs(buckets, weights)]
+    u_pad, qb_t, qw_t, ld, lc = host
+    m, u_tile = hy._bucketed_membership(u_pad, *ranker._heavy_a, *ranker._heavy_b,
+                                        ranker.d_tile)
+    wt = hy._query_slab(u_pad, qb_t, qw_t, u_tile, True)[:, : ld.shape[0]].contiguous()
+    t_split = cuda_ms(lambda: (split_hi_lo(m), split_hi_lo(wt)), reps=2)
+    (m_hi, m_lo), (w_hi, w_lo) = split_hi_lo(m), split_hi_lo(wt)
+    del m, wt
+    sd, sv = ld.T.contiguous(), lc.T.contiguous()
+    d_lt = next(t for t in (1024, 512, 256) if m_hi.shape[1] % t == 0)
+    args = (m_hi, m_lo, w_hi, w_lo, sd, sv)
+    got = fused_dot_light_topk(*args, k=K, d_tile=d_lt)
+    ref = fused_dot_light_topk_ref(*args, k=K, d_tile=d_lt)
+    torch.cuda.synchronize()
+    h_t = high3_scores_t_ref(m_hi, m_lo, w_hi, w_lo)  # what a differing id is held to
+    k8 = got[0].shape[0] // (m_hi.shape[1] // d_lt)
+
+    def own(rows, cols, pos):  # a position stands only in its own tile's rows
+        totals = plain_totals_at(h_t, sd, sv, pos, cols)
+        return torch.where(pos // d_lt == rows // k8, totals, torch.nan)
+
+    ok, err, n_ids = tiles_agree(got, ref, FUSED_DOT_RTOL, FUSED_DOT_ATOL, own)
+    if not ok:
+        fail(f"phase 16: fused_dot_light_topk differs from its plain version: scores "
+             f"by {err}, or one of {n_ids} differing positions does not carry its "
+             f"own plain total")
+    t_k = cuda_ms(lambda: fused_dot_light_topk(*args, k=K, d_tile=d_lt), reps=2)
+    t_p = cuda_ms(lambda: fused_dot_light_topk_ref(*args, k=K, d_tile=d_lt), reps=1)
+    U, n_pad = m_hi.shape
+    B = w_hi.shape[1]
+    results["fused_dot_light_topk"] = dict(
+        max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+        **least_time((*args, *got), 3 * 2 * U * n_pad * B, BF16_FLOPS))
+    log(f"phase 16: fused_dot_light_topk m [{U}, {n_pad}] x w [{U}, {B}] bf16 halves, "
+        f"P={sd.shape[0]}, d_tile={d_lt}: per-tile scores within {err:.3g} of the "
+        f"plain version (bound rtol {FUSED_DOT_RTOL}, atol {FUSED_DOT_ATOL}; {n_ids} "
+        f"positions differ, each carrying its own plain total inside it); kernel {t_k:.3f} ms "
+        f"({3 * 2 * U * n_pad * B / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
+        f"{results['fused_dot_light_topk']['bound_ms']:.3f} ms; the split of both "
+        f"slabs {t_split:.3f} ms")
+    del got, ref
+
+    # its path: the fused engine's top-5 with the dot inside the kernel
+    fused_dot_light_topk.launches = 0
+
+    def fused_top5():
+        ts, ti = fused_dot_light_topk(*args, k=K, d_tile=d_lt)
+        top_s, top_pos = torch.topk(ts.T, K, dim=1)
+        return top_s, torch.gather(ti.T, 1, top_pos)
+
+    engine = lambda: hy.hybrid_topk_bucketed_fused(  # noqa: E731
+        *ranker._heavy_a, *ranker._heavy_b, *host, k=K, precision="high",
+        queries_sorted=True, pools_sorted=True, d_tile=ranker.d_tile)
+    s, i = fused_top5()
+    rs, ri = engine()
+    live = ri >= 0
+    close = torch.isclose(s, rs, rtol=FUSED_DOT_RTOL, atol=FUSED_DOT_ATOL)
+    r, c = ((i != ri) & live).nonzero(as_tuple=True)  # c: slot; the claim is r
+    tied = torch.isclose(plain_totals_at(h_t, sd, sv, i[r, c], r), s[r, c],
+                         rtol=FUSED_DOT_RTOL, atol=FUSED_DOT_ATOL)
+    if not bool((close | ~live).all()) or not bool(tied.all()):
+        fail(f"phase 16: the fused dot + light add top-{K} leaves the probe's bound: "
+             f"scores by {float((s - rs)[live].abs().max())}, {int((~tied).sum())} of "
+             f"{r.numel()} differing ids without their own plain total")
+    t_new = cuda_ms(fused_top5, reps=2)
+    t_old = cuda_ms(engine, reps=2)
+    launches["fused_dot_light_topk"] = fused_dot_light_topk.launches
+    log(f"phase 16: top-{K} of {B} claims through the fused dot + light add equals "
+        f"hybrid_topk_bucketed_fused's within the probe's bound (max "
+        f"{float((s - rs)[live].abs().max()):.3g}, {int(((i != ri) & live).sum())} ids "
+        f"differ, each carrying its own plain total inside it): {t_new:.3f} ms from split slabs against {t_old:.3f} ms for "
+        f"the whole fused engine (slabs, fp32 GEMM, light add); "
+        f"{launches['fused_dot_light_topk']} launches")
+    del ranker, host, args, m_hi, m_lo, w_hi, w_lo, sd, sv, s, i, rs, ri, h_t
+    torch.cuda.empty_cache()
+
+    # ---- #8 on bench_dense.py's corpus (phase 7's) -------------------------
+    q_d = torch.tensor(dense_queries, device=dev)
+    ct_d, m_real = pad_corpus_t(torch.tensor(dense_corpus, device=dev), DENSE_TILE)
+    rows_d = ct_d.T.contiguous()
+    ct_hi, ct_lo = split_hi_lo(ct_d)
+    pargs = (q_d, ct_hi, ct_lo, DENSE_CHUNK, DENSE_TILE, m_real, "fold")
+    high3 = lambda: chunk_max(  # noqa: E731
+        q_d, ct_d, DENSE_CHUNK, DENSE_TILE, m_real, "high3", "fold")
+    got = chunk_max_presplit(*pargs)
+    ref = chunk_max_presplit_ref(*pargs)
+    same = high3()
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ref)
+    err = float((got[fin] - ref[fin]).abs().max())
+    if not torch.equal(torch.isfinite(got), fin) or err > CMAX_ATOL:
+        fail(f"phase 16: chunk_max_presplit differs from its plain version by {err}")
+    if not torch.equal(got, same):
+        fail("phase 16: chunk_max_presplit is not chunk_max high3/fold bit for bit")
+    t_k = cuda_ms(lambda: chunk_max_presplit(*pargs), reps=3)
+    t_p = cuda_ms(lambda: chunk_max_presplit_ref(*pargs), reps=2)
+    t_h3 = cuda_ms(high3, reps=3)
+    results["chunk_max_presplit"] = dict(
+        max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+        **least_time((q_d, ct_hi, ct_lo, got),
+                     3 * 2 * q_d.shape[0] * q_d.shape[1] * m_real, BF16_FLOPS))
+    log(f"phase 16: chunk_max_presplit B={q_d.shape[0]} M_pad={ct_hi.shape[1]} (m_real "
+        f"{m_real}) fold: chunk maxima within {err:.3g} of the plain version (bound "
+        f"{CMAX_ATOL}) and equal to chunk_max high3/fold bit for bit; kernel {t_k:.3f} "
+        f"ms, high3 kernel on the f32 corpus {t_h3:.3f} ms, plain {t_p:.3f} ms")
+    del got, ref, same
+
+    chunk_max_presplit.launches = 0
+    fn = lambda: cosine_topk_fused_presplit(  # noqa: E731
+        q_d, ct_hi, ct_lo, rows_d, k=K, chunk=DENSE_CHUNK, m_tile=DENSE_TILE,
+        m_real=m_real, epilogue="fold")
+    s, i = (x.cpu().numpy() for x in fn())
+    ref_s, ref_sets = dense_ref
+    bad_s = sum(not np.allclose(s[b], ref_s[b], rtol=1e-5) for b in range(DENSE_B))
+    bad_i = sum(set(i[b].tolist()) != ref_sets[b] for b in range(DENSE_B))
+    if bad_s:
+        fail(f"phase 16: cosine_topk_fused_presplit failed the full-batch gate on "
+             f"{bad_s} queries")
+    qps = timed_qps(fn, DENSE_B, reps=5)
+    launches["chunk_max_presplit"] = chunk_max_presplit.launches
+    log(f"phase 16: cosine_topk_fused_presplit: full-batch score parity "
+        f"{DENSE_B - bad_s}/{DENSE_B} (rtol 1e-5; id-set tie swaps {bad_i}); "
+        f"{qps:.1f} q/s; {launches['chunk_max_presplit']} launches")
+
+
+def phase17_scale(dev):
+    """bench_scale.py's configuration on the port: index, rankers, the scipy
+    gate for the staged engine, select_rescore and the ragged engine, q/s,
+    ms by stage, peak memory. Returns what phases 18 and 19 reuse."""
+    import scipy.sparse as sp
+    import torch
+
+    from ircl_tpu_torch.index.build import to_scipy
+    from ircl_tpu_torch.index.ranker import TfidfRanker
+    from ircl_tpu_torch.ops import hybrid as hy
+    from ircl_tpu_torch.ops import ragged
+    from ircl_tpu_torch.ops.membership_cuda import scores_matmul
+    from ircl_tpu_torch.tools.scale_index import synth_index, synth_queries
+
+    put = lambda x: torch.tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    t0 = time.perf_counter()
+    index = synth_index(SCALE_DOCS, SCALE_TERMS, SCALE_VOCAB, HASH_SIZE)
+    t_index = time.perf_counter() - t0
+    qb, qw = synth_queries(index, SCALE_B)
+    log(f"phase 17: synthetic index of {index.num_docs} docs, {index.nnz} postings "
+        f"(bench_scale.py's {SCALE_DOCS} docs, no cut) built in {t_index:.1f} s on the "
+        f"host; {SCALE_B} queries of {qb.shape[1]} terms")
+
+    # the CPU reference: per-query scipy matvec (bench_scale.py:138-159)
+    t0 = time.perf_counter()
+    mat = to_scipy(index)
+
+    def cpu_closest(b):
+        nz = qw[b] != 0
+        spvec = sp.csr_matrix(
+            (qw[b][nz], qb[b][nz], [0, int(nz.sum())]), shape=(1, HASH_SIZE)
+        )
+        res = spvec * mat
+        o = np.argpartition(-res.data, min(K, max(len(res.data) - 1, 0)))[:K]
+        o = o[np.argsort(-res.data[o])]
+        by_id = np.argsort(res.indices)  # every scored doc, for scale_gate
+        return res.indices[o], res.data[o], res.indices[by_id], res.data[by_id]
+
+    t1 = time.perf_counter()  # the gate reads the first SCALE_PARITY; id checks, all
+    cpu_results = [cpu_closest(b) for b in range(SCALE_B)]
+    cpu_qps = SCALE_B / (time.perf_counter() - t1)
+    log(f"phase 17: scipy reference for {SCALE_B} queries in "
+        f"{time.perf_counter() - t0:.1f} s ({cpu_qps:.1f} q/s on the host)")
+    del mat
+
+    t0 = time.perf_counter()
+    ranker = TfidfRanker(index, dev, **SCALE_RANKER)
+    t_build = time.perf_counter() - t0
+    split = ranker._split
+    log(f"phase 17: staged ranker built in {t_build:.1f} s (df-split, width buckets, "
+        f"upload): K_h={split.heavy.k_width}, buckets "
+        f"{tuple(ranker._heavy_a[0].shape)} and {tuple(ranker._heavy_b[0].shape)}, "
+        f"d_tile {ranker.d_tile}")
+    t0 = time.perf_counter()
+    sel = TfidfRanker(index, dev, split=split, select_rescore=SCALE_SELECT,
+                      **{k: v for k, v in SCALE_RANKER.items() if k != "df_threshold"})
+    rag = TfidfRanker(index, dev, mode="ragged", fixed_max_terms=24)
+    log(f"phase 17: select_rescore={SCALE_SELECT} ranker (the same split) and the "
+        f"ragged ranker built in {time.perf_counter() - t0:.1f} s")
+
+    out = {}
+    for name, r in (("staged", ranker), (f"select_rescore={SCALE_SELECT}", sel)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        s, i = r.hybrid_from_vectors(qb, qw, K)
+        first = time.perf_counter() - t0
+        bad = scale_gate(s, i, cpu_results, SCALE_PARITY)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 17: {name}: parity {SCALE_PARITY - bad}/{SCALE_PARITY} queries "
+            f"match scipy (sorted top-{K} scores, rtol 1e-4, each doc its own score); "
+            f"first batch {first:.2f} s; "
+            f"peak device memory {peak / 2**30:.2f} GiB ({(peak - base_mem) / 2**30:.2f} "
+            f"GiB above the resident indexes)")
+        if bad:
+            fail(f"phase 17: {name} failed the scipy gate on {bad} queries")
+        out[name] = (s, i)
+        rounds = []
+        for _ in range(4):  # bench_scale.py:202-218, 5 batches in flight a round
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            e0.record()
+            outs = [r.hybrid_from_vectors_async(qb, qw, K) for _ in range(5)]
+            e1.record()
+            torch.cuda.synchronize()
+            outs[-1][0].cpu()
+            rounds.append((5 * SCALE_B / (time.perf_counter() - t0),
+                           e0.elapsed_time(e1) / 5))
+            del outs
+        best = max(q for q, _ in rounds)
+        log(f"phase 17: {name}: B={SCALE_B}, 5 batches a round: "
+            + ", ".join(f"{q:.1f}" for q, _ in rounds)
+            + f" q/s (best {best:.1f}; {best / cpu_qps:.1f}x the host's scipy); "
+            + ", ".join(f"{m:.1f}" for _, m in rounds)
+            + " ms a batch between CUDA events (host half included)")
+    (s_st, i_st), (s_se, i_se) = out["staged"], out[f"select_rescore={SCALE_SELECT}"]
+    same = sum(np.allclose(np.sort(s_st[b]), np.sort(s_se[b]), rtol=1e-5)
+               for b in range(SCALE_B))
+    log(f"phase 17: select_rescore={SCALE_SELECT} returns the staged engine's sorted "
+        f"top-{K} scores on {same}/{SCALE_B} queries (rtol 1e-5; its selection is "
+        f"approximate, the gate above certifies the {SCALE_PARITY} checked)")
+
+    # the ragged validation engine on 32 queries
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    docs, contribs, cap = rag._gather_ragged_vectors(qb[:SCALE_RAGGED], qw[:SCALE_RAGGED])
+    rs, ri = ragged.segment_topk(docs, contribs, k=K)
+    rs, ri = rs.cpu().numpy(), ri.cpu().numpy()
+    t_rag = time.perf_counter() - t0
+    bad = scale_gate(rs, ri, cpu_results, SCALE_RAGGED)
+    if bad:
+        fail(f"phase 17: the ragged engine failed the scipy gate on {bad} queries")
+    dense = ragged.dense_scores(docs, contribs, num_docs=index.num_docs)
+    own = torch.gather(dense, 1, put(np.maximum(ri, 0)).long()).cpu().numpy()
+    if not np.allclose(np.where(ri >= 0, own, 0.0), rs, rtol=1e-5):
+        fail("phase 17: dense_scores disagrees with the ragged top-k")
+    log(f"phase 17: ragged engine, {SCALE_RAGGED} queries, pools [{SCALE_RAGGED}, {cap}]: "
+        f"parity {SCALE_RAGGED - bad}/{SCALE_RAGGED} against scipy; dense_scores "
+        f"[{SCALE_RAGGED}, {index.num_docs}] carries each returned doc's score; "
+        f"{t_rag:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del docs, contribs, dense, rag, sel
+    torch.cuda.empty_cache()
+
+    # ms by stage of one staged batch
+    t0 = time.perf_counter()
+    host = ranker.hybrid_host_inputs(qb, qw)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_in = [put(x) for x in host]
+    torch.cuda.synchronize()
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    u_pad, qb_t, qw_t, ld, lc = dev_in
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    ev[0].record()
+    m, u_tile = hy._bucketed_membership(u_pad, *ranker._heavy_a, *ranker._heavy_b,
+                                        ranker.d_tile)
+    wt = hy._query_slab(u_pad, qb_t, qw_t, u_tile, True)
+    ev[1].record()
+    h = scores_matmul(wt.T, m)[: ld.shape[0]]
+    ev[2].record()
+    hy._merge_light(h, ld, lc, K, h.shape[1], pools_sorted=True)
+    ev[3].record()
+    del h
+    h_sel = torch.matmul(wt[:, : ld.shape[0]].T.to(torch.bfloat16), m.to(torch.bfloat16))
+    ev[4].record()
+    hy._select_rescore_topk(m, wt, h_sel, ld, lc, K, SCALE_SELECT, h_sel.shape[1], True)
+    ev[5].record()
+    torch.cuda.synchronize()
+    ms = [ev[j].elapsed_time(ev[j + 1]) for j in range(5)]
+    log(f"phase 17: one batch by stage: host pool gather and query prep {host_ms:.2f} "
+        f"ms, upload {upload_ms:.2f} ms (pools [{ld.shape[0]}, {ld.shape[1]}]); slabs "
+        f"[{m.shape[0]}, {m.shape[1]}] {ms[0]:.3f} ms, fp32 GEMM {ms[1]:.3f} ms, "
+        f"top-k + light merge {ms[2]:.3f} ms; select_rescore: bf16 casts + GEMM "
+        f"{ms[3]:.3f} ms, selection + exact rescore {ms[4]:.3f} ms")
+    del m, wt, h_sel
+    torch.cuda.empty_cache()
+    return index, qb, qw, cpu_results, ranker, dev_in, (s_st, i_st)
+
+
+def phase18_onepass(dev, ranker, cpu_results, dev_in, staged, results):
+    """Kernel #5 against its plain version on both buckets of phase 17's
+    index, then ``hybrid_topk_onepass`` on phase 17's inputs."""
+    import torch
+
+    from ircl_tpu_torch.ops import hybrid as hy
+    from ircl_tpu_torch.ops.fused_hybrid_cuda import (
+        fused_hybrid_tile_topk, fused_hybrid_tile_topk_ref, hybrid_topk_onepass,
+    )
+
+    u_pad, qb_t, qw_t, ld, lc = dev_in
+    B = ld.shape[0]
+    wt = hy._query_slab(u_pad, qb_t, qw_t, hy._u_tile(u_pad.shape[0]), True)
+    wt = wt[:, :B].contiguous()
+    sd_t, sv_t = ld.T.contiguous(), lc.T.contiguous()
+    na = ranker._heavy_a[0].shape[1]
+    before = fused_hybrid_tile_topk.launches
+    total = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 bound_dense_ms=0.0, library_ms=None)
+    by = (0.0, "")
+    for label, (terms, vals), base in (("bucket a", ranker._heavy_a, 0),
+                                       ("bucket b", ranker._heavy_b, na)):
+        d_tile = next(t for t in (1024, 512, 256) if terms.shape[1] % t == 0)
+        args = (terms, vals, u_pad, wt, sd_t, sv_t)
+        kw = dict(k=K, d_tile=d_tile, base=base)
+        got = fused_hybrid_tile_topk(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = fused_hybrid_tile_topk_ref(*args, **kw)
+        torch.cuda.synchronize()
+        t_p = 1e3 * (time.perf_counter() - t0)  # one run: it takes seconds
+        ok, err, n_ids = tiles_agree(got, ref, ONEPASS_RTOL)  # ids: equal outright
+        if not ok:
+            fail(f"phase 18: fused_hybrid_tile_topk ({label}) differs from its plain "
+                 f"version: scores by {err}, {n_ids} positions")
+        del ref
+        torch.cuda.empty_cache()
+        t_k = cuda_ms(lambda: fused_hybrid_tile_topk(*args, **kw), reps=3)
+        # the work the function needs: one multiply-add a (hit, column) and
+        # every input once (the kernel itself reads the ELL rows once a block
+        # of 128 columns: that is its cost, not the function's)
+        hits = int(torch.isin(terms, u_pad).sum())
+        need = least_time((*args, *got), 2 * hits * B, F32_FLOPS)
+        # the dense work the TPU kernel did: the slab product over every slot
+        dense = least_time((), 2 * u_pad.shape[0] * terms.shape[1] * B, F32_FLOPS)
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        total["ms"] += t_k
+        total["plain_ms"] += t_p
+        total["bound_ms"] += need["bound_ms"]
+        total["bound_dense_ms"] += dense["bound_ms"]
+        by = max(by, (need["bound_ms"], need["bound_by"]))
+        log(f"phase 18: fused_hybrid_tile_topk {label}: ELL [{terms.shape[0]}, "
+            f"{terms.shape[1]}], U={u_pad.shape[0]}, B={B}, P={sd_t.shape[0]}, d_tile "
+            f"{d_tile}, base {base}: per-tile scores within {err:.3g} of the plain "
+            f"version (rtol {ONEPASS_RTOL}) and every position equal; "
+            f"{hits} of {int((terms >= 0).sum())} ELL terms are in the union; kernel "
+            f"{t_k:.3f} ms, plain {t_p:.1f} ms (one run), bound {need['bound_ms']:.3f} "
+            f"ms by {need['bound_by']} for the work the function needs, "
+            f"{dense['bound_ms']:.3f} ms for the TPU kernel's dense slab product")
+        del got
+    results["fused_hybrid_tile_topk"] = dict(total, bound_by=by[1])
+    fused_hybrid_tile_topk.launches = before  # comparisons are not the path
+
+    heavy = (*ranker._heavy_a, *ranker._heavy_b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    s, i = hybrid_topk_onepass(*heavy, *dev_in, k=K)
+    s_np, i_np = ranker._finish_hybrid((s, i), B)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    s_st, i_st = staged
+    close = np.isclose(s_np, s_st, rtol=ONEPASS_RTOL, atol=0.0)
+    untied = ids_carry_scores(s_np, i_np, i_st, cpu_results)
+    if not close.all() or untied:
+        fail(f"phase 18: hybrid_topk_onepass leaves the staged engine's top-{K}: scores "
+             f"by {np.abs(s_np - s_st).max()}, {untied} differing ids off a tie")
+    bad = scale_gate(s_np, i_np, cpu_results, SCALE_PARITY)
+    if bad:
+        fail(f"phase 18: hybrid_topk_onepass failed the scipy gate on {bad} queries")
+    t_one = cuda_ms(lambda: hybrid_topk_onepass(*heavy, *dev_in, k=K), reps=5)
+    kw = dict(k=K, precision="high", queries_sorted=True, pools_sorted=True,
+              d_tile=ranker.d_tile)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_staged = cuda_ms(lambda: hy.hybrid_topk_bucketed(*heavy, *dev_in, **kw), reps=5)
+    peak_staged = torch.cuda.max_memory_allocated() - base_mem
+    log(f"phase 18: hybrid_topk_onepass on phase 17's inputs: top-{K} equal to the "
+        f"staged engine's (scores rtol {ONEPASS_RTOL}, max "
+        f"{np.abs(s_np - s_st).max():.3g}; {int((i_np != i_st).sum())} ids differ, each "
+        f"with its own scipy score: ties), scipy gate {SCALE_PARITY - bad}/"
+        f"{SCALE_PARITY}; device ms a batch {t_one:.3f} against the staged engine's {t_staged:.3f}; peak memory "
+        f"above the resident index {peak / 2**20:.1f} MiB against "
+        f"{peak_staged / 2**20:.1f} MiB")
+
+
+def phase19_chunked(dev, index, qb, qw, staged, cpu_results):
+    """``ChunkedHybridRanker`` in two chunks against the single ranker."""
+    import torch
+
+    from ircl_tpu_torch.index.chunked import ChunkedHybridRanker
+
+    t0 = time.perf_counter()
+    chunked = ChunkedHybridRanker(
+        index, dev, chunk_docs=SCALE_CHUNK,
+        **{k: v for k, v in SCALE_RANKER.items() if k != "mode"})
+    t_build = time.perf_counter() - t0
+    if len(chunked.chunks) != -(-index.num_docs // SCALE_CHUNK):
+        fail(f"phase 19: {len(chunked.chunks)} chunks")
+    s, i = chunked.hybrid_from_vectors(qb, qw, K)
+    s_st, i_st = staged
+    close = np.isclose(s, s_st, rtol=1e-5, atol=0.0)
+    untied = ids_carry_scores(s, i, i_st, cpu_results)
+    if not close.all() or untied:
+        fail(f"phase 19: the chunked ranker leaves the single ranker's top-{K}: "
+             f"scores by {np.abs(s - s_st).max()}, {untied} differing ids off a tie")
+    rounds = []
+    for _ in range(3):  # bench_scale.py's chunked timing: 2 batches a round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            chunked.hybrid_from_vectors(qb, qw, K)
+        rounds.append(2 * SCALE_B / (time.perf_counter() - t0))
+    log(f"phase 19: ChunkedHybridRanker, {len(chunked.chunks)} chunks of {SCALE_CHUNK} "
+        f"docs built in {t_build:.1f} s: top-{K} equal to the single ranker's (scores "
+        f"rtol 1e-5, max {np.abs(s - s_st).max():.3g}; {int((i != i_st).sum())} ids "
+        f"differ, each with its own scipy score: ties); "
+        + ", ".join(f"{q:.1f}" for q in rounds) + " q/s")
+
+
 def named_leaves(tree, prefix=""):
     """(path, leaf) in ``utils/tree.py``'s order."""
     if isinstance(tree, dict):
@@ -1550,8 +2079,9 @@ def main() -> None:
 
     # ---- phase 7: bench_dense.py's configuration ---------------------------
     t_phase = time.perf_counter()
-    phase7_dense_bench(dev, dense_queries, dense_corpus, q_d, ct_d, rows_d, m_real)
-    del q_d, ct_d, rows_d, dense_corpus
+    dense_ref = phase7_dense_bench(dev, dense_queries, dense_corpus, q_d, ct_d,
+                                   rows_d, m_real)
+    del q_d, ct_d, rows_d
     torch.cuda.empty_cache()
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1650,6 +2180,45 @@ def main() -> None:
     log(f"phases 14-15: kernel launches {train_launches}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(phases 14-15)")
+    torch.cuda.empty_cache()
+
+    # ---- phase 16: kernels #7 and #8, against plain versions and driven ----
+    t_phase = time.perf_counter()
+    phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense_ref,
+                          results, launches)
+    for name in ("fused_dot_light_topk", "chunk_max_presplit"):
+        if launches[name] == 0:
+            fail(f"{name} was not launched on its path")
+    del dense_corpus, dense_ref
+    torch.cuda.empty_cache()
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- the scale path: phases 17-19, with fresh launch counts ------------
+    from ircl_tpu_torch.ops.fused_hybrid_cuda import fused_hybrid_tile_topk
+
+    kernels["fused_hybrid_tile_topk"] = fused_hybrid_tile_topk
+    for fn in kernels.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    s_index, s_qb, s_qw, cpu_results, s_ranker, s_dev_in, s_staged = phase17_scale(dev)
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase18_onepass(dev, s_ranker, cpu_results, s_dev_in, s_staged, results)
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    del s_ranker, s_dev_in
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase19_chunked(dev, s_index, s_qb, s_qw, s_staged, cpu_results)
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    scale_launches = {
+        name: kernels[name].launches
+        for name in ("membership_slab_windowed", "fused_hybrid_tile_topk")
+    }
+    for name, count in scale_launches.items():
+        if count == 0:
+            fail(f"{name} was not launched on the scale path")
+    launches["fused_hybrid_tile_topk"] = scale_launches["fused_hybrid_tile_topk"]
+    log(f"phases 17-19: kernel launches {scale_launches}")
 
     tmp.cleanup()
     loaded = sorted(m for m in sys.modules
@@ -1686,6 +2255,18 @@ def main() -> None:
             "ircl_tpu_torch/csrc/flash_attention_bwd.cu",
             "jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
         ),
+        "fused_hybrid_tile_topk": (
+            "ircl_tpu_torch/csrc/fused_hybrid.cu",
+            "ircl_tpu/ops/fused_hybrid_pallas.py:35",
+        ),
+        "fused_dot_light_topk": (
+            "ircl_tpu_torch/csrc/fused_dot_light.cu",
+            "scripts/probe_fused_dot_light.py:135",
+        ),
+        "chunk_max_presplit": (
+            "ircl_tpu_torch/csrc/dense_cmax.cu",
+            "scripts/probe_dense_presplit.py:35",
+        ),
     }
     report = []
     for name, (src, replaces) in sources.items():
@@ -1695,6 +2276,8 @@ def main() -> None:
         ))
         if name == "flash_attention":  # it also runs on the training path
             report[-1]["launches_training_path"] = train_launches[name]
+        if name == "membership_slab_windowed":  # and on the scale path
+            report[-1]["launches_scale_path"] = scale_launches[name]
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

@@ -19,6 +19,11 @@
 //   2  None / "default" on an f32 corpus: the bf16 1-pass dot, both sides
 //      rounded to bf16.
 //   3  bf16 corpus: queries rounded to bf16, the same 1-pass dot.
+//   4  pre-split corpus (replaces the TPU kernel `_kernel` / `topk` of
+//      scripts/probe_dense_presplit.py): the corpus arrives as two bf16
+//      arrays hi and lo, split once when it was built, and only the queries
+//      are split here; the three dots and their grouping are mode 1's, so on
+//      the halves of the same f32 corpus the result is mode 1's bit for bit.
 // A product of two bf16 values is exact in fp32, so every mode agrees with
 // the plain version (chunk_max_ref) up to the fp32 summation order. No
 // tensor cores: wgmma and TMA are later work.
@@ -63,23 +68,26 @@ __device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
 }
 
 // Shared memory: kQT rows of d4 floats (D rounded up to 4, zero tail), one
-// such array for modes 0/2/3 and two (hi, lo) for mode 1.
+// such array for modes 0/2/3 and two (hi, lo) for modes 1 and 4. corpus_lo
+// is read by mode 4 only.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 dense_cmax_kernel(const float* __restrict__ queries, int64_t B, int64_t D,
-                  const T* __restrict__ corpus_t, int64_t m_pad,
+                  const T* __restrict__ corpus_t, const T* __restrict__ corpus_lo,
+                  int64_t m_pad,
                   int64_t chunk, int64_t m_tile, int64_t m_real, int fold,
                   float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* q_hi = reinterpret_cast<float*>(smem4);
   const int64_t d4 = (D + 3) & ~int64_t(3);
-  float* q_lo = q_hi + kQT * d4;  // used by mode 1 only
+  float* q_lo = q_hi + kQT * d4;  // used by modes 1 and 4 only
+  constexpr bool kSplit = MODE == 1 || MODE == 4;
 
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kQT;
   for (int64_t idx = threadIdx.x; idx < kQT * d4; idx += blockDim.x) {
     const int64_t q = idx / d4, d = idx % d4;
     const float x = (b0 + q < B && d < D) ? queries[(b0 + q) * D + d] : 0.0f;
-    if (MODE == 1) {
+    if (kSplit) {
       const float hi = bf16_round(x);
       q_hi[idx] = hi;
       q_lo[idx] = bf16_round(x - hi);
@@ -115,12 +123,17 @@ dense_cmax_kernel(const float* __restrict__ queries, int64_t B, int64_t D,
       for (int j = 0; j < 4; ++j) {
         c[j] = d + j < D ? load_as_float(cp + (d + j) * m_pad) : 0.0f;
       }
-      if (MODE == 1) {
+      if (kSplit) {
         float ch[4], cl[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          ch[j] = bf16_round(c[j]);
-          cl[j] = bf16_round(c[j] - ch[j]);
+          if (MODE == 4) {
+            ch[j] = c[j];
+            cl[j] = d + j < D ? load_as_float(corpus_lo + col + (d + j) * m_pad) : 0.0f;
+          } else {
+            ch[j] = bf16_round(c[j]);
+            cl[j] = bf16_round(c[j] - ch[j]);
+          }
         }
 #pragma unroll
         for (int q = 0; q < kQT; ++q) {
@@ -156,7 +169,7 @@ dense_cmax_kernel(const float* __restrict__ queries, int64_t B, int64_t D,
     }
 #pragma unroll
     for (int q = 0; q < kQT; ++q) {
-      const float s = MODE == 1 ? a1[q] + (a2[q] + a3[q]) : a1[q];
+      const float s = kSplit ? a1[q] + (a2[q] + a3[q]) : a1[q];
       best[q] = fmaxf(best[q], s);
     }
   }
@@ -168,10 +181,10 @@ dense_cmax_kernel(const float* __restrict__ queries, int64_t B, int64_t D,
 
 template <typename T, int MODE>
 cudaError_t launch(const float* queries, int64_t B, int64_t D, const void* corpus_t,
-                   int64_t m_pad, int64_t chunk, int64_t m_tile, int64_t m_real,
-                   int fold, float* out, cudaStream_t stream) {
+                   const void* corpus_lo, int64_t m_pad, int64_t chunk, int64_t m_tile,
+                   int64_t m_real, int fold, float* out, cudaStream_t stream) {
   const int64_t d4 = (D + 3) & ~int64_t(3);
-  const size_t smem = sizeof(float) * kQT * d4 * (MODE == 1 ? 2 : 1);
+  const size_t smem = sizeof(float) * kQT * d4 * (MODE == 1 || MODE == 4 ? 2 : 1);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         dense_cmax_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -182,8 +195,8 @@ cudaError_t launch(const float* queries, int64_t B, int64_t D, const void* corpu
   const dim3 grid(static_cast<unsigned>((B + kQT - 1) / kQT),
                   static_cast<unsigned>((nc + kThreads - 1) / kThreads));
   dense_cmax_kernel<T, MODE><<<grid, kThreads, smem, stream>>>(
-      queries, B, D, static_cast<const T*>(corpus_t), m_pad, chunk, m_tile, m_real,
-      fold, out);
+      queries, B, D, static_cast<const T*>(corpus_t), static_cast<const T*>(corpus_lo),
+      m_pad, chunk, m_tile, m_real, fold, out);
   return cudaGetLastError();
 }
 
@@ -205,20 +218,37 @@ extern "C" int ircl_dense_cmax(const void* queries, int64_t B, int64_t D,
   cudaError_t err = cudaErrorInvalidValue;
   switch (mode) {
     case 0:
-      err = launch<float, 0>(q, B, D, corpus_t, m_pad, chunk, m_tile, m_real, f, o, s);
+      err = launch<float, 0>(q, B, D, corpus_t, nullptr, m_pad, chunk, m_tile, m_real, f,
+                             o, s);
       break;
     case 1:
-      err = launch<float, 1>(q, B, D, corpus_t, m_pad, chunk, m_tile, m_real, f, o, s);
+      err = launch<float, 1>(q, B, D, corpus_t, nullptr, m_pad, chunk, m_tile, m_real, f,
+                             o, s);
       break;
     case 2:
-      err = launch<float, 2>(q, B, D, corpus_t, m_pad, chunk, m_tile, m_real, f, o, s);
+      err = launch<float, 2>(q, B, D, corpus_t, nullptr, m_pad, chunk, m_tile, m_real, f,
+                             o, s);
       break;
     case 3:
-      err = launch<__nv_bfloat16, 3>(q, B, D, corpus_t, m_pad, chunk, m_tile, m_real,
-                                     f, o, s);
+      err = launch<__nv_bfloat16, 3>(q, B, D, corpus_t, nullptr, m_pad, chunk, m_tile,
+                                     m_real, f, o, s);
       break;
     default:
       break;
   }
   return static_cast<int>(err);
+}
+
+// Mode 4: the corpus pre-split into ct_hi and ct_lo, both [D, M_pad] bf16 and
+// contiguous; everything else as ircl_dense_cmax.
+extern "C" int ircl_dense_cmax_presplit(const void* queries, int64_t B, int64_t D,
+                                        const void* ct_hi, const void* ct_lo,
+                                        int64_t m_pad, int64_t chunk, int64_t m_tile,
+                                        int64_t m_real, int64_t fold, void* out,
+                                        void* stream) {
+  if (B <= 0 || m_pad <= 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<__nv_bfloat16, 4>(
+      static_cast<const float*>(queries), B, D, ct_hi, ct_lo, m_pad, chunk, m_tile,
+      m_real, fold ? 1 : 0, static_cast<float*>(out),
+      static_cast<cudaStream_t>(stream)));
 }

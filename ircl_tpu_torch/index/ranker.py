@@ -2,21 +2,22 @@
 
 Counterpart of ``ircl_tpu/index/ranker.py``. The same batch-first ranker:
 all queries of a batch are vectorized on the host (tokenize/hash/tf-idf
-weights) and scored together on the device. Two exact engines are ported:
+weights) and scored together on the device. Three exact engines:
 
 - ``"ell"``: doc-major membership slab + fp32 GEMM + top-k
   (``ops/membership_cuda.py``).
 - ``"hybrid"``: df-split engine (``index/split`` + ``ops/hybrid``) — heavy
   terms through a small membership slab, light terms through host-gathered
   posting pools, exact merge. ``width_buckets=1`` at any size;
-  ``width_buckets=2`` (the bench engine, fused light-add kernel) up to
-  ``FUSED_LIGHT_MAX_DOCS``.
+  ``width_buckets=2`` (the bench engine) takes the fused light-add kernel
+  up to ``FUSED_LIGHT_MAX_DOCS`` and the staged engine
+  (``hybrid_topk_bucketed``) past it or with ``select_rescore``.
+- ``"ragged"``: term-major gather + sort + segment top-k (``ops/ragged``),
+  posting-mass proportional, kept for validation; ``dense_scores_batch``
+  runs on it in every mode.
 
 Every ranker names its ``device``: tensors on a CUDA device run the
-hand-written kernels, tensors on the CPU their plain versions. Not ported
-yet, and refused with ``NotImplementedError``: ``mode="ragged"`` and
-``dense_scores_batch`` (ROADMAP.md queue 1 item 6), ``select_rescore`` and
-``width_buckets=2`` past ``FUSED_LIGHT_MAX_DOCS`` (queue 1 item 5).
+hand-written kernels, tensors on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from ircl_tpu_torch.corpus.fastpath import batch_vectorize
 from ircl_tpu_torch.index.build import CountIndex
 from ircl_tpu_torch.index.tfidf import idf_vector
+from ircl_tpu_torch.ops import ragged
 
 
 def candidate_docs(
@@ -122,7 +124,7 @@ def _put(x: np.ndarray, device) -> torch.Tensor:
 @dataclass
 class DeviceIndex:
     """Device-resident postings (torch tensors), plus host-side metadata.
-    The postings serve the ragged engine, which is not ported yet."""
+    The postings serve the ragged engine and ``dense_scores_batch``."""
 
     indptr: torch.Tensor  # [H+1] int32
     post_docs: torch.Tensor  # [nnz] int32
@@ -154,9 +156,13 @@ class TfidfRanker:
 
     Arguments as in ``ircl_tpu.index.ranker.TfidfRanker``, except that
     ``device`` ("cuda", "cuda:0", "cpu", a ``torch.device``) is required.
-    ``mode``: ``"ell"``, ``"hybrid"`` or ``"auto"`` (ell at
+    ``mode``: ``"ell"``, ``"hybrid"``, ``"ragged"`` or ``"auto"`` (ell at
     ``ELL_MAX_DOCS`` docs or fewer, hybrid beyond). ``precision``:
     "highest" and "high" score in full fp32, "default" allows TF32.
+    ``select_rescore`` (staged bucketed engine only): >0 selects that many
+    candidates a query from a bf16 scores product and rescores them exactly;
+    the selection is approximate, so verify with a parity gate where
+    certainty matters. 16-32 are sensible values.
     """
 
     # The reference's engine gates, kept for parity. Both were measured on
@@ -190,15 +196,13 @@ class TfidfRanker:
                 f"union_round must be a positive multiple of 512 (the slab "
                 f"u-tile), got {union_round}"
             )
-        if select_rescore:
-            raise NotImplementedError(
-                "select_rescore is not ported yet (ROADMAP.md queue 1 item 5)"
+        self.select_rescore = int(select_rescore)
+        if self.select_rescore and width_buckets != 2:
+            raise ValueError(
+                "select_rescore requires the bucketed hybrid engine "
+                "(width_buckets=2) — it would be silently ignored otherwise"
             )
-        if mode == "ragged":
-            raise NotImplementedError(
-                "mode='ragged' is not ported yet (ROADMAP.md queue 1 item 6)"
-            )
-        if mode not in ("auto", "ell", "hybrid"):
+        if mode not in ("auto", "ell", "hybrid", "ragged"):
             raise ValueError(f"unknown mode {mode!r}")
         _PREC[precision]  # unknown names raise here, not at the first batch
         self.device = torch.device(device)
@@ -262,16 +266,11 @@ class TfidfRanker:
                 else split_index(index, df_threshold=df_threshold)
             )
             if width_buckets == 2:
-                if index.num_docs > self.FUSED_LIGHT_MAX_DOCS:
-                    raise NotImplementedError(
-                        "width_buckets=2 past FUSED_LIGHT_MAX_DOCS needs the "
-                        "staged bucketed engine, not ported yet (ROADMAP.md "
-                        "queue 1 item 5)"
-                    )
                 # lcm(d_tile, 1024): the fused light path takes the largest
                 # doc tile (1024/512/256) dividing the padded doc count. The
                 # bucket cut MUST use the same tile as pad_for_slab below —
-                # old2pos encodes bucket_b's concat offset as na_pad.
+                # old2pos encodes bucket_b's concat offset as na_pad, and a
+                # mismatched pad silently shifts every bucket_b doc id.
                 pad_tile = math.lcm(d_tile, 1024)
                 bk = bucket_heavy(self._split.heavy, d_tile=pad_tile)
                 self._bucketed = bk
@@ -428,21 +427,35 @@ class TfidfRanker:
         weights); returns device tensors (no sync)."""
         from ircl_tpu_torch.ops.hybrid import (
             hybrid_topk,
+            hybrid_topk_bucketed,
             hybrid_topk_bucketed_fused,
         )
 
         host = self.hybrid_host_inputs(buckets, weights)
         u_pad, qb_t, qw_t, ld, lc = (_put(x, self.device) for x in host)
         if self._bucketed is not None:
-            return hybrid_topk_bucketed_fused(
-                *self._heavy_a,
-                *self._heavy_b,
-                u_pad, qb_t, qw_t, ld, lc,
+            kw = dict(
                 k=k,
                 precision=self.precision,
                 queries_sorted=True,
-                pools_sorted=True,
+                pools_sorted=True,  # the C++ gather sorted the permuted pools
                 d_tile=self.d_tile,
+            )
+            # select_rescore lives in the staged engine (the fused kernel
+            # never materializes the score matrix the option is about), so
+            # it forces the staged path.
+            if (
+                self.dev.num_docs <= self.FUSED_LIGHT_MAX_DOCS
+                and not self.select_rescore
+            ):
+                return hybrid_topk_bucketed_fused(
+                    *self._heavy_a, *self._heavy_b,
+                    u_pad, qb_t, qw_t, ld, lc, **kw,
+                )
+            return hybrid_topk_bucketed(
+                *self._heavy_a, *self._heavy_b,
+                u_pad, qb_t, qw_t, ld, lc,
+                select_rescore=self.select_rescore, **kw,
             )
         return hybrid_topk(
             self._heavy_terms_t,
@@ -499,17 +512,64 @@ class TfidfRanker:
         self, queries: Sequence[str], k: int = 5
     ) -> List[Tuple[List[str], np.ndarray]]:
         """Top-k (doc_ids, scores) per query. Exact w.r.t. the sparse matvec."""
-        if self.mode == "ell":
-            pending = self._closest_ell_async(queries, k)
-        else:
-            pending = self._closest_hybrid_async(queries, k)
-        return self.finalize_closest(pending, len(queries))
+        if self.mode in ("ell", "hybrid"):
+            if self.mode == "ell":
+                pending = self._closest_ell_async(queries, k)
+            else:
+                pending = self._closest_hybrid_async(queries, k)
+            return self.finalize_closest(pending, len(queries))
+        docs, contribs, nnz_cap = self._gather_ragged(queries)
+        scores, doc_idx = ragged.segment_topk(
+            docs, contribs, k=min(k, max(1, nnz_cap))
+        )
+        scores = scores.cpu().numpy()
+        doc_idx = doc_idx.cpu().numpy()
+        out = []
+        for b in range(len(queries)):
+            keep = doc_idx[b] >= 0
+            ids = [self.dev.doc_ids[i] for i in doc_idx[b][keep]]
+            out.append((ids, scores[b][keep]))
+        return out
 
     def closest_docs(self, query: str, k: int = 5) -> Tuple[List[str], np.ndarray]:
         return self.closest_docs_batch([query], k)[0]
 
+    def _gather_ragged_vectors(self, buckets: np.ndarray, weights: np.ndarray):
+        """posting bound -> nnz cap -> gathered (docs [B, nnz_cap], contribs
+        [B, nnz_cap], nnz_cap) of prebuilt query vectors, on the device."""
+        total_posting_bound = int(
+            np.sum(
+                np.where(
+                    weights != 0.0,
+                    self.dev.doc_freqs[buckets].astype(np.int64),
+                    0,
+                ),
+                axis=1,
+            ).max()
+            if len(buckets)
+            else 1
+        )
+        nnz_cap = ragged.choose_nnz_cap(max(total_posting_bound, 1))
+        docs, contribs, _ = ragged.gather_postings(
+            self.dev.indptr,
+            self.dev.post_docs,
+            self.dev.post_vals,
+            _put(buckets.astype(np.int32), self.device),
+            _put(weights.astype(np.float32), self.device),
+            nnz_cap=nnz_cap,
+        )
+        return docs, contribs, nnz_cap
+
+    def _gather_ragged(self, queries: Sequence[str]):
+        """vectorize -> posting bound -> nnz cap -> gathered (docs,
+        contribs): the one copy shared by the ragged top-k path and the
+        dense validation scorer it is parity-checked against."""
+        return self._gather_ragged_vectors(*self._vectorize(queries))
+
     def dense_scores_batch(self, queries: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(
-            "dense_scores_batch runs on the ragged engine, not ported yet "
-            "(ROADMAP.md queue 1 item 6)"
+        """Full [B, num_docs] score matrix (validation / small corpora)."""
+        docs, contribs, _ = self._gather_ragged(queries)
+        return (
+            ragged.dense_scores(docs, contribs, num_docs=self.dev.num_docs)
+            .cpu().numpy()
         )

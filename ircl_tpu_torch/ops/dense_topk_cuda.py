@@ -30,6 +30,14 @@ products with TF32 off, in corpus blocks. Precisions, as on the TPU:
 A bf16 product is exact in fp32, so kernel and plain version agree up to
 the fp32 summation order. Phase 2 is plain PyTorch (XLA in the reference),
 its rescore in full fp32.
+
+``chunk_max_presplit`` and ``cosine_topk_fused_presplit`` are the
+counterpart of ``scripts/probe_dense_presplit.py`` (``make_presplit_topk``):
+the corpus is split once, when it is built, into two bf16 arrays
+(``split_hi_lo``), so a call reads the same bytes and splits only the
+queries. The dots and their grouping are "high3"'s; on the halves of an f32
+corpus the chunk maxima equal ``chunk_max(precision="high3")``'s bit for
+bit.
 """
 
 from __future__ import annotations
@@ -127,24 +135,36 @@ def chunk_max_ref(
         queries, corpus_t, chunk, m_tile, m_real, precision, epilogue
     )
     mode = _mode(precision, corpus_t.dtype)
-    B, m = queries.shape[0], corpus_t.shape[1]
-    npt = m_tile // chunk
     q = queries if mode in (0, 1) else _bf16(queries)
     if mode == 1:
         q_hi = _bf16(q)
         q_lo = _bf16(q - q_hi)
+
+    def block_scores(lo, hi):
+        c = corpus_t[:, lo:hi].to(torch.float32)
+        if mode == 1:
+            c_hi = _bf16(c)
+            c_lo = _bf16(c - c_hi)
+            return q_hi @ c_hi + (q_lo @ c_hi + q_hi @ c_lo)
+        return q @ (_bf16(c) if mode == 2 else c)
+
+    return _chunk_max_blocks(
+        block_scores, queries, corpus_t.shape[1], chunk, m_tile, m_real, epilogue
+    )
+
+
+def _chunk_max_blocks(block_scores, queries, m, chunk, m_tile, m_real, epilogue):
+    """The plain versions' shared sweep: ``block_scores(lo, hi)`` gives the
+    ``[B, hi - lo]`` scores of a block of whole corpus tiles; pad columns go
+    to -inf and each chunk keeps its maximum."""
+    B = queries.shape[0]
+    npt = m_tile // chunk
     out = torch.empty((B, m // chunk), dtype=torch.float32, device=queries.device)
     span = max(1, _REF_BLOCK_COLS // m_tile) * m_tile
     with float32_precision():
         for lo in range(0, m, span):
             hi = min(m, lo + span)
-            c = corpus_t[:, lo:hi].to(torch.float32)
-            if mode == 1:
-                c_hi = _bf16(c)
-                c_lo = _bf16(c - c_hi)
-                s = q_hi @ c_hi + (q_lo @ c_hi + q_hi @ c_lo)
-            else:
-                s = q @ (_bf16(c) if mode == 2 else c)
+            s = block_scores(lo, hi)
             cols = torch.arange(lo, hi, device=s.device)
             s = s.masked_fill(cols[None, :] >= m_real, float("-inf"))
             if epilogue == "fold":
@@ -201,6 +221,109 @@ def chunk_max(
 
 
 chunk_max.launches = 0
+
+
+def _check_presplit_args(queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue) -> int:
+    if ct_lo.shape != ct_hi.shape or ct_lo.dtype != ct_hi.dtype or (
+        ct_lo.device != ct_hi.device
+    ):
+        raise ValueError(
+            f"ct_hi and ct_lo must match: {tuple(ct_hi.shape)} {ct_hi.dtype} "
+            f"against {tuple(ct_lo.shape)} {ct_lo.dtype}"
+        )
+    if ct_hi.dtype != torch.bfloat16:
+        raise TypeError(f"expected a bfloat16 pre-split corpus, got {ct_hi.dtype}")
+    return _check_chunk_args(queries, ct_hi, chunk, m_tile, m_real, "high3", epilogue)
+
+
+def chunk_max_presplit_ref(
+    queries: torch.Tensor,  # [B, D] f32
+    ct_hi: torch.Tensor,  # [D, M_pad] bf16 high halves of the corpus
+    ct_lo: torch.Tensor,  # [D, M_pad] bf16 low halves
+    chunk: int,
+    m_tile: int,
+    m_real: int = None,
+    epilogue: str = "fold",
+) -> torch.Tensor:
+    """Plain version of ``chunk_max_presplit``: the queries split here, the
+    three fp32 products of bf16 halves grouped ``hi.hi + (lo.hi + hi.lo)``."""
+    m_real = _check_presplit_args(queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue)
+    q_hi = _bf16(queries)
+    q_lo = _bf16(queries - q_hi)
+
+    def block_scores(lo, hi):
+        c_hi = ct_hi[:, lo:hi].to(torch.float32)
+        c_lo = ct_lo[:, lo:hi].to(torch.float32)
+        return q_hi @ c_hi + (q_lo @ c_hi + q_hi @ c_lo)
+
+    return _chunk_max_blocks(
+        block_scores, queries, ct_hi.shape[1], chunk, m_tile, m_real, epilogue
+    )
+
+
+def chunk_max_presplit(
+    queries: torch.Tensor,  # [B, D] f32
+    ct_hi: torch.Tensor,  # [D, M_pad] bf16
+    ct_lo: torch.Tensor,  # [D, M_pad] bf16
+    chunk: int,
+    m_tile: int,
+    m_real: int = None,
+    epilogue: str = "fold",
+) -> torch.Tensor:
+    """Phase 1 over a pre-split corpus: chunk maxima ``[B, M_pad / chunk]``
+    f32, pad columns at -inf. CUDA tensors launch ``csrc/dense_cmax.cu``'s
+    pre-split mode; CPU tensors run ``chunk_max_presplit_ref``."""
+    m_real = _check_presplit_args(queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue)
+    if queries.device.type == "cpu":
+        return chunk_max_presplit_ref(
+            queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue
+        )
+    if queries.device.type != "cuda":
+        raise ValueError(f"no chunk-max kernel for device {queries.device}")
+    from ircl_tpu_torch.utils.kernel_build import load_kernels
+
+    if not (queries.is_contiguous() and ct_hi.is_contiguous() and ct_lo.is_contiguous()):
+        raise ValueError("queries, ct_hi and ct_lo must be contiguous")
+    B, D = queries.shape
+    m = ct_hi.shape[1]
+    nc = m // chunk
+    if -(-nc // _KERNEL_CHUNKS_PER_BLOCK) > 65535:
+        raise ValueError(f"{nc} chunks exceed the kernel's grid (65535 x 128)")
+    kern = load_kernels()
+    out = torch.empty((B, nc), dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        rc = kern.lib.ircl_dense_cmax_presplit(
+            queries.data_ptr(), B, D, ct_hi.data_ptr(), ct_lo.data_ptr(), m, chunk,
+            m_tile, m_real, int(epilogue == "fold"), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kern.check(rc, "pre-split dense chunk-max launch")
+    chunk_max_presplit.launches += 1
+    return out
+
+
+chunk_max_presplit.launches = 0
+
+
+def cosine_topk_fused_presplit(
+    queries: torch.Tensor,  # [B, D] f32 L2-normalized
+    ct_hi: torch.Tensor,  # [D, M_pad] bf16 (split_hi_lo of pad_corpus_t's)
+    ct_lo: torch.Tensor,  # [D, M_pad] bf16
+    corpus_rows: torch.Tensor,  # [M_pad, D] f32 rescore rows
+    k: int,
+    chunk: int = 128,
+    m_tile: int = 512,
+    m_real: int = None,
+    epilogue: str = "fold",
+):
+    """``cosine_topk_fused(precision="high3")`` over a corpus split into
+    bf16 halves when it was built: (scores [B, k] f32, ids [B, k] int32).
+    Phase 2 is ``select_rescore`` over the f32 ``corpus_rows``."""
+    if m_real is None:
+        m_real = ct_hi.shape[1]
+    cmax = chunk_max_presplit(queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue)
+    return select_rescore(queries, ct_hi, cmax, k, chunk, m_tile, m_real, 0,
+                          epilogue, corpus_rows)
 
 
 def cosine_topk_fused(

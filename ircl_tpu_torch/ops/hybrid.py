@@ -14,15 +14,18 @@ total lives in the candidate list), so no doc is double-counted or
 underestimated. ``hybrid_topk_bucketed_fused`` instead adds the pools into
 the transposed scores inside the ``light_add_topk_t`` kernel.
 
-Ported so far: ``hybrid_topk`` (one width bucket, any corpus size) and
-``hybrid_topk_bucketed_fused`` (two width buckets, the bench engine). The
-staged bucketed engine past 200K docs (``hybrid_topk_bucketed`` with
-``_select_rescore_topk`` and ``_light_total_at``) is ROADMAP.md queue 1
-item 5; ``_topk_wide`` (a measured negative) is not ported.
+Engines: ``hybrid_topk`` (one width bucket, any corpus size),
+``hybrid_topk_bucketed_fused`` (two width buckets, the bench engine up to
+the ranker's fused gate) and ``hybrid_topk_bucketed`` (two width buckets,
+staged: scores ``[B, N]`` materialized, then ``_merge_light`` or, with
+``select_rescore``, ``_select_rescore_topk``). The reference's
+``_topk_wide`` (a measured negative there) is not carried over.
 
 Scoring GEMMs run through ``scores_matmul``: "highest" and "high" are full
 fp32 (TF32 off; CUDA has no bf16_3x GEMM), "default" allows TF32 (opt-in,
-inexact, like JAX's 1-pass bf16 mode).
+inexact, like JAX's 1-pass bf16 mode). The one product below fp32 is
+``select_rescore``'s selection pass: a bf16 ``torch.matmul`` stored as
+bf16, as in the reference; every returned score is an fp32 rescore.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ircl_tpu_torch.ops.membership_cuda import (
     membership_slab_windowed,
     scores_matmul,
 )
+from ircl_tpu_torch.utils.precision import float32_precision
 
 _TWOPHASE_MIN = 131_072  # below this width the flat top-k is already cheap
 _TWOPHASE_CHUNK = 32
@@ -156,6 +160,82 @@ def _merge_light(
     top_i = torch.gather(all_i, 1, top_pos)
 
     empty = (top_s <= 0.0) | (top_i >= num_real_docs) | ~torch.isfinite(top_s)
+    return (
+        torch.where(empty, 0.0, top_s),
+        torch.where(empty, -1, top_i).to(torch.int32),
+    )
+
+
+def _light_total_at(sd, l_tot, cand):
+    """Exact light run totals for candidate docs: per-row binary search over
+    the doc-ascending pools. ``l_tot`` is valid at run ends, and the last
+    occurrence of a doc in a sorted row IS its run end, so
+    ``searchsorted(right=True) - 1`` lands exactly there. Docs absent from
+    a row's pool contribute 0."""
+    pos = torch.searchsorted(sd, cand.to(sd.dtype), right=True)
+    pos = (pos - 1).clamp(min=0)
+    hit = torch.gather(sd, 1, pos) == cand
+    return torch.where(hit, torch.gather(l_tot, 1, pos), 0.0)
+
+
+def _select_rescore_topk(
+    m: torch.Tensor,  # [U, N_pad] membership slab
+    wt: torch.Tensor,  # [U, B_pad] query slab
+    h_sel: torch.Tensor,  # [B, N_pad] bf16 selection scores
+    light_docs: torch.Tensor,
+    light_contribs: torch.Tensor,
+    k: int,
+    n_cand: int,
+    num_real_docs: int,
+    pools_sorted: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Select+rescore top-k: pick ``n_cand`` candidate docs per query from
+    the cheap bf16 scores (heavy top-C ∪ light run-ends, the same candidate
+    union as ``_merge_light``), then recompute those candidates' totals
+    exactly — heavy part as an fp32 contraction (TF32 off) over the gathered
+    slab columns, light part from the fp64 run totals — and take the final
+    top-k over exact values.
+
+    The candidate step is approximate: a true top-k doc could in principle
+    fall outside the bf16 top-``n_cand`` heavy candidates (light candidates
+    are unaffected: their selection already uses exact ``l_tot``). Callers
+    that need certified results run a full-batch parity gate."""
+    B, n_pad = h_sel.shape
+    kk = min(n_cand, n_pad)
+    if n_pad >= _TWOPHASE_MIN:
+        h_s, h_i = _topk_twophase(h_sel, kk)
+    else:
+        h_s, h_i = torch.topk(h_sel, kk, dim=1)
+    h_s = h_s.to(torch.float32)
+
+    sd, sv = _sorted_pools(light_docs, light_contribs, pools_sorted)
+    is_end, l_tot = _run_totals(sd, sv)
+    real = sd < num_real_docs
+    sd_l = sd.long()
+    h_at_light = torch.gather(h_sel, 1, sd_l.clamp(0, n_pad - 1)).to(torch.float32)
+    cand_l = torch.where(is_end & real, h_at_light + l_tot, -torch.inf)
+    dup = (h_i[:, :, None] == torch.where(real, sd_l, -2)[:, None, :]).any(dim=2)
+    h_s = torch.where(dup, -torch.inf, h_s)
+
+    all_s = torch.cat([h_s, cand_l], dim=1)
+    all_i = torch.cat([h_i, sd_l], dim=1)
+    n_sel = min(n_cand, all_s.shape[1])
+    sel_s, sel_pos = torch.topk(all_s, n_sel, dim=1)
+    cand = torch.gather(all_i, 1, sel_pos)  # [B, n_sel]
+    # Finite-selected candidates are distinct docs (heavy top-k ids are
+    # distinct, light run-ends are one-per-doc, cross-duplicates masked);
+    # -inf slots carry junk ids (possibly repeats): zero them after rescore
+    # so no doc's exact total can enter the final top-k twice.
+    valid = torch.isfinite(sel_s)
+    safe = cand.clamp(0, n_pad - 1)
+
+    mc = m[:, safe.reshape(-1)].view(m.shape[0], B, n_sel)  # column gather
+    with float32_precision():
+        h_exact = torch.einsum("ub,ubc->bc", wt[:, :B], mc)
+    total = torch.where(valid, h_exact + _light_total_at(sd_l, l_tot, safe), 0.0)
+    top_s, tp = torch.topk(total, min(k, n_sel), dim=1)
+    top_i = torch.gather(safe, 1, tp)
+    empty = (top_s <= 0.0) | (top_i >= num_real_docs)
     return (
         torch.where(empty, 0.0, top_s),
         torch.where(empty, -1, top_i).to(torch.int32),
@@ -297,4 +377,54 @@ def hybrid_topk_bucketed_fused(
     return (
         torch.where(empty, 0.0, top_s),
         torch.where(empty, -1, top_i),
+    )
+
+
+def hybrid_topk_bucketed(
+    terms_a: torch.Tensor,  # [K_a, Na_pad] narrow-doc bucket (k-major)
+    vals_a: torch.Tensor,
+    terms_b: torch.Tensor,  # [K_b, Nb_pad] wide-doc bucket
+    vals_b: torch.Tensor,
+    u_sorted: torch.Tensor,
+    qb_t: torch.Tensor,
+    qw_t: torch.Tensor,
+    light_docs: torch.Tensor,  # [B, P] ids in the PERMUTED doc space
+    light_contribs: torch.Tensor,
+    k: int,
+    precision: str = "highest",
+    queries_sorted: bool = False,
+    pools_sorted: bool = False,  # pools doc-ascending in PERMUTED space
+    d_tile: int = 256,  # the reference's slab tile (ignored by the kernel)
+    select_rescore: int = 0,  # >0: bf16 selection of this many candidates a
+    #   query + exact fp32 rescore (see _select_rescore_topk); `precision`
+    #   is ignored on that path. 0: exact full-score path (default).
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Staged width-bucketed engine: the slab ``M [U, N]`` and the scores
+    ``H [B, N]`` are materialized, then merged with the light pools. Returned
+    ids live in the permuted space (positions into [bucket_a | bucket_b]);
+    callers map back through the permutation. Padding positions score 0 and
+    are filtered by score, not by position."""
+    tf32 = _PREC[precision]
+    m, u_tile = _bucketed_membership(
+        u_sorted, terms_a, vals_a, terms_b, vals_b, d_tile
+    )
+    wt = _query_slab(u_sorted, qb_t, qw_t, u_tile, queries_sorted)
+    B = light_docs.shape[0]
+    if select_rescore:
+        # one bf16 pass, fp32 accumulation, stored as bf16: half the [B, N]
+        # traffic of the exact path
+        h_sel = torch.matmul(
+            wt[:, :B].T.to(torch.bfloat16), m.to(torch.bfloat16)
+        )
+        return _select_rescore_topk(
+            m, wt, h_sel, light_docs, light_contribs, k,
+            n_cand=max(select_rescore, k),  # at least k candidates
+            num_real_docs=h_sel.shape[1],
+            pools_sorted=pools_sorted,
+        )
+    h = scores_matmul(wt.T, m, tf32=tf32)[:B]
+    # a positional real-mask is meaningless in permuted space; zero-score
+    # filtering inside _merge_light handles pads
+    return _merge_light(
+        h, light_docs, light_contribs, k, h.shape[1], pools_sorted=pools_sorted
     )

@@ -39,8 +39,7 @@ class RetrievalResult:
 
 def sparse_sentence_scorer(ranker_factory: Callable[[Sequence[str]], "object"]):
     """Fallback stage-2 scorer: per-claim tf-idf over candidate sentences,
-    through a ranker's ``dense_scores_batch`` (the port's ``TfidfRanker``
-    raises for it until ROADMAP.md queue 1 item 6)."""
+    through a ranker's ``dense_scores_batch``."""
 
     def score(claims, candidates):
         out = []

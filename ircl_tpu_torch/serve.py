@@ -23,8 +23,8 @@ over the stdin transport:
   against it; a service without the stage answers claim requests with an
   error.
 
-Not ported yet (ROADMAP.md queue 1 item 7): the chunked engine
-(``chunk_docs``), ``BatchingService`` and both HTTP fronts; ``chunk_docs``
+Not ported yet (ROADMAP.md queue 1 item 7): serving through the chunked
+engine (``chunk_docs``; ``index/chunked.py`` has the ranker), ``BatchingService`` and both HTTP fronts; ``chunk_docs``
 raises ``NotImplementedError``.
 """
 

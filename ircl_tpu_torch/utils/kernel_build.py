@@ -51,6 +51,12 @@ _SIGNATURES = {
                             ctypes.c_int),
     "ircl_dense_cmax": ([_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
                         ctypes.c_int),
+    "ircl_dense_cmax_presplit": ([_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+                                 ctypes.c_int),
+    "ircl_fused_hybrid": ([_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                           _P, _P, _P], ctypes.c_int),
+    "ircl_fused_dot_light": ([_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                              _P, _P, _P], ctypes.c_int),
     "ircl_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P, _P], ctypes.c_int),
     "ircl_flash_attention_stats": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -29,3 +29,12 @@ def float32_precision(tf32: bool = False):
     finally:
         torch.set_float32_matmul_precision(prev_matmul)
         torch.backends.cudnn.allow_tf32 = prev_cudnn
+
+
+def split_hi_lo(x: torch.Tensor):
+    """float32 ``x`` as two bfloat16 halves: ``hi = bf16(x)`` and
+    ``lo = bf16(x - hi)``, both rounded to nearest even. ``hi + lo`` keeps
+    16 of x's 24 mantissa bits; a product of two halves is exact in fp32."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi, lo

@@ -23,6 +23,7 @@ from ircl_tpu.dense import scorer as j_sc
 from ircl_tpu.ops import dense_topk_pallas as j_fused
 from ircl_tpu_torch.dense import scorer as t_sc
 from ircl_tpu_torch.ops import dense_topk_cuda as t_fused
+from ircl_tpu_torch.utils.precision import split_hi_lo
 
 
 def _norm(x):
@@ -325,3 +326,96 @@ def test_chunk_max_refuses_other_devices_and_counts_only_launches(data):
         t_fused.chunk_max(_t(Q).to("meta"), _t(ct).to("meta"), 16, 64, m_real)
     with pytest.raises(TypeError):
         t_fused.chunk_max(_t(Q).double(), _t(ct), 16, 64, m_real)
+
+
+# ---- the pre-split corpus (scripts/probe_dense_presplit.py) ------------------
+
+def _probe_presplit_topk():
+    """``make_presplit_topk()`` of the probe script, loaded from its file
+    (``scripts/`` is not a package)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "probe_dense_presplit.py")
+    spec = importlib.util.spec_from_file_location("probe_dense_presplit", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.make_presplit_topk()
+
+
+def _presplit(C, m_tile):
+    ct, m_real = t_fused.pad_corpus_t(_t(C), m_tile)
+    hi, lo = split_hi_lo(ct)
+    return ct, hi, lo, m_real
+
+
+@pytest.mark.parametrize("k,m_tile,chunk", [(5, 128, 16), (3, 256, 32), (7, 64, 8)])
+def test_presplit_topk_matches_the_probe_kernel(data, k, m_tile, chunk):
+    """``cosine_topk_fused_presplit`` against the probe's Pallas kernel and
+    phase 2, run in TPU interpret mode under its own ``jax.jit``: the same
+    exact bf16 products summed in another order select the same chunks, and
+    both rescore in fp32 (rtol 1e-6)."""
+    from jax.experimental.pallas.tpu import force_tpu_interpret_mode
+
+    Q, C = data
+    ct, hi, lo, m_real = _presplit(C, m_tile)
+    rows = ct.T.contiguous()
+    got = t_fused.cosine_topk_fused_presplit(
+        _t(Q), hi, lo, rows, k=k, chunk=chunk, m_tile=m_tile, m_real=m_real
+    )
+    j_hi = jnp.asarray(ct.numpy()).astype(jnp.bfloat16)
+    j_lo = (jnp.asarray(ct.numpy()) - j_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(hi.view(torch.int16).numpy(),
+                                  np.asarray(j_hi).view(np.int16))
+    np.testing.assert_array_equal(lo.view(torch.int16).numpy(),
+                                  np.asarray(j_lo).view(np.int16))
+    with force_tpu_interpret_mode():
+        want = _probe_presplit_topk()(
+            jnp.asarray(Q), j_hi, j_lo, jnp.asarray(rows.numpy()),
+            k=k, chunk=chunk, m_tile=m_tile, m_real=m_real,
+        )
+    assert got[1].dtype == torch.int32
+    _match(got, want)
+    exact = np.sort(Q @ C.T, axis=1)[:, ::-1][:, :k]
+    np.testing.assert_allclose(got[0].numpy(), exact, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("epilogue", ["fold", "loop"])
+def test_chunk_max_presplit_equals_high3_on_the_same_corpus(data, epilogue):
+    """On the halves of an f32 corpus the pre-split chunk maxima are
+    ``chunk_max(precision="high3")``'s bit for bit (the same products and
+    grouping), -inf pads included; the full top-k then agrees too."""
+    Q, C = data
+    ct, hi, lo, m_real = _presplit(C, 128)
+    got = t_fused.chunk_max_presplit(_t(Q), hi, lo, 16, 128, m_real, epilogue)
+    want = t_fused.chunk_max(_t(Q), ct, 16, 128, m_real, "high3", epilogue)
+    assert got.shape == (16, 16)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        t_fused.chunk_max_presplit_ref(_t(Q), hi, lo, 16, 128, m_real, epilogue).numpy(),
+        want.numpy(),
+    )
+    rows = ct.T.contiguous()
+    a = t_fused.cosine_topk_fused_presplit(
+        _t(Q), hi, lo, rows, k=5, chunk=16, m_tile=128, m_real=m_real, epilogue=epilogue)
+    b = t_fused.cosine_topk_fused(
+        _t(Q), ct, k=5, chunk=16, m_tile=128, m_real=m_real, epilogue=epilogue,
+        precision="high3", corpus_rows=rows)
+    np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
+    np.testing.assert_array_equal(a[1].numpy(), b[1].numpy())
+
+
+def test_presplit_refuses_mismatched_halves(data):
+    Q, C = data
+    ct, hi, lo, m_real = _presplit(C, 128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        t_fused.chunk_max_presplit(_t(Q), ct, ct, 16, 128, m_real)
+    with pytest.raises(ValueError, match="must match"):
+        t_fused.chunk_max_presplit(_t(Q), hi, lo[:, :128].contiguous(), 16, 128, m_real)
+    with pytest.raises(ValueError, match="multiple of m_tile"):
+        t_fused.chunk_max_presplit(_t(Q), hi, lo, 16, 100, m_real)
+    with pytest.raises(ValueError, match="power-of-two"):
+        t_fused.chunk_max_presplit(_t(Q), hi[:, :240].contiguous(),
+                                   lo[:, :240].contiguous(), 40, 120, 200)
+    assert t_fused.chunk_max_presplit.launches == 0

@@ -18,7 +18,8 @@ from ircl_tpu_torch.utils import kernel_build as kb
 def test_sources_are_the_package_csrc():
     names = sorted(os.path.basename(p) for p in kb.sources())
     assert names == ["dense_cmax.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "light_add_topk.cu", "membership_slab.cu"]
+                     "fused_dot_light.cu", "fused_hybrid.cu", "light_add_topk.cu",
+                     "membership_slab.cu"]
     for path in kb.sources():
         text = open(path, encoding="utf-8").read()
         assert 'extern "C"' in text and "cudaGetLastError()" in text
@@ -35,6 +36,15 @@ def test_every_entry_point_has_a_signature():
     assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_dense_cmax"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_flash_attention"][0]
+    for name in ("ircl_dense_cmax_presplit", "ircl_fused_hybrid", "ircl_fused_dot_light"):
+        assert ctypes.c_int not in kb._SIGNATURES[name][0]
+    # the pre-split entry swaps the mode for a second corpus pointer
+    assert len(kb._SIGNATURES["ircl_dense_cmax_presplit"][0]) == len(
+        kb._SIGNATURES["ircl_dense_cmax"][0])
+    assert kb._SIGNATURES["ircl_dense_cmax_presplit"][0][4] is ctypes.c_void_p
+    # the fused kernels end in light_add_topk_t's outputs and stream
+    for name in ("ircl_fused_hybrid", "ircl_fused_dot_light"):
+        assert kb._SIGNATURES[name][0][-3:] == kb._SIGNATURES["ircl_light_add_topk"][0][-3:]
     for name in ("ircl_flash_attention_stats", "ircl_flash_attention_bwd_dkv",
                  "ircl_flash_attention_bwd_dq"):
         assert ctypes.c_int not in kb._SIGNATURES[name][0]
@@ -49,11 +59,16 @@ def test_every_entry_point_has_a_signature():
 def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
     """An edited ``csrc/*.cuh`` rebuilds the sources that include it."""
     names = [os.path.basename(p) for p in kb.headers()]
-    assert names == ["flash_attention_common.cuh"]
-    included = [p for p in kb.sources()
-                if f'#include "{names[0]}"' in open(p, encoding="utf-8").read()]
-    assert sorted(os.path.basename(p) for p in included) == [
-        "flash_attention.cu", "flash_attention_bwd.cu"]
+    assert names == ["flash_attention_common.cuh", "topk_columns.cuh"]
+    users = {
+        "flash_attention_common.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
+        "topk_columns.cuh": ["fused_dot_light.cu", "fused_hybrid.cu",
+                             "light_add_topk.cu"],
+    }
+    for name in names:
+        included = [p for p in kb.sources()
+                    if f'#include "{name}"' in open(p, encoding="utf-8").read()]
+        assert sorted(os.path.basename(p) for p in included) == users[name]
     a = tmp_path / "a.cu"
     a.write_text("int x;\n")
     header = tmp_path / "h.cuh"

@@ -27,9 +27,18 @@ wiki = generate(num_docs=60, num_claims=3, seed=3)
 store = MemoryDocStore({d: r["text"] for d, r in wiki.docs.items()})
 index = tfidf_transform(build_count_index(store, ngram=2, hash_size=1 << 18))
 claim = wiki.claims[0].claim
+class StagedRanker(TfidfRanker):
+    FUSED_LIGHT_MAX_DOCS = 10  # past the fused gate: the staged engine
+
+staged = StagedRanker(index, "cpu", mode="hybrid", df_threshold=4, width_buckets=2,
+                      select_rescore=16)
 for svc in (
     RetrievalService(TfidfRanker(index, "cpu", mode="hybrid", df_threshold=4,
                                  width_buckets=2), batch_size=4),
+    RetrievalService(StagedRanker(index, "cpu", mode="hybrid", df_threshold=4,
+                                  width_buckets=2), batch_size=4),
+    RetrievalService(staged, batch_size=4),
+    RetrievalService(TfidfRanker(index, "cpu", mode="ragged"), batch_size=4),
     None,
 ):
     if svc is None:
@@ -40,6 +49,12 @@ for svc in (
     served = serve_stdin(svc, io.StringIO(json.dumps({"query": claim}) + "\n"), out)
     reply = json.loads(out.getvalue())
     assert served == 1 and reply["results"][0], reply
+from ircl_tpu_torch.index.chunked import ChunkedHybridRanker
+from ircl_tpu_torch.ops import fused_dot_light_cuda, fused_hybrid_cuda, ragged
+from ircl_tpu_torch.tools.scale_index import synth_index
+chunked = ChunkedHybridRanker(index, "cpu", chunk_docs=25, df_threshold=4, width_buckets=2)
+assert chunked.closest_docs_batch([claim], k=3)[0][0] == [
+    h["doc_id"] for h in reply["results"][0][:3]]
 print("JAX_MODULES", sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
@@ -138,6 +153,9 @@ def _run_fresh(script):
 
 
 def test_port_serves_a_request_without_loading_jax():
+    """A doc request through the fused, the staged (past the gate, and with
+    ``select_rescore``), the ragged and the default service; the chunked
+    ranker and the new kernels' modules imported beside them."""
     _run_fresh(_SERVE_ONE_REQUEST)
 
 

@@ -149,28 +149,59 @@ def test_engine_gates_and_auto_mode(setup, monkeypatch):
 @pytest.mark.parametrize(
     "kwargs,exc,match",
     [
-        (dict(mode="ragged"), NotImplementedError, "item 6"),
-        (dict(mode="hybrid", width_buckets=2, select_rescore=16),
-         NotImplementedError, "item 5"),
+        (dict(mode="hybrid", select_rescore=16), ValueError, "width_buckets"),
+        (dict(mode="ell", select_rescore=16), ValueError, "width_buckets"),
         (dict(mode="sparse"), ValueError, "unknown mode"),
         (dict(precision="bf16"), ValueError, "unknown precision"),
         (dict(union_round=100), ValueError, "multiple of 512"),
     ],
 )
 def test_unported_and_invalid_options_raise(setup, kwargs, exc, match):
-    index, _ = setup
+    """Invalid options raise as in the reference; no engine of the sparse
+    ranker is left unported: ``mode="ragged"`` and ``select_rescore`` with
+    two width buckets build and serve."""
+    index, claims = setup
     with pytest.raises(exc, match=match):
         TfidfRanker(index, "cpu", **kwargs)
+    for kw in (dict(mode="ragged"),
+               dict(mode="hybrid", df_threshold=8, width_buckets=2, select_rescore=16)):
+        ranker = TfidfRanker(index, "cpu", **kw)
+        assert ranker.mode == kw["mode"]
+        assert ranker.select_rescore == kw.get("select_rescore", 0)
+        ids, scores = ranker.closest_docs(claims[0], k=5)
+        assert len(ids) == 5 and (np.diff(scores) <= 0).all()
 
 
 def test_staged_engine_past_fused_gate_is_not_ported(setup, monkeypatch):
+    """It is ported now (the name is kept): past ``FUSED_LIGHT_MAX_DOCS`` a
+    two-bucket ranker builds and serves through the staged engine with the
+    fused engine's results, and ``dense_scores_batch`` carries every
+    returned doc's score."""
+    from ircl_tpu_torch.ops import hybrid as t_hy
+
     index, claims = setup
-    ranker = TfidfRanker(index, "cpu", mode="hybrid", df_threshold=8, width_buckets=2)
+    kw = dict(mode="hybrid", df_threshold=8, width_buckets=2)
+    fused = TfidfRanker(index, "cpu", **kw)
+    want = fused.closest_docs_batch(claims, k=5)
     monkeypatch.setattr(TfidfRanker, "FUSED_LIGHT_MAX_DOCS", 10)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TfidfRanker(index, "cpu", mode="hybrid", df_threshold=8, width_buckets=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ranker.dense_scores_batch(claims[:2])
+    monkeypatch.setattr(
+        t_hy, "hybrid_topk_bucketed_fused",
+        lambda *a, **k: pytest.fail("the fused engine ran past its gate"),
+    )
+    staged = TfidfRanker(index, "cpu", **kw)
+    assert staged.d_tile == 512 and fused.d_tile == 1024
+    got = staged.closest_docs_batch(claims, k=5)
+    assert_topk_match(
+        *_ids_and_scores(got, index, 5), *_ids_and_scores(want, index, 5)
+    )
+    dense = staged.dense_scores_batch(claims[:4])
+    assert dense.shape == (4, index.num_docs)
+    doc2idx = index.doc2idx
+    for b in range(4):
+        ids, scores = got[b]
+        np.testing.assert_allclose(
+            scores, [dense[b][doc2idx[d]] for d in ids], rtol=1e-5
+        )
 
 
 def test_device_is_required(setup):

@@ -207,11 +207,17 @@ def test_sparse_scorers_come_along(corpus):
     got = t_rt.host_sparse_scorer(hash_size=1 << 16)(claims[:2], cands)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_rt.sparse_sentence_scorer(lambda sents: TfidfRanker(
-            tfidf_transform(build_count_index(MemoryDocStore(list(sents)), ngram=2,
-                                              hash_size=1 << 16)), "cpu",
-        ))(claims[:1], cands[:1])
+    # the ranker-backed scorer runs on dense_scores_batch (the ragged engine)
+    # and gives the JAX ranker's scores (rtol 1e-5: another summation order)
+    sub_index = lambda sents: tfidf_transform(  # noqa: E731
+        build_count_index(MemoryDocStore(list(sents)), ngram=2, hash_size=1 << 16))
+    via_ranker = t_rt.sparse_sentence_scorer(
+        lambda sents: TfidfRanker(sub_index(sents), "cpu"))(claims[:2], cands)
+    j_via_ranker = j_rt.sparse_sentence_scorer(
+        lambda sents: JRanker(sub_index(sents)))(claims[:2], cands)
+    assert via_ranker[0].shape == (len(cands[0]),) and via_ranker[1].shape == (0,)
+    for a, b in zip(via_ranker, j_via_ranker):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
 
 
 def _same_hits(got, want, rtol=1e-6):
