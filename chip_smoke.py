@@ -42,10 +42,14 @@ Phases, each printed as it runs:
     checkpoint, ``make_service`` over phase 9's index and sentence table,
     claim lines through ``serve_stdin``, every reply checked;
 13. the two flash-attention backward kernels against their plain version
-    and against autograd through the plain forward at the training shape,
-    ``[8, 12, 512, 64]``: the forward's softmax statistics, then dq, dk, dv,
-    with CUDA-event times of each beside PyTorch's own fused attention as a
-    yardstick;
+    (in full fp32, and with its products split into TF32 halves as the
+    kernels take them) and against autograd through the plain forward at the
+    training shape, ``[8, 12, 512, 64]``: the forward's softmax statistics,
+    then dq, dk, dv, each launched twice for equal bits, under four sets of
+    segment ids (tokenized pairs, no pads, key ids that differ from the
+    query ids with a query that matches no key, short pairs whose empty
+    tiles are skipped), with CUDA-event times of each beside PyTorch's own
+    fused attention as a yardstick;
 14. the verdict train step at roberta-base width, B=8, L=512: flash against
     "xla" on the card (loss and every gradient leaf), one step of two pairs
     on the card against the CPU, the body frozen bit for bit until
@@ -140,6 +144,7 @@ ONEPASS_RTOL = 1e-5  # against the slab GEMM: another summation order
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores; one FMA is two
 BF16_FLOPS = 989e12  # tensor cores, dense
+TF32_FLOPS = 495e12  # tensor cores, dense; an f32-accurate product is three passes
 
 
 def log(msg: str) -> None:
@@ -841,13 +846,14 @@ def phase12_verdict_service(dev, tok, cfg, params, index_path, doc_sentences, pr
         f"{snap['requests']} requests")
 
 
-def attention_bounds(seg, H, hd, products, tensors):
+def attention_bounds(seg, H, hd, products, tensors, flops=F32_FLOPS, passes=1):
     """The least time one attention kernel could take on this card, ms:
     ``products`` matrix products of 2 * hd FLOP for every (query, key) pair
-    of one segment (what this batch's masks need; masked pairs need none)
-    at the f32 rate, against its tensors moved once."""
+    of one segment (what this batch's masks need; masked pairs need none),
+    ``passes`` times each, at the rate ``flops``, against its tensors moved
+    once."""
     pairs = H * int((seg[:, :, None] == seg[:, None, :]).sum())
-    return least_time(tensors, products * 2 * hd * pairs, F32_FLOPS)
+    return least_time(tensors, passes * products * 2 * hd * pairs, flops)
 
 
 def sdpa(q, k, v, seg, scale):
@@ -862,14 +868,15 @@ def sdpa(q, k, v, seg, scale):
 def phase13_flash_backward(dev, tok, pairs, results):
     """Kernels #6b and #6c against their plain version at the training shape
     [8, 12, 512, 64]: the forward's statistics, then dq, dk, dv, with
-    segment ids of 8 tokenized pairs (one row cut to a single real token)
-    and of a batch with no pads."""
+    segment ids of 8 tokenized pairs (one row cut to a single real token),
+    of a batch with no pads, of key ids that differ from the query ids
+    (a query with no key at all, keys with no query) and of short pairs."""
     import torch
 
     from ircl_tpu_torch.ops.flash_attention_cuda import (
-        SegmentIds, flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_bwd_ref, flash_attention_fwd, flash_attention_fwd_ref,
-        flash_attention_ref,
+        DEFAULT_MASK_VALUE, SegmentIds, flash_attention, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_ref, flash_attention_fwd,
+        flash_attention_fwd_ref, flash_attention_ref,
     )
 
     B, H = TRAIN_BATCH, VERDICT_ENCODER["heads"]
@@ -882,61 +889,109 @@ def phase13_flash_backward(dev, tok, pairs, results):
     seg = mask.astype(np.int32)
     seg[B - 1] = 0
     seg[B - 1, 0] = 1  # one real token
+    # other ids on the keys than on the queries: the keys' real part ends
+    # earlier; query 5 of pair 0 matches no key at all (its p is 1 / Lk on
+    # every key, so none of its tiles is empty); the last 64 keys of pair 1
+    # match no query, and no query of pair 1 is without a key (dk = dv = 0)
+    seg_q_odd, seg_kv_odd = seg.copy(), seg.copy()
+    for b in range(B):
+        seg_kv_odd[b, int(seg[b].sum()) // 2:] = 0
+    seg_q_odd[0, 5] = 7
+    seg_kv_odd[1, -64:] = 9
+    short = np.zeros((B, VERDICT_L), np.int32)
+    short_lengths = rng.integers(12, 128, size=B)
+    for b, n in enumerate(short_lengths):
+        short[b, :n] = 1
+    put = lambda x: torch.tensor(x, device=dev)  # noqa: E731
     cases = {
-        "tokenized pairs": torch.tensor(seg, device=dev),
-        "no pads": torch.ones(B, VERDICT_L, dtype=torch.int32, device=dev),
+        "tokenized pairs": SegmentIds(q=put(seg), kv=put(seg)),
+        "no pads": SegmentIds(*(torch.ones(B, VERDICT_L, dtype=torch.int32, device=dev)
+                                for _ in range(2))),
+        "other key ids, a query with no key": SegmentIds(q=put(seg_q_odd),
+                                                         kv=put(seg_kv_odd)),
+        "short pairs": SegmentIds(q=put(short), kv=put(short)),
     }
     # autograd hands the backward a transposed view (the head merge)
     do_view = do.transpose(1, 2).contiguous().transpose(1, 2)
     worst = {"dkv": 0.0, "dq": 0.0}
-    for label, s in cases.items():
-        ids = SegmentIds(q=s, kv=s)
+    for label, ids in cases.items():
         o, stats = flash_attention_fwd(q, k, v, ids, scale)
         o_ref, stats_ref = flash_attention_fwd_ref(q, k, v, ids, scale)
         torch.cuda.synchronize()
         e_o = float((o - o_ref).abs().max())
         e_l = float(((stats.l - stats_ref.l).abs() / stats_ref.l).max())
-        e_m = float((stats.m - stats_ref.m).abs().max())
-        if max(e_o, e_l, e_m) > FLASH_ATOL or not torch.isfinite(stats.l).all():
+        # a row with no key has m at the mask value, where one ulp is 2e31:
+        # those rows are held to a relative bound, the others as before
+        no_key = stats_ref.m < 0.5 * DEFAULT_MASK_VALUE
+        d_m = (stats.m - stats_ref.m).abs()
+        e_m = float(d_m[~no_key].max())
+        e_m_no_key = float((d_m[no_key] / stats_ref.m[no_key].abs()).max()) if (
+            no_key.any()) else 0.0
+        if max(e_o, e_l, e_m, e_m_no_key) > FLASH_ATOL or not (
+                torch.isfinite(stats.l).all()):
             fail(f"phase 13: {label}: forward with statistics: o {e_o}, l {e_l} "
-                 f"(relative), m {e_m}")
+                 f"(relative), m {e_m} ({int(no_key.sum())} rows with no key: "
+                 f"{e_m_no_key} relative)")
         dk, dv = flash_attention_bwd_dkv(q, k, v, ids, o, stats, do, scale)
         dq = flash_attention_bwd_dq(q, k, v, ids, o, stats, do, scale)
+        again = (flash_attention_bwd_dq(q, k, v, ids, o, stats, do, scale),
+                 *flash_attention_bwd_dkv(q, k, v, ids, o, stats, do, scale))
         want = flash_attention_bwd_ref(q, k, v, ids, o, stats, do, scale)
+        split = flash_attention_bwd_ref(q, k, v, ids, o, stats, do, scale,
+                                        products="tf32x3")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         flash_attention_ref(*leaves, ids, scale).backward(do)
         through = [t.clone().requires_grad_() for t in (q, k, v)]
         flash_attention(*through, segment_ids=ids, sm_scale=scale).backward(do_view)
         torch.cuda.synchronize()
         errs = {}
-        for name, got, w, auto, fn in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
-                                          leaves, through):
+        for name, got, second, w, w3, auto, fn in zip(
+                ("dq", "dk", "dv"), (dq, dk, dv), again, want, split, leaves, through):
             if not torch.isfinite(got).all():
                 fail(f"phase 13: {label}: {name} has non-finite values")
+            if not torch.equal(second, got):
+                fail(f"phase 13: {label}: two launches gave different bits of {name}")
             if not torch.equal(fn.grad, got):
                 fail(f"phase 13: {label}: {name} through autograd.Function differs "
                      f"from the kernel wrapper's")
             errs[name] = (float((got - w).abs().max()),
-                          float((got - auto.grad).abs().max()))
+                          float((got - auto.grad).abs().max()),
+                          float((got - w3).abs().max()))
             if max(errs[name]) > FLASH_ATOL:
                 fail(f"phase 13: {label}: {name} differs from the plain version by "
-                     f"{errs[name][0]}, from autograd by {errs[name][1]}")
+                     f"{errs[name][0]}, from autograd by {errs[name][1]}, from the "
+                     f"plain version with split TF32 products by {errs[name][2]}")
+        if label.startswith("other key ids") and (
+                dk[1, :, -64:].any() or dv[1, :, -64:].any()):
+            fail("phase 13: keys that match no query got a gradient")
         worst["dq"] = max(worst["dq"], *errs["dq"])
         worst["dkv"] = max(worst["dkv"], *errs["dk"], *errs["dv"])
         log(f"phase 13: {label}: o within {e_o:.3g}, l within {e_l:.3g} (relative), "
-            f"m within {e_m:.3g}; (plain, autograd) dq {errs['dq'][0]:.3g}, "
-            f"{errs['dq'][1]:.3g}; dk {errs['dk'][0]:.3g}, {errs['dk'][1]:.3g}; dv "
-            f"{errs['dv'][0]:.3g}, {errs['dv'][1]:.3g} (bound {FLASH_ATOL}); the "
+            f"m within {e_m:.3g} ({int(no_key.sum())} rows with no key); (plain f32, "
+            "autograd, plain tf32x3) "
+            + "; ".join(f"{n} " + ", ".join(f"{x:.3g}" for x in errs[n])
+                        for n in ("dq", "dk", "dv"))
+            + f" (bound {FLASH_ATOL}); two launches gave equal bits; the "
             f"autograd.Function's gradients equal the wrappers'")
-        del leaves, through, want
+        del leaves, through, want, split, again
 
-    s = cases["tokenized pairs"]
-    ids = SegmentIds(q=s, kv=s)
+    def backward_ms(ids):
+        o, stats = flash_attention_fwd(q, k, v, ids, scale)
+        a = (q, k, v, ids, o, stats, do, scale)
+        return (cuda_ms(lambda: flash_attention_bwd_dkv(*a), reps=20),
+                cuda_ms(lambda: flash_attention_bwd_dq(*a), reps=20))
+
+    ids = cases["tokenized pairs"]
+    s = ids.q
     o, stats = flash_attention_fwd(q, k, v, ids, scale)
     args = (q, k, v, ids, o, stats, do, scale)
     t_fwd = cuda_ms(lambda: flash_attention_fwd(q, k, v, ids, scale), reps=10)
-    t_dkv = cuda_ms(lambda: flash_attention_bwd_dkv(*args), reps=10)
-    t_dq = cuda_ms(lambda: flash_attention_bwd_dq(*args), reps=10)
+    t_dkv, t_dq = backward_ms(ids)
+    t_full = backward_ms(cases["no pads"])
+    t_short = backward_ms(cases["short pairs"])
+    if sum(t_short) >= sum(t_full):
+        fail(f"phase 13: the short pairs' backward ({t_short} ms) is not faster than "
+             f"the backward with no pads ({t_full} ms): no step was skipped")
     t_plain = cuda_ms(lambda: flash_attention_bwd_ref(*args), reps=5)
     # the yardstick: autograd through the library call, one grad call each
     lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -948,22 +1003,34 @@ def phase13_flash_backward(dev, tok, pairs, results):
     t_lib_fwd = cuda_ms(lambda: sdpa(q, k, v, s, scale), reps=10)
     t_lib_dkv = cuda_ms(lib((lk, lv)), reps=5)
     t_lib_dq = cuda_ms(lib((lq,)), reps=5)
-    t_lib_all = cuda_ms(lib((lq, lk, lv)), reps=5)
+    t_lib_all = cuda_ms(lib((lq, lk, lv)), reps=10)
     stat_t = (stats.l, stats.m, stats.l)  # l, m and di: [B, H, L] f32 each
-    results["flash_attention_bwd_dkv"] = dict(
-        max_abs_err=worst["dkv"], ms=t_dkv, plain_ms=t_plain, library_ms=t_lib_dkv,
-        **attention_bounds(s, H, hd, 4, (q, k, v, do, *stat_t, s, s, k, v)))
-    results["flash_attention_bwd_dq"] = dict(
-        max_abs_err=worst["dq"], ms=t_dq, plain_ms=t_plain, library_ms=t_lib_dq,
-        **attention_bounds(s, H, hd, 3, (q, k, v, do, *stat_t, s, s, q)))
-    log(f"phase 13: q, k, v, do [{B}, {H}, {VERDICT_L}, {hd}] f32: forward with "
-        f"statistics {t_fwd:.3f} ms, dK/dV {t_dkv:.3f} ms (bound "
-        f"{results['flash_attention_bwd_dkv']['bound_ms']:.3f}), dQ {t_dq:.3f} ms "
-        f"(bound {results['flash_attention_bwd_dq']['bound_ms']:.3f}), plain backward "
-        f"(both) {t_plain:.3f} ms; library yardstick (scaled_dot_product_attention, "
-        f"f32, boolean mask; output within {e_lib:.3g} of the kernel's): forward "
-        f"{t_lib_fwd:.3f} ms, backward for k, v {t_lib_dkv:.3f} ms, for q "
-        f"{t_lib_dq:.3f} ms, for all three {t_lib_all:.3f} ms")
+    for name, t_k, t_lib, worst_err, products, outs in (
+            ("flash_attention_bwd_dkv", t_dkv, t_lib_dkv, worst["dkv"], 4, (k, v)),
+            ("flash_attention_bwd_dq", t_dq, t_lib_dq, worst["dq"], 3, (q,))):
+        tensors = (q, k, v, do, *stat_t, s, s, *outs)
+        results[name] = dict(
+            max_abs_err=worst_err, ms=t_k, plain_ms=t_plain, library_ms=t_lib,
+            library_pair_ms=t_lib_all,  # the one call for dq, dk and dv
+            **attention_bounds(s, H, hd, products, tensors, TF32_FLOPS, passes=3),
+            bound_f32_fma_ms=attention_bounds(s, H, hd, products, tensors)["bound_ms"])
+    r_dkv, r_dq = results["flash_attention_bwd_dkv"], results["flash_attention_bwd_dq"]
+    live = float((s[:, :, None] == s[:, None, :]).float().mean())
+    log(f"phase 13: q, k, v, do [{B}, {H}, {VERDICT_L}, {hd}] f32, real lengths "
+        f"{seg.sum(axis=1).tolist()}, {live:.3f} of the "
+        f"pairs live: forward with statistics {t_fwd:.3f} ms, dK/dV {t_dkv:.3f} ms "
+        f"(bound {r_dkv['bound_ms']:.3f} at three TF32 passes a product, "
+        f"{r_dkv['bound_f32_fma_ms']:.3f} for f32 FMAs), dQ {t_dq:.3f} ms (bound "
+        f"{r_dq['bound_ms']:.3f}, {r_dq['bound_f32_fma_ms']:.3f}), the pair "
+        f"{t_dkv + t_dq:.3f} ms against {t_lib_all:.3f} ms for the library's one call "
+        f"for dq, dk and dv; plain backward (both) {t_plain:.3f} ms")
+    log(f"phase 13: no pads: dK/dV {t_full[0]:.3f} ms, dQ {t_full[1]:.3f} ms; short "
+        f"pairs (real lengths {int(short_lengths.min())}-{int(short_lengths.max())}, "
+        f"pads attend to pads): dK/dV {t_short[0]:.3f} ms, dQ {t_short[1]:.3f} ms")
+    log(f"phase 13: library yardstick (scaled_dot_product_attention, f32, boolean "
+        f"mask; output within {e_lib:.3g} of the kernel's): forward {t_lib_fwd:.3f} "
+        f"ms, backward for k, v {t_lib_dkv:.3f} ms, for q {t_lib_dq:.3f} ms, for all "
+        f"three {t_lib_all:.3f} ms")
 
 
 def train_batch(tok, pairs, rows, seed):

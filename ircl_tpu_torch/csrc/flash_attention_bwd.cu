@@ -23,154 +23,163 @@
 // serves only an attention bias, which the port refuses: it is not written.
 //
 // Design: the math of the library's kernels, not their TPU blocks or their
-// sequential grid. Both kernels recompute the 64 x 64 tiles of p and ds from
-// q, k, v, do and the statistics, so no [B, H, Lq, Lk] matrix reaches device
-// memory, and both use the forward kernel's block: 128 threads, a group of 8
-// lanes sharing 4 query rows, each lane holding 8 of a tile's keys.
+// sequential grid. Both kernels recompute p and ds tile by tile from q, k, v,
+// do and the statistics, so no [B, H, Lq, Lk] matrix reaches device memory.
 //
-// - dK/dV: one block owns 64 keys of one (b, h), keeps their K and V tiles
-//   in shared memory, and walks the queries in tiles of 64. Per tile it
-//   stages Q and dO, computes p and ds, writes both tiles to shared memory,
-//   and after a barrier adds p^T dO to dv and ds^T Q to dk, each lane holding
-//   4 keys x 8 head columns of both. A block is the only writer of its keys'
-//   dk and dv: no atomics, and a fixed order of summation.
-// - dQ: one block owns 64 queries, keeps Q and dO in shared memory, and walks
-//   the keys in tiles of 64: ds as above, then dq += ds K with the lane
-//   layout of the forward's P V product.
+// - Products on the tensor cores at f32 accuracy (mma_tf32.cuh): every f32
+//   operand is split into two TF32 values and each product is hi.hi + (lo.hi
+//   + hi.lo) with f32 accumulators, the small terms summed apart. A block is
+//   one warpgroup (4 warps) and owns 64 rows (keys for dK/dV, queries for
+//   dQ), 16 a warp; it walks the other sequence in steps of 32 rows. A tile is
+//   split once, by the block, as it goes from device memory through registers
+//   into shared memory: a hi plane and a lo plane in the layout wgmma reads.
+// - The products that sum over the head width (s = Q K^T, dp = dO V^T; in
+//   dK/dV their transposes K Q^T, V dO^T, so that the block's keys are the
+//   rows) take both operands from those planes through wgmma.mma_async,
+//   m64n32k8, 48 instructions a step.
+// - The products that sum over the step's rows (dv += p^T dO, dk += ds^T Q,
+//   dq += ds K) would need the step's tiles transposed for wgmma. They run on
+//   mma.sync.m16n8k8 instead: the accumulators wgmma leaves in a warp are the
+//   C fragments of that instruction, p and ds are computed in them and become
+//   its A fragments without leaving their registers, and its B fragments are
+//   32-bit loads from the same planes, free of bank conflicts under the
+//   swizzle. p and ds never pass through shared memory and no tile is
+//   transposed.
+// - dk, dv and dq are summed over steps with ordinary f32 adds: each step's
+//   product is accumulated by the tensor cores in fresh fragments (4 chained
+//   instructions) and then added to the running sum, so the sum over the
+//   whole sequence does not depend on how the tensor cores round their
+//   accumulator. A block is the only writer of its rows: no atomics, a fixed
+//   order of summation, the same bits every run.
+// - Loads overlap arithmetic: the next live step's tiles (and the rows' m, l,
+//   di and segment ids) are loaded into registers before this step's products
+//   and split into the planes after them, between two barriers. One buffer a
+//   step: the planes take 96 KB a block, two blocks an SM.
+// - No work on steps the masks empty. A step in which no query shares a
+//   segment with any key adds exactly 0 to dq, dk and dv as long as each of
+//   its query rows has a key somewhere (exp(MASK - m) is exactly 0). A row
+//   with no key at all has m near MASK and p = 1 / Lk on every key, so a step
+//   holding such a row is never skipped: the test reads the rows' m beside
+//   the segment ids. Each block marks its live steps before the loop, and
+//   the loop neither loads nor computes the others.
 //
-// Each query row's m, 1/l, di and segment id are read from device memory
-// into registers (8 lanes read one address, a broadcast). Tiles are copied
-// with cp.async, one buffer per operand; expf and f32 FMAs, no tensor
-// cores, so the plain version (flash_attention_bwd_ref) differs only by the
-// f32 summation order.
-//
-// Bound on this card: f32 FMA throughput. The dK/dV kernel does four
-// products of B*H*Lq*Lk*64 FMAs (s, dp, dv, dk), the dQ kernel three (s, dp,
-// dq): at the training shape B=8, H=12, L=512 that is 4 and 3 times 1.6e9
-// FMAs, 0.19 ms and 0.14 ms at the published 67 TFLOP/s, while each moves
-// about 60 MB (18 us at 3.35 TB/s). Recomputing s and dp in both kernels
-// costs two of the seven products; one fused kernel would need atomics for dq
-// or a second pass. Tensor cores (TF32 or split bf16 through wgmma) are the
-// next step and need a parity bound first.
+// Bound on this card: tensor-core operations. The dK/dV kernel does four
+// products of B*H*Lq*Lk*64 multiply-adds (s, dp, dv, dk), the dQ kernel three
+// (s, dp, dq), three TF32 passes each: at the training shape B=8, H=12,
+// L=512, all pairs live, 38.7 and 29.0 GFLOP, 0.078 and 0.059 ms at the
+// published 495 TFLOP/s, while each moves about 60 MB (18 us at 3.35 TB/s).
+// What holds the kernels above that is shared memory, not the tensor cores:
+// a split operand is 8 bytes a word, wgmma reads the block's own planes
+// again for every step (144 KB a step of 32 rows against 128 bytes a clock),
+// and the 96 KB of planes leave two warpgroups an SM to hide each other's
+// loads, barriers and softmax arithmetic. Recomputing s and dp in both
+// kernels costs two of the seven products; one fused kernel would need
+// atomics for dq or for dk, dv, which the fixed order of summation rules out.
 
 #include "flash_attention_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kTile = 64;         // query rows and keys per tile
-constexpr int kRows = kTile / (kThreads / kLanesPerRow);  // 4 rows per lane
-constexpr int kCols = kTile / kLanesPerRow;               // 8 keys per lane
-constexpr int kPS = kTile + kPad; // shared row stride of the p and ds tiles
-constexpr int kOut = kHD / 32;    // float4 head columns per lane
-constexpr size_t kDkvSmemBytes = sizeof(float) * (4 * kTile * kQS + 2 * kTile * kPS);
-constexpr size_t kDqSmemBytes = sizeof(float) * (4 * kTile * kQS + kTile * kPS);
+constexpr int kOwn = 64;               // rows a block owns, 16 a warp
+constexpr int kStep = 32;              // rows of the other sequence a step
+constexpr int kNT = kStep / 8;         // C fragments across a step's rows
+constexpr int kWarps = kThreads / 32;  // one warpgroup: wgmma's unit
+constexpr int kMinBlocks = 2;          // blocks an SM: bounds the registers
+constexpr int kVecs = kHD / 4;         // 16-byte pieces of a row
+constexpr int kOwnPlane = kOwn * kHD;    // words of a [64 x 64] plane
+constexpr int kStepPlane = kStep * kHD;  // and of a [32 x 64] plane
+// two own tiles and two tiles of a step as hi and lo planes, then a word a
+// step row for each of m, 1 / l, di and the segment id (dK/dV) or the segment
+// id (dQ), then the own rows' segment ids
+constexpr int kPlaneWords = 4 * kOwnPlane + 4 * kStepPlane;
+constexpr int kDkvWords = kPlaneWords + 4 * kStep + kOwn;
+constexpr int kDqWords = kPlaneWords + kStep + kOwn;
+// a query row whose largest score is under this has no key of its segment
+constexpr float kNoKeyBelow = 0.5f * kMaskValue;
 
-// out[i][j] = a[rg*4 + i] . b[cg + 8*j] over the head dimension, for two
-// shared tiles of row stride kQS: the forward kernel's score product.
-__device__ __forceinline__ void tile_dot(const float* sA, const float* sB, int rg,
-                                         int cg, float (&out)[kRows][kCols]) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) out[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < kHD; d += 4) {
-    float4 av[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      av[i] = *reinterpret_cast<const float4*>(sA + (rg * kRows + i) * kQS + d);
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float4 bv =
-          *reinterpret_cast<const float4*>(sB + (cg + kLanesPerRow * j) * kQS + d);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        out[i][j] = fmaf(av[i].x, bv.x, out[i][j]);
-        out[i][j] = fmaf(av[i].y, bv.y, out[i][j]);
-        out[i][j] = fmaf(av[i].z, bv.z, out[i][j]);
-        out[i][j] = fmaf(av[i].w, bv.w, out[i][j]);
-      }
-    }
-  }
+// Dynamic shared memory of a block: its words and one byte a step.
+constexpr size_t smem_bytes(int words, int64_t n_steps) {
+  return sizeof(float) * words + static_cast<size_t>((n_steps + 15) / 16 * 16);
 }
 
-// The statistics of this lane's 4 query rows, from device memory.
-struct RowStats {
-  float m[kRows], inv_l[kRows], di[kRows];
-  int32_t seg[kRows];
+// ROWS rows of two [n_rows, 64] f32 matrices, on their way from device memory
+// to split planes: this thread's 16-byte pieces (16 lanes a row, 8 rows a
+// pass of the block), held in registers in between. The pointers given to
+// fetch and store are the thread's own: its piece of the first row, and
+// where that piece goes in a plane (Tiles::first_piece).
+template <int ROWS>
+struct Tiles {
+  static constexpr int kPieces = ROWS * kVecs / kThreads;
+  static constexpr int kRowsAPass = kThreads / kVecs;
+  float4 a[kPieces], b[kPieces];
+
+  __device__ __forceinline__ static int first_word(int tid) {
+    return (tid / kVecs) * kHD + 4 * (tid % kVecs);
+  }
+
+  // 8 rows further the piece lies 8 * 32 words further: the swizzle reads
+  // the row's last three bits only.
+  __device__ __forceinline__ static int first_piece(int tid) {
+    return swizzled_piece(ROWS, tid / kVecs, tid % kVecs);
+  }
+
+  __device__ __forceinline__ void fetch(const float* pa, const float* pb) {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(pa + i * kRowsAPass * kHD);
+      b[i] = *reinterpret_cast<const float4*>(pb + i * kRowsAPass * kHD);
+    }
+  }
+
+  // planes: a hi, a lo, b hi, b lo, ROWS * 64 words each.
+  __device__ __forceinline__ void store(uint32_t* planes) const {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      uint32_t* at = planes + i * kRowsAPass * 32;
+      store_split4(at, at + ROWS * kHD, a[i]);
+      store_split4(at + 2 * ROWS * kHD, at + 3 * ROWS * kHD, b[i]);
+    }
+  }
 };
 
-__device__ __forceinline__ RowStats load_row_stats(const float* l, const float* m,
-                                                   const float* di,
-                                                   const int32_t* seg_q,
-                                                   int64_t stat0, int64_t seg0,
-                                                   int rg) {
-  RowStats r;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = rg * kRows + i;
-    r.m[i] = m[stat0 + row];
-    r.inv_l[i] = 1.0f / l[stat0 + row];
-    r.di[i] = di[stat0 + row];
-    r.seg[i] = seg_q != nullptr ? seg_q[seg0 + row] : 0;
-  }
-  return r;
-}
-
-// p and ds of this lane's 4 rows x 8 keys of one tile. sQ, sdO hold the
-// tile's query rows, sK, sV its keys. p is left in `p`, ds in `ds`.
-__device__ __forceinline__ void tile_p_ds(const float* sQ, const float* sK,
-                                          const float* sdO, const float* sV, int rg,
-                                          int cg, float sm_scale, bool masked,
-                                          const RowStats& r,
-                                          const int32_t (&kseg)[kCols],
-                                          float (&p)[kRows][kCols],
-                                          float (&ds)[kRows][kCols]) {
-  tile_dot(sQ, sK, rg, cg, p);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float x = p[i][j] * sm_scale;
-      if (masked) x = x + (r.seg[i] == kseg[j] ? 0.0f : kMaskValue);
-      p[i][j] = expf(x - r.m[i]) * r.inv_l[i];
+// live[s] for every step s of the other sequence: whether one of its rows
+// shares a segment with one of the block's own rows, or `always`. A warp
+// takes every fourth step, a lane its rows. `lonely` is what makes a row of
+// the other sequence keep its step alive whatever the ids (dK/dV: the m of a
+// query with no key), or null.
+__device__ __forceinline__ void mark_live_steps(unsigned char* live, int n_steps,
+                                                const int32_t* other_seg,
+                                                const float* lonely,
+                                                const int32_t* own_seg, bool always,
+                                                int warp, int lane) {
+  for (int s = warp; s < n_steps; s += kWarps) {
+    bool any = always;
+    for (int r = lane; r < kStep; r += 32) {
+      const int64_t at = static_cast<int64_t>(s) * kStep + r;
+      const int32_t id = other_seg[at];
+      if (lonely != nullptr) any |= lonely[at] < kNoKeyBelow;
+#pragma unroll 8
+      for (int j = 0; j < kOwn; ++j) any |= id == own_seg[j];
     }
-  }
-  tile_dot(sdO, sV, rg, cg, ds);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      ds[i][j] = (ds[i][j] - r.di[i]) * p[i][j] * sm_scale;
-    }
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) live[s] = any ? 1 : 0;
   }
 }
 
-// acc[i][e] += sum_j w[j] * row_j[e]: four rows' worth of one float4 of
-// weights against four shared rows.
-__device__ __forceinline__ void fma4x4(float* a, const float4& w, const float4& r0,
-                                       const float4& r1, const float4& r2,
-                                       const float4& r3) {
-  a[0] = fmaf(w.x, r0.x, a[0]);
-  a[1] = fmaf(w.x, r0.y, a[1]);
-  a[2] = fmaf(w.x, r0.z, a[2]);
-  a[3] = fmaf(w.x, r0.w, a[3]);
-  a[0] = fmaf(w.y, r1.x, a[0]);
-  a[1] = fmaf(w.y, r1.y, a[1]);
-  a[2] = fmaf(w.y, r1.z, a[2]);
-  a[3] = fmaf(w.y, r1.w, a[3]);
-  a[0] = fmaf(w.z, r2.x, a[0]);
-  a[1] = fmaf(w.z, r2.y, a[1]);
-  a[2] = fmaf(w.z, r2.z, a[2]);
-  a[3] = fmaf(w.z, r2.w, a[3]);
-  a[0] = fmaf(w.w, r3.x, a[0]);
-  a[1] = fmaf(w.w, r3.y, a[1]);
-  a[2] = fmaf(w.w, r3.z, a[2]);
-  a[3] = fmaf(w.w, r3.w, a[3]);
+__device__ __forceinline__ int next_live(const unsigned char* live, bool masked, int s,
+                                         int n_steps) {
+  if (masked) {
+    while (s < n_steps && live[s] == 0) ++s;
+  }
+  return s;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Descriptor units from a hi plane to its lo plane.
+constexpr uint64_t kOwnLo = kOwnPlane * sizeof(float) / 16;
+constexpr uint64_t kStepLo = kStepPlane * sizeof(float) / 16;
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v,
                            const int32_t* __restrict__ seg_q,
@@ -180,114 +189,138 @@ flash_attention_dkv_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ di, int64_t H, int64_t Lq,
                            int64_t Lk, float sm_scale, float* __restrict__ dk,
                            float* __restrict__ dv) {
-  extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + kTile * kQS;
-  float* sQ = sV + kTile * kQS;
-  float* sdO = sQ + kTile * kQS;
-  float* sP = sdO + kTile * kQS;
-  float* sdS = sP + kTile * kPS;
+  extern __shared__ __align__(1024) float4 smem4[];
+  if (__cvta_generic_to_shared(smem4) % 1024 != 0) __trap();  // the planes' swizzle
+  uint32_t* sK = reinterpret_cast<uint32_t*>(smem4);  // K hi, K lo, V hi, V lo
+  uint32_t* sV = sK + 2 * kOwnPlane;
+  uint32_t* sQ = sV + 2 * kOwnPlane;  // the step: Q hi, Q lo, dO hi, dO lo
+  uint32_t* sdO = sQ + 2 * kStepPlane;
+  float* stats = reinterpret_cast<float*>(sdO + 2 * kStepPlane);  // m, 1 / l, di
+  int32_t* sseg = reinterpret_cast<int32_t*>(stats + 3 * kStep);
+  int32_t* sOwnSeg = sseg + kStep;
+  unsigned char* sLive = reinterpret_cast<unsigned char*>(sOwnSeg + kOwn);
 
   const int64_t b = blockIdx.z, h = blockIdx.y, bh = b * H + h;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const float* qb = q + bh * Lq * kHD;
-  const float* dob = d_out + bh * Lq * kHD;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * kOwn;
   const int tid = threadIdx.x;
-  const int rg = tid / kLanesPerRow;  // query rows rg*4 + i, then keys rg*4 + i
-  const int cg = tid % kLanesPerRow;  // keys cg + 8*j, then columns cg*4 + 32*jj
+  const float* qb = q + bh * Lq * kHD + Tiles<kStep>::first_word(tid);  // the thread's
+  const float* dob = d_out + bh * Lq * kHD + Tiles<kStep>::first_word(tid);
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row = warp * 16 + g;  // this lane's keys: row and row + 8
+  const DownLane down(g, t);
   const bool masked = seg_q != nullptr;
-  const int n_tiles = static_cast<int>(Lq / kTile);
+  const int n_steps = static_cast<int>(Lq / kStep);
 
-  stage_rows(sK, k + bh * Lk * kHD, k0, Lk, tid);  // land with query tile 0
-  stage_rows(sV, v + bh * Lk * kHD, k0, Lk, tid);
-  int32_t kseg[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    kseg[j] = masked ? seg_kv[b * Lk + k0 + cg + kLanesPerRow * j] : 0;
-  }
-  float acc_dk[kRows][4 * kOut], acc_dv[kRows][4 * kOut];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4 * kOut; ++e) acc_dk[i][e] = acc_dv[i][e] = 0.0f;
+  int32_t kseg[2] = {0, 0};
+  if (masked) {
+    kseg[0] = seg_kv[b * Lk + k0 + row];
+    kseg[1] = seg_kv[b * Lk + k0 + row + 8];
+    if (tid < kOwn) sOwnSeg[tid] = seg_kv[b * Lk + k0 + tid];
+    __syncthreads();
+    mark_live_steps(sLive, n_steps, seg_q + b * Lq, m + bh * Lq, sOwnSeg, false, warp,
+                    lane);
+    __syncthreads();
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    // Q and dO of query tile t; the previous tile's readers passed the
-    // barrier at the end of the loop
-    const int64_t q0 = static_cast<int64_t>(t) * kTile;
-    stage_rows(sQ, qb, q0, Lq, tid);
-    stage_rows(sdO, dob, q0, Lq, tid);
-    cp_async_commit();
-    const RowStats r = load_row_stats(l, m, di, seg_q, bh * Lq + q0, b * Lq + q0, rg);
-    cp_async_wait<0>();
-    __syncthreads();  // the tile (and K, V) are in shared memory for every thread
+  // a step on its way: Q and dO pieces, and one query row's m, 1 / l, di and
+  // segment id in each of the first kStep threads
+  Tiles<kStep> tiles;
+  float row_stats[3];
+  int32_t row_seg = 0;
+  auto fetch = [&](int s) {
+    const int64_t i0 = static_cast<int64_t>(s) * kStep;
+    tiles.fetch(qb + i0 * kHD, dob + i0 * kHD);
+    if (tid < kStep) {
+      row_stats[0] = m[bh * Lq + i0 + tid];
+      row_stats[1] = 1.0f / l[bh * Lq + i0 + tid];
+      row_stats[2] = di[bh * Lq + i0 + tid];
+      if (masked) row_seg = seg_q[b * Lq + i0 + tid];
+    }
+  };
+  auto store = [&]() {
+    tiles.store(sQ + Tiles<kStep>::first_piece(tid));
+    if (tid < kStep) {
+      stats[tid] = row_stats[0];
+      stats[kStep + tid] = row_stats[1];
+      stats[2 * kStep + tid] = row_stats[2];
+      sseg[tid] = row_seg;
+    }
+  };
 
-    {
-      float p[kRows][kCols], ds[kRows][kCols];
-      tile_p_ds(sQ, sK, sdO, sV, rg, cg, sm_scale, masked, r, kseg, p, ds);
+  int cur = next_live(sLive, masked, 0, n_steps);
+  if (cur < n_steps) fetch(cur);
+  {
+    Tiles<kOwn> own;
+    const int64_t first = (bh * Lk + k0) * kHD + Tiles<kOwn>::first_word(tid);
+    own.fetch(k + first, v + first);
+    own.store(sK + Tiles<kOwn>::first_piece(tid));
+  }
+  if (cur < n_steps) store();
+  fence_stores_for_wgmma();
+  __syncthreads();  // K, V and the first step are in shared memory
+
+  const uint64_t k_desc = wgmma_desc(sK), v_desc = wgmma_desc(sV);
+  const uint64_t q_desc = wgmma_desc(sQ), do_desc = wgmma_desc(sdO);
+
+  float acc_dk[kHD / 2], acc_dv[kHD / 2];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kHD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.0f;
+
+  while (cur < n_steps) {
+    // the next live step's loads run under this step's products
+    const int nxt = next_live(sLive, masked, cur + 1, n_steps);
+    if (nxt < n_steps) fetch(nxt);
+
+    // s^T = K Q^T and dp^T = V dO^T of the block's 64 keys against the step's
+    // queries: element 4j + 2h + c is (key row + 8h, query 8j + 2t + c)
+    float p[4 * kNT], p_small[4 * kNT], ds[4 * kNT], ds_small[4 * kNT];
+    wgmma_fence();
+    wgmma_rows_dot_rows(p, p_small, k_desc, kOwnLo, kOwn, q_desc, kStepLo, kStep);
+    wgmma_rows_dot_rows(ds, ds_small, v_desc, kOwnLo, kOwn, do_desc, kStepLo, kStep);
+    wgmma_commit();
+    wgmma_wait();
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int at = (rg * kRows + i) * kPS + cg + kLanesPerRow * j;
-          sP[at] = p[i][j];
-          sdS[at] = ds[i][j];
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = 8 * j + 2 * t + c;
+        const float m_i = stats[i], inv_l = stats[kStep + i], di_i = stats[2 * kStep + i];
+        const int32_t id = masked ? sseg[i] : 0;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int e = 4 * j + 2 * hh + c;
+          float x = (p[e] + p_small[e]) * sm_scale;
+          if (masked) x = x + (id == kseg[hh] ? 0.0f : kMaskValue);
+          p[e] = expf(x - m_i) * inv_l;
+          ds[e] = ((ds[e] + ds_small[e]) - di_i) * p[e] * sm_scale;
         }
       }
     }
-    __syncthreads();  // every query row's p and ds are written
+    add_regs_dot_plane<kNT, kHD, kStep, kStepPlane, 2>(p, sdO, down, acc_dv);  // p^T dO
+    add_regs_dot_plane<kNT, kHD, kStep, kStepPlane, 2>(ds, sQ, down, acc_dk);  // ds^T Q
 
-    // dv += p^T dO and dk += ds^T Q over this tile's query rows; this lane
-    // holds keys rg*4 + i and head columns cg*4 + 32*jj + e
-#pragma unroll 2
-    for (int row = 0; row < kTile; ++row) {
-      const float4 pv = *reinterpret_cast<const float4*>(sP + row * kPS + rg * kRows);
-      const float4 dsv = *reinterpret_cast<const float4*>(sdS + row * kPS + rg * kRows);
-      const float pw[kRows] = {pv.x, pv.y, pv.z, pv.w};
-      const float dw[kRows] = {dsv.x, dsv.y, dsv.z, dsv.w};
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj) {
-        const int d = cg * 4 + 32 * jj;
-        const float4 dov = *reinterpret_cast<const float4*>(sdO + row * kQS + d);
-        const float4 qv = *reinterpret_cast<const float4*>(sQ + row * kQS + d);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          float* av = acc_dv[i] + 4 * jj;
-          av[0] = fmaf(pw[i], dov.x, av[0]);
-          av[1] = fmaf(pw[i], dov.y, av[1]);
-          av[2] = fmaf(pw[i], dov.z, av[2]);
-          av[3] = fmaf(pw[i], dov.w, av[3]);
-          float* ak = acc_dk[i] + 4 * jj;
-          ak[0] = fmaf(dw[i], qv.x, ak[0]);
-          ak[1] = fmaf(dw[i], qv.y, ak[1]);
-          ak[2] = fmaf(dw[i], qv.z, ak[2]);
-          ak[3] = fmaf(dw[i], qv.w, ak[3]);
-        }
-      }
-    }
-    __syncthreads();  // every thread is done with this tile
+    __syncthreads();  // every warp has read this step
+    if (nxt < n_steps) store();
+    fence_stores_for_wgmma();
+    __syncthreads();
+    cur = nxt;
   }
 
-  float* dkb = dk + bh * Lk * kHD;
-  float* dvb = dv + bh * Lk * kHD;
+  // elements 4n + 2h + c at (row + 8h, head column 8n + 2t + c)
+  float* dkb = dk + (bh * Lk + k0 + row) * kHD + 2 * t;
+  float* dvb = dv + (bh * Lk + k0 + row) * kHD + 2 * t;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int64_t key = k0 + rg * kRows + i;
-#pragma unroll
-    for (int jj = 0; jj < kOut; ++jj) {
-      const int64_t d = cg * 4 + 32 * jj;
-      const float* ak = acc_dk[i] + 4 * jj;
-      const float* av = acc_dv[i] + 4 * jj;
-      *reinterpret_cast<float4*>(dkb + key * kHD + d) =
-          make_float4(ak[0], ak[1], ak[2], ak[3]);
-      *reinterpret_cast<float4*>(dvb + key * kHD + d) =
-          make_float4(av[0], av[1], av[2], av[3]);
-    }
+  for (int n = 0; n < kHD / 8; ++n) {
+    *reinterpret_cast<float2*>(dkb + 8 * n) = make_float2(acc_dk[4 * n], acc_dk[4 * n + 1]);
+    *reinterpret_cast<float2*>(dkb + 8 * kHD + 8 * n) =
+        make_float2(acc_dk[4 * n + 2], acc_dk[4 * n + 3]);
+    *reinterpret_cast<float2*>(dvb + 8 * n) = make_float2(acc_dv[4 * n], acc_dv[4 * n + 1]);
+    *reinterpret_cast<float2*>(dvb + 8 * kHD + 8 * n) =
+        make_float2(acc_dv[4 * n + 2], acc_dv[4 * n + 3]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v,
                           const int32_t* __restrict__ seg_q,
@@ -296,94 +329,124 @@ flash_attention_dq_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ d_out,
                           const float* __restrict__ di, int64_t H, int64_t Lq,
                           int64_t Lk, float sm_scale, float* __restrict__ dq) {
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sdO = sQ + kTile * kQS;
-  float* sK = sdO + kTile * kQS;
-  float* sV = sK + kTile * kQS;
-  float* sdS = sV + kTile * kQS;
+  extern __shared__ __align__(1024) float4 smem4[];
+  if (__cvta_generic_to_shared(smem4) % 1024 != 0) __trap();  // the planes' swizzle
+  uint32_t* sQ = reinterpret_cast<uint32_t*>(smem4);  // Q hi, Q lo, dO hi, dO lo
+  uint32_t* sdO = sQ + 2 * kOwnPlane;
+  uint32_t* sK = sdO + 2 * kOwnPlane;  // the step: K hi, K lo, V hi, V lo
+  uint32_t* sV = sK + 2 * kStepPlane;
+  int32_t* sseg = reinterpret_cast<int32_t*>(sV + 2 * kStepPlane);
+  int32_t* sOwnSeg = sseg + kStep;
+  unsigned char* sLive = reinterpret_cast<unsigned char*>(sOwnSeg + kOwn);
 
   const int64_t b = blockIdx.z, h = blockIdx.y, bh = b * H + h;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const float* kb = k + bh * Lk * kHD;
-  const float* vb = v + bh * Lk * kHD;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kOwn;
   const int tid = threadIdx.x;
-  const int rg = tid / kLanesPerRow;  // query rows rg*4 + i
-  const int cg = tid % kLanesPerRow;  // keys cg + 8*j, then columns cg*4 + 32*jj
+  const float* kb = k + bh * Lk * kHD + Tiles<kStep>::first_word(tid);  // the thread's
+  const float* vb = v + bh * Lk * kHD + Tiles<kStep>::first_word(tid);
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row = warp * 16 + g;  // this lane's queries: row and row + 8
+  const DownLane down(g, t);
   const bool masked = seg_q != nullptr;
-  const int n_tiles = static_cast<int>(Lk / kTile);
+  const int n_steps = static_cast<int>(Lk / kStep);
 
-  stage_rows(sQ, q + bh * Lq * kHD, q0, Lq, tid);  // land with key tile 0
-  stage_rows(sdO, d_out + bh * Lq * kHD, q0, Lq, tid);
-  const RowStats r = load_row_stats(l, m, di, seg_q, bh * Lq + q0, b * Lq + q0, rg);
-  float acc[kRows][4 * kOut];
+  float m_r[2], inv_l[2], di_r[2];
+  int32_t qseg[2] = {0, 0};
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int e = 0; e < 4 * kOut; ++e) acc[i][e] = 0.0f;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int64_t at = bh * Lq + q0 + row + 8 * hh;
+    m_r[hh] = m[at];
+    inv_l[hh] = 1.0f / l[at];
+    di_r[hh] = di[at];
+    if (masked) qseg[hh] = seg_q[b * Lq + q0 + row + 8 * hh];
+  }
+  if (masked) {
+    bool lonely = false;  // an own query with no key keeps every step alive
+    if (tid < kOwn) {
+      sOwnSeg[tid] = seg_q[b * Lq + q0 + tid];
+      lonely = m[bh * Lq + q0 + tid] < kNoKeyBelow;
+    }
+    const bool always = __syncthreads_or(lonely) != 0;
+    mark_live_steps(sLive, n_steps, seg_kv + b * Lk, nullptr, sOwnSeg, always, warp,
+                    lane);
+    __syncthreads();
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    // K and V of key tile t; the previous tile's readers passed the barrier
-    // at the end of the loop
-    const int64_t k0 = static_cast<int64_t>(t) * kTile;
-    stage_rows(sK, kb, k0, Lk, tid);
-    stage_rows(sV, vb, k0, Lk, tid);
-    cp_async_commit();
-    int32_t kseg[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      kseg[j] = masked ? seg_kv[b * Lk + k0 + cg + kLanesPerRow * j] : 0;
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the tile (and Q, dO) are in shared memory for every thread
+  // a step on its way: K and V pieces, and one key's segment id in each of
+  // the first kStep threads
+  Tiles<kStep> tiles;
+  int32_t key_seg = 0;
+  auto fetch = [&](int s) {
+    const int64_t j0 = static_cast<int64_t>(s) * kStep;
+    tiles.fetch(kb + j0 * kHD, vb + j0 * kHD);
+    if (masked && tid < kStep) key_seg = seg_kv[b * Lk + j0 + tid];
+  };
+  auto store = [&]() {
+    tiles.store(sK + Tiles<kStep>::first_piece(tid));
+    if (tid < kStep) sseg[tid] = key_seg;
+  };
 
-    {
-      float p[kRows][kCols], ds[kRows][kCols];
-      tile_p_ds(sQ, sK, sdO, sV, rg, cg, sm_scale, masked, r, kseg, p, ds);
+  int cur = next_live(sLive, masked, 0, n_steps);
+  if (cur < n_steps) fetch(cur);
+  {
+    Tiles<kOwn> own;
+    const int64_t first = (bh * Lq + q0) * kHD + Tiles<kOwn>::first_word(tid);
+    own.fetch(q + first, d_out + first);
+    own.store(sQ + Tiles<kOwn>::first_piece(tid));
+  }
+  if (cur < n_steps) store();
+  fence_stores_for_wgmma();
+  __syncthreads();  // Q, dO and the first step are in shared memory
+
+  const uint64_t q_desc = wgmma_desc(sQ), do_desc = wgmma_desc(sdO);
+  const uint64_t k_desc = wgmma_desc(sK), v_desc = wgmma_desc(sV);
+
+  float acc[kHD / 2];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kHD / 2; ++i) acc[i] = 0.0f;
+
+  while (cur < n_steps) {
+    const int nxt = next_live(sLive, masked, cur + 1, n_steps);
+    if (nxt < n_steps) fetch(nxt);
+
+    // s = Q K^T and dp = dO V^T of the block's 64 queries against the step's
+    // keys: element 4j + 2h + c is (query row + 8h, key 8j + 2t + c)
+    float p[4 * kNT], p_small[4 * kNT], ds[4 * kNT], ds_small[4 * kNT];
+    wgmma_fence();
+    wgmma_rows_dot_rows(p, p_small, q_desc, kOwnLo, kOwn, k_desc, kStepLo, kStep);
+    wgmma_rows_dot_rows(ds, ds_small, do_desc, kOwnLo, kOwn, v_desc, kStepLo, kStep);
+    wgmma_commit();
+    wgmma_wait();
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          sdS[(rg * kRows + i) * kPS + cg + kLanesPerRow * j] = ds[i][j];
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int32_t id = masked ? sseg[8 * j + 2 * t + c] : 0;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int e = 4 * j + 2 * hh + c;
+          float x = (p[e] + p_small[e]) * sm_scale;
+          if (masked) x = x + (qseg[hh] == id ? 0.0f : kMaskValue);
+          const float p_e = expf(x - m_r[hh]) * inv_l[hh];
+          ds[e] = ((ds[e] + ds_small[e]) - di_r[hh]) * p_e * sm_scale;
         }
       }
     }
-    __syncwarp();  // a row group's ds is written and read in one warp
+    add_regs_dot_plane<kNT, kHD, kStep, kStepPlane, 4>(ds, sK, down, acc);  // dq += ds K
 
-    // acc += ds K over this tile's keys
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 w[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        w[i] = *reinterpret_cast<const float4*>(sdS + (rg * kRows + i) * kPS + j);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj) {
-        const int d = cg * 4 + 32 * jj;
-        const float4 r0 = *reinterpret_cast<const float4*>(sK + (j + 0) * kQS + d);
-        const float4 r1 = *reinterpret_cast<const float4*>(sK + (j + 1) * kQS + d);
-        const float4 r2 = *reinterpret_cast<const float4*>(sK + (j + 2) * kQS + d);
-        const float4 r3 = *reinterpret_cast<const float4*>(sK + (j + 3) * kQS + d);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) fma4x4(acc[i] + 4 * jj, w[i], r0, r1, r2, r3);
-      }
-    }
-    __syncthreads();  // every thread is done with this tile
+    __syncthreads();  // every warp has read this step
+    if (nxt < n_steps) store();
+    fence_stores_for_wgmma();
+    __syncthreads();
+    cur = nxt;
   }
 
-  float* dqb = dq + bh * Lq * kHD;
+  float* dqb = dq + (bh * Lq + q0 + row) * kHD + 2 * t;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int64_t row = q0 + rg * kRows + i;
-#pragma unroll
-    for (int jj = 0; jj < kOut; ++jj) {
-      const int64_t d = cg * 4 + 32 * jj;
-      const float* a = acc[i] + 4 * jj;
-      *reinterpret_cast<float4*>(dqb + row * kHD + d) =
-          make_float4(a[0], a[1], a[2], a[3]);
-    }
+  for (int n = 0; n < kHD / 8; ++n) {
+    *reinterpret_cast<float2*>(dqb + 8 * n) = make_float2(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<float2*>(dqb + 8 * kHD + 8 * n) =
+        make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
@@ -397,7 +460,7 @@ bool bad_bwd_args(const void* const* tensors, int n_tensors, const void* seg_q,
     if (tensors[i] == nullptr) return true;
     any |= reinterpret_cast<uintptr_t>(tensors[i]);
   }
-  return Lq <= 0 || Lk <= 0 || Lq % kTile != 0 || Lk % kTile != 0 || hd != kHD ||
+  return Lq <= 0 || Lk <= 0 || Lq % kOwn != 0 || Lk % kOwn != 0 || hd != kHD ||
          any % 16 != 0 || B > 65535 || H > 65535 ||
          (seg_q == nullptr) != (seg_kv == nullptr);
 }
@@ -419,13 +482,14 @@ extern "C" int ircl_flash_attention_bwd_dkv(
   if (bad_bwd_args(tensors, 9, seg_q, seg_kv, B, H, Lq, Lk, hd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const size_t smem = smem_bytes(kDkvWords, Lq / kStep);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDkvSmemBytes));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(Lk / kTile), static_cast<unsigned>(H),
+  const dim3 grid(static_cast<unsigned>(Lk / kOwn), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_attention_dkv_kernel<<<grid, kThreads, kDkvSmemBytes,
+  flash_attention_dkv_kernel<<<grid, kThreads, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(seg_q),
@@ -447,13 +511,14 @@ extern "C" int ircl_flash_attention_bwd_dq(
   if (bad_bwd_args(tensors, 8, seg_q, seg_kv, B, H, Lq, Lk, hd)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const size_t smem = smem_bytes(kDqWords, Lk / kStep);
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attention_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kDqSmemBytes));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(Lq / kTile), static_cast<unsigned>(H),
+  const dim3 grid(static_cast<unsigned>(Lq / kOwn), static_cast<unsigned>(H),
                   static_cast<unsigned>(B));
-  flash_attention_dq_kernel<<<grid, kThreads, kDqSmemBytes,
+  flash_attention_dq_kernel<<<grid, kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(seg_q),

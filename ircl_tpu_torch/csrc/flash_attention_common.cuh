@@ -1,7 +1,9 @@
 // What the flash-attention forward (flash_attention.cu) and backward
 // (flash_attention_bwd.cu) kernels share: the head width, the 128-thread
-// block in which a group of 8 lanes shares 4 rows of a 64-row tile, the
-// padded shared-memory row, the mask value, and the cp.async tile copies.
+// block and the mask value; and what the forward's block is made of: a group
+// of 8 lanes sharing 4 rows of a 64-row tile, the padded shared-memory row,
+// and the cp.async tile copies. (The backward kernels' tiles are split planes
+// in another layout: mma_tf32.cuh.)
 
 #pragma once
 

@@ -29,7 +29,11 @@ of ``exp(s - m)``, ``[B, H, Lq]`` f32 each) and saves q, k, v, the segment
 ids, o, l and m; the backward recomputes the probabilities from them and
 launches ``csrc/flash_attention_bwd.cu``'s two kernels, one for dk and dv
 and one for dq (both sequence lengths multiples of 128), or on CPU tensors
-runs ``flash_attention_bwd_ref``. ``flash_attention.launches``,
+runs ``flash_attention_bwd_ref``. The kernels take their matrix products on
+the tensor cores, every f32 operand split into two TF32 values
+(``utils/precision.py::split_tf32``) and a product taken as three;
+``flash_attention_bwd_ref(..., products="tf32x3")`` is that arithmetic in
+plain PyTorch, for tests and for ``chip_smoke.py``, on no path of the port. ``flash_attention.launches``,
 ``flash_attention_bwd_dkv.launches`` and ``flash_attention_bwd_dq.launches``
 count the kernel launches. On CUDA tensors every path launches its kernel or
 raises; none gives way to a plain version.
@@ -45,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from ircl_tpu_torch.utils.precision import float32_precision
+from ircl_tpu_torch.utils.precision import float32_precision, matmul_tf32x3
 
 DEFAULT_MASK_VALUE = -0.7 * torch.finfo(torch.float32).max
 _BLOCK = 128  # the library's default block_q / block_k_major / block_k
@@ -147,9 +151,9 @@ class SoftmaxStats(NamedTuple):
     m: torch.Tensor
 
 
-def _scores(q, k, segment_ids, sm_scale):
+def _scores(q, k, segment_ids, sm_scale, matmul=torch.matmul):
     """``[B, H, Lq, Lk]`` scores: scaled, then masked by the segment ids."""
-    logits = q @ k.transpose(-1, -2)
+    logits = matmul(q, k.transpose(-1, -2))
     if sm_scale != 1.0:
         logits = logits * sm_scale
     if segment_ids is not None:
@@ -194,22 +198,32 @@ def flash_attention_bwd_ref(
     stats: SoftmaxStats,
     do: torch.Tensor,  # [B, H, Lq, hd] f32, the gradient of o
     sm_scale: float = 1.0,
+    products: str = "f32",
 ):
     """Plain version of the two backward kernels, in the library's
     arithmetic (``_flash_attention_bwd``): the probabilities recomputed from
     the saved statistics, whole matrices in full fp32. Returns
-    ``(dq, dk, dv)``."""
+    ``(dq, dk, dv)``.
+
+    ``products="tf32x3"`` takes each of the five matrix products as the
+    kernels take it on the tensor cores (``matmul_tf32x3``: operands split
+    into TF32 halves, three products, fp32 sums), which bounds what the
+    split costs without a card; the default is what the kernels are held
+    to."""
+    if products not in ("f32", "tf32x3"):
+        raise ValueError(f'products must be "f32" or "tf32x3", got {products!r}')
+    matmul = torch.matmul if products == "f32" else matmul_tf32x3
     with float32_precision():
         di = (o * do).sum(dim=-1, keepdim=True)
-        p = torch.exp(_scores(q, k, segment_ids, sm_scale) - stats.m[..., None])
+        p = torch.exp(_scores(q, k, segment_ids, sm_scale, matmul) - stats.m[..., None])
         p = p * (1.0 / stats.l[..., None])
-        dv = p.transpose(-1, -2) @ do
-        dp = do @ v.transpose(-1, -2)
+        dv = matmul(p.transpose(-1, -2), do)
+        dp = matmul(do, v.transpose(-1, -2))
         ds = (dp - di) * p
         if sm_scale != 1.0:
             ds = ds * sm_scale
-        dk = ds.transpose(-1, -2) @ q
-        dq = ds @ k
+        dk = matmul(ds.transpose(-1, -2), q)
+        dq = matmul(ds, k)
         return dq, dk, dv
 
 

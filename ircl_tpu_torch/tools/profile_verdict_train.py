@@ -18,10 +18,14 @@ random weights from a seed, random token ids with pads) and, for the
 The device's idle share is one minus the profiled kernel time a step over
 the unprofiled window a step: the profiler slows the host, so its own wall
 clock is not used. With ``--parent-root`` (another checkout of this
-repository) it also times the forward flash-attention kernel of both
-checkouts at ``[32, 12, 512, 64]`` in turns (parent, this, this, parent),
-each built from its own sources. Prints each part as JSON and, with ``--out``, writes the whole report
-there. Needs a CUDA device; there is no CPU mode.
+repository) it also times the kernels of both checkouts in turns (parent,
+this, this, parent), each built from its own sources: the forward
+flash-attention kernel at ``[32, 12, 512, 64]``, and the two backward
+kernels (dK/dV, dQ) at ``[8, 12, 512, 64]`` under the segment ids of
+``chip_smoke.py`` phase 13's tokenized pairs, with the largest difference
+between the two checkouts' gradients. Prints each part as JSON and, with
+``--out``, writes the whole report there. Needs a CUDA device; there is no
+CPU mode.
 """
 
 from __future__ import annotations
@@ -38,7 +42,11 @@ import numpy as np
 import torch
 
 from ircl_tpu_torch.models.transformer import TransformerConfig
-from ircl_tpu_torch.ops.flash_attention_cuda import SegmentIds, flash_attention
+from ircl_tpu_torch.ops.flash_attention_cuda import (
+    SegmentIds,
+    flash_attention,
+    flash_attention_fwd,
+)
 from ircl_tpu_torch.utils.kernel_build import load_kernels
 from ircl_tpu_torch.verdict.model import (
     VerdictConfig,
@@ -51,6 +59,9 @@ ENCODER = dict(  # bench_verdict.py:83-97, f32
     max_positions=512, type_vocab=1, position_offset=2, layernorm_eps=1e-5,
 )
 B, L, WARMUP = 8, 512, 3
+# real lengths of chip_smoke.py phase 13's eight tokenized pairs (the last
+# cut to one real token), as that phase prints them
+PHASE13_LENGTHS = (11, 87, 187, 325, 450, 512, 12, 1)
 CLASSES = (  # first match wins
     ("flash forward", ("flash_attention_kernel",)),
     ("flash dK/dV", ("flash_attention_dkv_kernel",)),
@@ -151,7 +162,25 @@ def _load_other(root: str):
     return mod.load_kernels()
 
 
-def forward_in_turns(parent_root: str, dev) -> dict:
+def _ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _in_turns(parent_call, this_call):
+    turns = [("parent", parent_call), ("this", this_call), ("this", this_call),
+             ("parent", parent_call)]
+    return [[name, _ms(fn)] for name, fn in turns]
+
+
+def forward_in_turns(parent, this, dev) -> dict:
     rng = np.random.default_rng(10)
     q, k, v = (torch.tensor(rng.normal(size=(32, 12, L, 64)).astype(np.float32),
                             device=dev) for _ in range(3))
@@ -170,26 +199,55 @@ def forward_in_turns(parent_root: str, dev) -> dict:
             kern.check(rc, "flash-attention launch")
         return call
 
-    parent_call, this_call = direct(_load_other(parent_root)), direct(load_kernels())
-
-    def ms(fn, reps=20):
-        fn()
-        torch.cuda.synchronize()
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / reps
-
+    parent_call, this_call = direct(parent), direct(this)
     parent_call()
     same = bool(torch.equal(out, flash_attention(q, k, v, segment_ids=ids,
                                                  sm_scale=0.125)))
-    turns = [("parent", parent_call), ("this", this_call), ("this", this_call),
-             ("parent", parent_call)]
     return {"shape": [32, 12, L, 64], "bit_equal": same,
-            "ms_in_turns": [[name, ms(fn)] for name, fn in turns]}
+            "ms_in_turns": _in_turns(parent_call, this_call)}
+
+
+def backward_in_turns(parent, this, dev) -> dict:
+    """Kernels dK/dV and dQ of both checkouts at the train step's shape."""
+    rng = np.random.default_rng(13)
+    q, k, v, do = (torch.tensor(rng.normal(size=(B, 12, L, 64)).astype(np.float32),
+                                device=dev) for _ in range(4))
+    seg = torch.zeros(B, L, dtype=torch.int32, device=dev)
+    for b, n in enumerate(PHASE13_LENGTHS):
+        seg[b, :n] = 1
+    o, stats = flash_attention_fwd(q, k, v, SegmentIds(q=seg, kv=seg), 0.125)
+    di = (o * do).sum(dim=-1)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+              stats.l.data_ptr(), stats.m.data_ptr(), do.data_ptr(), di.data_ptr(),
+              B, 12, L, L, 64, 0.125)
+
+    def direct(kern):  # the C entry points alone, into this checkout's buffers
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+
+        def dkv():
+            rc = kern.lib.ircl_flash_attention_bwd_dkv(
+                *inputs, dk.data_ptr(), dv.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            kern.check(rc, "flash-attention dK/dV launch")
+
+        def dq_call():
+            rc = kern.lib.ircl_flash_attention_bwd_dq(
+                *inputs, dq.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            kern.check(rc, "flash-attention dQ launch")
+
+        return dkv, dq_call, (dq, dk, dv)
+
+    p_dkv, p_dq, p_out = direct(parent)
+    t_dkv, t_dq, t_out = direct(this)
+    for fn in (p_dkv, p_dq, t_dkv, t_dq):
+        fn()
+    torch.cuda.synchronize()
+    apart = {name: float((a - b).abs().max())
+             for name, a, b in zip(("dq", "dk", "dv"), p_out, t_out)}
+    return {"shape": [B, 12, L, 64], "real_lengths": list(PHASE13_LENGTHS),
+            "max_abs_difference_parent_this": apart,
+            "dkv_ms_in_turns": _in_turns(p_dkv, t_dkv),
+            "dq_ms_in_turns": _in_turns(p_dq, t_dq)}
 
 
 def main() -> None:
@@ -211,12 +269,15 @@ def main() -> None:
         print(json.dumps(report["paths"][-1], indent=1), flush=True)
         torch.cuda.empty_cache()
     if args.parent_root:
-        report["flash_forward_in_turns"] = forward_in_turns(args.parent_root, dev)
+        parent, this = _load_other(args.parent_root), load_kernels()
+        report["flash_forward_in_turns"] = forward_in_turns(parent, this, dev)
+        report["flash_backward_in_turns"] = backward_in_turns(parent, this, dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps(report.get("flash_forward_in_turns"), indent=1))
+    for part in ("flash_forward_in_turns", "flash_backward_in_turns"):
+        print(json.dumps(report.get(part), indent=1))
 
 
 if __name__ == "__main__":
