@@ -17,9 +17,11 @@ Phases, each printed as it runs:
 4. the served path, ELL (20K docs, ``mode="auto"``), checked the same way;
 5. the judged ranker (``bench.py``'s settings) on all 4096 claims, held to
    the bench's full-batch scipy gate, then q/s and a per-stage split;
-6. the dense chunk-max kernel (``cosine_topk_fused``'s phase 1) against its
-   plain version at ``bench_dense.py``'s shape and on a small ragged shape,
-   for fold/high3, loop/highest and a bf16 corpus with slack chunks;
+6. the dense chunk-max kernels (``cosine_topk_fused``'s phase 1; the bf16
+   tensor-core kernel and the SIMT kernel, as ``chunk_max_route`` routes a
+   call) against their plain version at ``bench_dense.py``'s shape and on a
+   small ragged shape, for fold/high3, loop/high3, loop/highest and a bf16
+   corpus with slack chunks, each route launched;
 7. ``bench_dense.py``'s configuration on the port (1M x 128 corpus, 1024
    queries, top-5): the fused, two-phase and scan engines, the fused one
    held to the bench's full-batch numpy gate, then q/s;
@@ -30,9 +32,11 @@ Phases, each printed as it runs:
 9. served sentence search over those docs (``make_service`` with a
    precomputed sentence table, ``serve_stdin``), every reply checked, and
    the dense top-k over the sentence table against numpy;
-10. the flash-attention kernel against its plain version at the verdict
-    model's shape, ``[32, 12, 512, 64]``, with segment ids from tokenized
-    claim/evidence pairs, a batch with no pads and a row of one real token;
+10. the flash-attention kernel against its plain version (in full fp32, and
+    with its products split into TF32 halves as the kernel takes them) at
+    the verdict model's shape, ``[32, 12, 512, 64]``, with segment ids from
+    tokenized claim/evidence pairs, a batch with no pads and a row of one
+    real token;
 11. the verdict classifier at roberta-base width (12 layers, 768 wide,
     50,265-word embedding table, one token type, L=512, flash attention),
     random weights from a seed: the card against the CPU, flash against the
@@ -112,7 +116,8 @@ DEVICE = "cuda"
 DENSE_M, DENSE_D, DENSE_B = 1_000_000, 128, 1024
 DENSE_TILE, DENSE_CHUNK = 8192, 32
 DENSE_SCAN_BLOCK = 200_000  # divides M; the scan engine's corpus rows per step
-CMAX_ATOL = 1e-6  # chunk maxima: unit cosines, fp32 summation order only
+CMAX_ATOL = 1e-6  # chunk maxima: unit cosines; bf16 products are exact in fp32,
+# so only the order of the fp32 sums differs (the tensor cores' or the lanes')
 # the encoder phases
 ENC_DOCS = 5_000
 ENC_BATCH = 256
@@ -126,7 +131,8 @@ VERDICT_ENCODER = dict(  # bench_verdict.py:83-97, f32, flash attention
     attention="flash",
 )
 VERDICT_PAIRS = 1024  # pairs through classify for pairs/s
-FLASH_ATOL = 1e-5  # kernel against plain version: fp32 summation order only
+FLASH_ATOL = 1e-5  # kernel against plain version: split-TF32 products (hi.hi +
+# (lo.hi + hi.lo), lo.lo left out: 2^-22 of a product) and the fp32 summation order
 VERDICT_DEVICE_ATOL = 1e-4  # logits, card against CPU and flash against xla
 # the training phases: bench_verdict.py's train batch, a short warmup
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_LR, TRAIN_TIMED_STEPS = 8, 3, 1e-5, 20
@@ -276,7 +282,7 @@ def phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results):
     import torch
 
     from ircl_tpu_torch.ops.dense_topk_cuda import (
-        chunk_max, chunk_max_ref, pad_corpus_t, select_rescore,
+        _mode, chunk_max, chunk_max_ref, chunk_max_route, pad_corpus_t, select_rescore,
     )
 
     rng = np.random.default_rng(6)
@@ -290,14 +296,22 @@ def phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results):
     }
     configs = [  # (label, precision, epilogue, extra_chunks, bf16 corpus)
         ("fold/high3", "high3", "fold", 0, False),
+        ("loop/high3", "high3", "loop", 0, False),
         ("loop/highest", "highest", "loop", 0, False),
         ("bf16 corpus/extra 2", "default", "fold", 2, True),
     ]
+    routes = {"mma": 0, "simt": 0}
     for shape, (q, ct, rows, m, tile) in shapes.items():
         for label, prec, epi, extra, bf16 in configs:
             c = ct.to(torch.bfloat16) if bf16 else ct
             args = (q, c, DENSE_CHUNK, tile, m, prec, epi)
+            route = chunk_max_route(_mode(prec, c.dtype), q.shape[1], DENSE_CHUNK, tile,
+                                    epi)
+            before = chunk_max.launches_by_route[route]
             got = chunk_max(*args)
+            if chunk_max.launches_by_route[route] != before + 1:
+                fail(f"phase 6: {shape} {label} did not launch the {route} kernel")
+            routes[route] += 1
             ref = chunk_max_ref(*args)
             torch.cuda.synchronize()
             fin = torch.isfinite(ref)
@@ -315,7 +329,7 @@ def phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results):
             t_k = cuda_ms(lambda: chunk_max(*args))
             t_p = cuda_ms(lambda: chunk_max_ref(*args), reps=2)
             log(f"phase 6: {shape} B={q.shape[0]} M_pad={c.shape[1]} "
-                f"(m_real {m}) {label}: chunk maxima within {err:.3g} "
+                f"(m_real {m}) {label}, {route} kernel: chunk maxima within {err:.3g} "
                 f"(bound {CMAX_ATOL}), top-{K} equal ({int((i1 != i2).sum())} ids "
                 f"differ, all at ties); kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
             if shape == "bench" and label == "fold/high3":
@@ -326,7 +340,14 @@ def phase6_dense_kernel(dev, q_d, ct_d, rows_d, m_real, results):
                     **least_time((q, c, got), 3 * 2 * q.shape[0] * q.shape[1] * m,
                                  BF16_FLOPS),
                 )
+            if shape == "bench" and label == "loop/highest":
+                results["cosine_topk_fused"]["simt_loop_highest_ms"] = t_k
+            results["cosine_topk_fused"]["max_abs_err"] = max(
+                results["cosine_topk_fused"]["max_abs_err"], err)
             del got, ref
+    if not all(routes.values()):
+        fail(f"phase 6: a route of the chunk-max kernels was not exercised: {routes}")
+    log(f"phase 6: calls by route {routes}")
 
 
 def timed_qps(fn, batch, reps=10):
@@ -619,13 +640,13 @@ def verdict_pairs(wiki, doc_ids, claims, n):
 
 
 def phase10_flash_kernel(dev, tok, pairs, results):
-    """Kernel #6a against its plain version at [32, 12, 512, 64]: segment
-    ids of 32 tokenized pairs (one row cut to a single real token), then of
-    a batch with no pads."""
+    """Kernel #6a against its plain version at [32, 12, 512, 64], in full
+    fp32 and with split-TF32 products: segment ids of 32 tokenized pairs
+    (one row cut to a single real token), then of a batch with no pads."""
     import torch
 
     from ircl_tpu_torch.ops.flash_attention_cuda import (
-        SegmentIds, flash_attention, flash_attention_ref,
+        SegmentIds, flash_attention, flash_attention_fwd_ref, flash_attention_ref,
     )
 
     B = VERDICT_BATCH
@@ -649,16 +670,20 @@ def phase10_flash_kernel(dev, tok, pairs, results):
         ids = SegmentIds(q=s, kv=s)
         got = flash_attention(q, k, v, segment_ids=ids, sm_scale=scale)
         ref = flash_attention_ref(q, k, v, ids, scale)
+        split = flash_attention_fwd_ref(q, k, v, ids, scale, products="tf32x3")[0]
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"phase 10: {label}: the kernel wrote non-finite values")
         err = float((got - ref).abs().max())
-        if err > FLASH_ATOL:
-            fail(f"phase 10: {label}: kernel and plain version differ by {err}")
+        err3 = float((got - split).abs().max())
+        if max(err, err3) > FLASH_ATOL:
+            fail(f"phase 10: {label}: the kernel differs from the plain version by {err}, "
+                 f"from the plain version with split TF32 products by {err3}")
         err_all = max(err_all, err)
-        log(f"phase 10: {label}: every row within {err:.3g} of the plain version "
-            f"(bound {FLASH_ATOL})")
-        del got, ref
+        log(f"phase 10: {label}: every row within {err:.3g} of the plain version, "
+            f"{err3:.3g} of the plain version with split TF32 products (bound "
+            f"{FLASH_ATOL})")
+        del got, ref, split
     ids = SegmentIds(q=cases["tokenized pairs"], kv=cases["tokenized pairs"])
     t_k = cuda_ms(lambda: flash_attention(q, k, v, segment_ids=ids, sm_scale=scale),
                   reps=10)
@@ -669,16 +694,23 @@ def phase10_flash_kernel(dev, tok, pairs, results):
         q, k, v, segment_ids=ids, sm_scale=scale)).abs().max())
     if e_lib > 1e-4:
         fail(f"phase 10: the library yardstick computes another function ({e_lib})")
+    # two products, three TF32 passes each, on the tensor cores; the bound of
+    # the same products as f32 FMAs beside it
+    tensors = (q, k, v, s, s, q)
     results["flash_attention"] = dict(
         max_abs_err=err_all, ms=t_k, plain_ms=t_p, library_ms=t_lib,
-        **attention_bounds(s, H, hd, 2, (q, k, v, s, s, q)))
+        **attention_bounds(s, H, hd, 2, tensors, TF32_FLOPS, passes=3),
+        bound_f32_fma_ms=attention_bounds(s, H, hd, 2, tensors)["bound_ms"])
+    every_pair = 3 * 2 * 2 * hd * B * H * VERDICT_L ** 2
     log(f"phase 10: q, k, v [{B}, {H}, {VERDICT_L}, {hd}] f32, real lengths "
         f"{int(lengths.min())}-{int(lengths.max())} (median "
         f"{int(np.median(lengths))}): kernel {t_k:.3f} ms (bound "
-        f"{results['flash_attention']['bound_ms']:.3f} ms for the pairs these masks "
-        f"leave, {least_time((), 2 * 2 * hd * B * H * VERDICT_L ** 2, F32_FLOPS)['bound_ms']:.3f}"
-        f" ms for all), plain {t_p:.3f} ms, scaled_dot_product_attention (f32, "
-        f"boolean mask, within {e_lib:.3g}) {t_lib:.3f} ms")
+        f"{results['flash_attention']['bound_ms']:.3f} ms at three TF32 passes a "
+        f"product for the pairs these masks leave, "
+        f"{least_time((), every_pair, TF32_FLOPS)['bound_ms']:.3f} ms for all, "
+        f"{results['flash_attention']['bound_f32_fma_ms']:.3f} ms for f32 FMAs), "
+        f"plain {t_p:.3f} ms, scaled_dot_product_attention (f32, boolean mask, "
+        f"within {e_lib:.3g}) {t_lib:.3f} ms")
 
 
 def phase11_verdict(dev, tok, pairs):
@@ -1461,6 +1493,7 @@ def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense
     del got, ref, same
 
     chunk_max_presplit.launches = 0
+    chunk_max_presplit.launches_by_route = {"mma": 0, "simt": 0}
     fn = lambda: cosine_topk_fused_presplit(  # noqa: E731
         q_d, ct_hi, ct_lo, rows_d, k=K, chunk=DENSE_CHUNK, m_tile=DENSE_TILE,
         m_real=m_real, epilogue="fold")
@@ -1473,9 +1506,12 @@ def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense
              f"{bad_s} queries")
     qps = timed_qps(fn, DENSE_B, reps=5)
     launches["chunk_max_presplit"] = chunk_max_presplit.launches
+    results["chunk_max_presplit"]["launches_by_route"] = dict(
+        chunk_max_presplit.launches_by_route)
     log(f"phase 16: cosine_topk_fused_presplit: full-batch score parity "
         f"{DENSE_B - bad_s}/{DENSE_B} (rtol 1e-5; id-set tie swaps {bad_i}); "
-        f"{qps:.1f} q/s; {launches['chunk_max_presplit']} launches")
+        f"{qps:.1f} q/s; {launches['chunk_max_presplit']} launches, by route "
+        f"{chunk_max_presplit.launches_by_route}")
 
 
 def phase17_scale(dev):
@@ -2143,6 +2179,7 @@ def main() -> None:
     kernels["cosine_topk_fused"] = chunk_max  # launches kernel #4
     for fn in kernels.values():
         fn.launches = 0
+    chunk_max.launches_by_route = {"mma": 0, "simt": 0}
 
     # ---- phase 7: bench_dense.py's configuration ---------------------------
     t_phase = time.perf_counter()
@@ -2167,7 +2204,11 @@ def main() -> None:
     if chunk_max.launches == 0:
         fail("cosine_topk_fused was not launched on the dense path")
     launches["cosine_topk_fused"] = chunk_max.launches
-    log(f"phases 7-9: kernel launches {{'cosine_topk_fused': {chunk_max.launches}}}")
+    dense_routes = dict(chunk_max.launches_by_route)
+    if dense_routes["mma"] == 0:
+        fail("the dense path did not launch the tensor-core chunk-max kernel")
+    log(f"phases 7-9: kernel launches {{'cosine_topk_fused': {chunk_max.launches}}}, "
+        f"by route {dense_routes}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(phases 7-9)")
     del table, enc_params
@@ -2341,6 +2382,8 @@ def main() -> None:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], **results[name],
         ))
+        if name == "cosine_topk_fused":  # the dense path's launches, by kernel
+            report[-1]["launches_by_route"] = dense_routes
         if name == "flash_attention":  # it also runs on the training path
             report[-1]["launches_training_path"] = train_launches[name]
         if name == "membership_slab_windowed":  # and on the scale path

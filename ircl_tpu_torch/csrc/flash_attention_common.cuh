@@ -1,9 +1,10 @@
 // What the flash-attention forward (flash_attention.cu) and backward
-// (flash_attention_bwd.cu) kernels share: the head width, the 128-thread
-// block and the mask value; and what the forward's block is made of: a group
-// of 8 lanes sharing 4 rows of a 64-row tile, the padded shared-memory row,
-// and the cp.async tile copies. (The backward kernels' tiles are split planes
-// in another layout: mma_tf32.cuh.)
+// (flash_attention_bwd.cu) kernels share: the head width, the block of one
+// warpgroup, the mask value, and the walk of every kernel. A block owns 64
+// rows of one sequence (16 a warp) and walks the other in steps of 32 rows;
+// each step's two [32, 64] f32 tiles go from device memory through registers
+// into split TF32 planes (mma_tf32.cuh), and the steps the segment ids empty
+// are marked before the walk and never loaded.
 
 #pragma once
 
@@ -11,50 +12,98 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int kHD = 64;           // head width
-constexpr int kThreads = 128;
-constexpr int kLanesPerRow = 8;   // lanes sharing a group of rows
-constexpr int kPad = 4;           // floats of padding per shared row
-constexpr int kQS = kHD + kPad;   // shared row stride of q, k, v (and do)
+constexpr int kHD = 64;                // head width
+constexpr int kThreads = 128;          // one warpgroup: wgmma's unit
+constexpr int kWarps = kThreads / 32;
 constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e+38);
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
+constexpr int kOwn = 64;               // rows a block owns, 16 a warp
+constexpr int kStep = 32;              // rows of the other sequence a step
+constexpr int kNT = kStep / 8;         // C fragments across a step's rows
+constexpr int kVecs = kHD / 4;         // 16-byte pieces of a row
+constexpr int kOwnPlane = kOwn * kHD;    // words of a [64 x 64] plane
+constexpr int kStepPlane = kStep * kHD;  // and of a [32 x 64] plane
+// Descriptor units from a hi plane to its lo plane.
+constexpr uint64_t kOwnLo = kOwnPlane * sizeof(float) / 16;
+constexpr uint64_t kStepLo = kStepPlane * sizeof(float) / 16;
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
+// ROWS rows of two [n_rows, 64] f32 matrices, on their way from device memory
+// to split planes: this thread's 16-byte pieces (16 lanes a row, 8 rows a
+// pass of the block), held in registers in between. The pointers given to
+// fetch and store are the thread's own: its piece of the first row, and
+// where that piece goes in a plane (Tiles::first_piece).
+template <int ROWS>
+struct Tiles {
+  static constexpr int kPieces = ROWS * kVecs / kThreads;
+  static constexpr int kRowsAPass = kThreads / kVecs;
+  float4 a[kPieces], b[kPieces];
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+  __device__ __forceinline__ static int first_word(int tid) {
+    return (tid / kVecs) * kHD + 4 * (tid % kVecs);
+  }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+  // 8 rows further the piece lies 8 * 32 words further: the swizzle reads
+  // the row's last three bits only.
+  __device__ __forceinline__ static int first_piece(int tid) {
+    return swizzled_piece(ROWS, tid / kVecs, tid % kVecs);
+  }
 
-// Rows [row0, row0 + 64) of a [n_rows, 64] f32 matrix into a shared tile of
-// row stride kQS, 16 bytes a copy; rows past n_rows read zero.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int64_t row0, int64_t n_rows, int tid) {
-  constexpr int kVecs = kHD / 4;
-  for (int idx = tid; idx < 64 * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = 4 * (idx % kVecs);
-    float* d = dst + r * kQS + c;
-    if (row0 + r < n_rows) {
-      cp_async16(d, src + (row0 + r) * kHD + c);
-    } else {
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __device__ __forceinline__ void fetch(const float* pa, const float* pb) {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(pa + i * kRowsAPass * kHD);
+      b[i] = *reinterpret_cast<const float4*>(pb + i * kRowsAPass * kHD);
     }
   }
+
+  // planes: a hi, a lo, b hi, b lo, ROWS * 64 words each.
+  __device__ __forceinline__ void store(uint32_t* planes) const {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      uint32_t* at = planes + i * kRowsAPass * 32;
+      store_split4(at, at + ROWS * kHD, a[i]);
+      store_split4(at + 2 * ROWS * kHD, at + 3 * ROWS * kHD, b[i]);
+    }
+  }
+};
+
+// a query row whose largest score is under this has no key of its segment
+constexpr float kNoKeyBelow = 0.5f * kMaskValue;
+
+// live[s] for every step s of the other sequence: whether one of its rows
+// shares a segment with one of the block's own rows, or `always`. A warp
+// takes every fourth step, a lane its rows. `lonely` is what makes a row of
+// the other sequence keep its step alive whatever the ids (dK/dV: the m of a
+// query with no key), or null.
+__device__ __forceinline__ void mark_live_steps(unsigned char* live, int n_steps,
+                                                const int32_t* other_seg,
+                                                const float* lonely,
+                                                const int32_t* own_seg, bool always,
+                                                int warp, int lane) {
+  for (int s = warp; s < n_steps; s += kWarps) {
+    bool any = always;
+    for (int r = lane; r < kStep; r += 32) {
+      const int64_t at = static_cast<int64_t>(s) * kStep + r;
+      const int32_t id = other_seg[at];
+      if (lonely != nullptr) any |= lonely[at] < kNoKeyBelow;
+#pragma unroll 8
+      for (int j = 0; j < kOwn; ++j) any |= id == own_seg[j];
+    }
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) live[s] = any ? 1 : 0;
+  }
+}
+
+__device__ __forceinline__ int next_live(const unsigned char* live, bool masked, int s,
+                                         int n_steps) {
+  if (masked) {
+    while (s < n_steps && live[s] == 0) ++s;
+  }
+  return s;
 }
 
 }  // namespace

@@ -15,9 +15,13 @@ Selection is as good as phase 1's dot; the returned scores are phase 2's
 fp32 rescore.
 
 ``chunk_max`` is phase 1 and ``select_rescore`` phase 2. On CUDA tensors
-``chunk_max`` launches ``csrc/dense_cmax.cu`` (see the note there); on CPU
-tensors it runs ``chunk_max_ref``, the same products as PyTorch matrix
-products with TF32 off, in corpus blocks. Precisions, as on the TPU:
+``chunk_max`` launches one of the two kernels of ``csrc/dense_cmax.cu`` (see
+the note there), as ``chunk_max_route`` rules: the bf16 tensor-core kernel
+("mma") for the precisions whose products are bf16 values, at the shapes it
+takes, and the SIMT kernel ("simt") for ``"highest"`` and every other
+shape. On CPU tensors it runs ``chunk_max_ref``, the same products as
+PyTorch matrix products with TF32 off, in corpus blocks. Precisions, as on
+the TPU:
 
 - ``"highest"``: fp32.
 - ``"high3"`` (the default): bf16_3x by hand, ``hi.hi + (lo.hi + hi.lo)``
@@ -27,17 +31,18 @@ products with TF32 off, in corpus blocks. Precisions, as on the TPU:
 - a bf16 ``corpus_t``: the bf16 1-pass dot whatever ``precision`` says, so
   ``"high3"``/``"highest"`` then need ``extra_chunks`` slack.
 
-A bf16 product is exact in fp32, so kernel and plain version agree up to
-the fp32 summation order. Phase 2 is plain PyTorch (XLA in the reference),
-its rescore in full fp32.
+A bf16 product is exact in fp32, so either kernel and the plain version
+agree up to the fp32 summation order. ``chunk_max.launches`` counts every
+launch and ``chunk_max.launches_by_route`` each route's. Phase 2 is plain
+PyTorch (XLA in the reference), its rescore in full fp32.
 
 ``chunk_max_presplit`` and ``cosine_topk_fused_presplit`` are the
 counterpart of ``scripts/probe_dense_presplit.py`` (``make_presplit_topk``):
 the corpus is split once, when it is built, into two bf16 arrays
 (``split_hi_lo``), so a call reads the same bytes and splits only the
-queries. The dots and their grouping are "high3"'s; on the halves of an f32
-corpus the chunk maxima equal ``chunk_max(precision="high3")``'s bit for
-bit.
+queries. The dots and their grouping are "high3"'s, and the route the same
+as "high3"'s: on the halves of an f32 corpus the chunk maxima equal
+``chunk_max(precision="high3")``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -48,12 +53,13 @@ import torch
 from ircl_tpu_torch.utils.precision import float32_precision
 
 _PRECISIONS = (None, "default", "high", "highest", "high3")
-_KERNEL_CHUNKS_PER_BLOCK = 128  # threads per block in dense_cmax.cu
+_KERNEL_CHUNKS_PER_BLOCK = 128  # threads per block of dense_cmax.cu's SIMT kernel
 _REF_BLOCK_COLS = 1 << 16  # corpus columns per plain-version step
 
 
 def _mode(precision, corpus_dtype) -> int:
-    """The kernel's dot: 0 fp32, 1 bf16_3x, 2 bf16 1-pass, 3 bf16 corpus."""
+    """The kernel's dot: 0 fp32, 1 bf16_3x, 2 bf16 1-pass, 3 bf16 corpus (and
+    4, the pre-split corpus of ``chunk_max_presplit``)."""
     if corpus_dtype == torch.bfloat16:
         return 3
     if precision == "highest":
@@ -61,6 +67,75 @@ def _mode(precision, corpus_dtype) -> int:
     if precision == "high3":
         return 1
     return 2
+
+
+_MMA_MAX_D = 128  # the tensor-core kernel's widest query (csrc/dense_cmax.cu)
+_MMA_COLUMNS = 64  # its corpus columns a block tile
+_MMA_LOOP_SPAN = 32  # and the tiles a block walks under "loop"
+
+
+def chunk_max_route(mode: int, D: int, chunk: int, m_tile: int, epilogue: str) -> str:
+    """Which kernel of ``csrc/dense_cmax.cu`` takes a call: ``"mma"`` (bf16
+    tensor cores) or ``"simt"``. The tensor cores take the modes whose
+    products are bf16 values (1-4; mode 0 is fp32), when D is a multiple of
+    16 up to ``_MMA_MAX_D`` (the queries and a corpus tile sit in shared
+    memory) and when a block's 64 columns fit the partition: under "fold"
+    ``m_tile // chunk`` is a multiple of 64 (64 chunks a block), under
+    "loop" a chunk of 8, 16 or 32 columns lies in one warp's 32 and
+    ``m_tile`` is a multiple of 64. The kernel's own check
+    (``mma_takes``) is the same rule."""
+    if mode == 0 or D % 16 or not 16 <= D <= _MMA_MAX_D:
+        return "simt"
+    if epilogue == "fold":
+        return "mma" if (m_tile // chunk) % _MMA_COLUMNS == 0 else "simt"
+    return "mma" if chunk in (8, 16, 32) and m_tile % _MMA_COLUMNS == 0 else "simt"
+
+
+def _launch_chunk_max(fn, queries, corpus_t, corpus_lo, chunk, m_tile, m_real, mode,
+                      epilogue):
+    """Launch the routed kernel on CUDA tensors: ``[B, M_pad / chunk]`` f32;
+    counts the launch on ``fn`` and on its route."""
+    from ircl_tpu_torch.utils.kernel_build import load_kernels
+
+    tensors = (queries, corpus_t) + (() if corpus_lo is None else (corpus_lo,))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("queries and the corpus must be contiguous")
+    B, D = queries.shape
+    m = corpus_t.shape[1]
+    nc = m // chunk
+    route = chunk_max_route(mode, D, chunk, m_tile, epilogue)
+    if route == "simt":
+        blocks = -(-nc // _KERNEL_CHUNKS_PER_BLOCK)
+    elif epilogue == "fold":
+        blocks = m // chunk // _MMA_COLUMNS
+    else:
+        blocks = -(-m // (_MMA_COLUMNS * _MMA_LOOP_SPAN))
+    if blocks > 65535:
+        raise ValueError(f"{nc} chunks exceed the {route} kernel's grid (65535 blocks)")
+    if route == "mma" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("queries and the corpus must be 16-byte aligned")
+    kern = load_kernels()
+    out = torch.empty((B, nc), dtype=torch.float32, device=queries.device)
+    fold = int(epilogue == "fold")
+    lo = 0 if corpus_lo is None else corpus_lo.data_ptr()
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "mma":
+            rc = kern.lib.ircl_dense_cmax_mma(
+                queries.data_ptr(), B, D, corpus_t.data_ptr(), lo, m, chunk, m_tile,
+                m_real, mode, fold, out.data_ptr(), stream)
+        elif corpus_lo is None:
+            rc = kern.lib.ircl_dense_cmax(
+                queries.data_ptr(), B, D, corpus_t.data_ptr(), m, chunk, m_tile,
+                m_real, mode, fold, out.data_ptr(), stream)
+        else:
+            rc = kern.lib.ircl_dense_cmax_presplit(
+                queries.data_ptr(), B, D, corpus_t.data_ptr(), lo, m, chunk, m_tile,
+                m_real, fold, out.data_ptr(), stream)
+    kern.check(rc, f"dense chunk-max launch ({route})")
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+    return out
 
 
 def _check_chunk_args(queries, corpus_t, chunk, m_tile, m_real, precision,
@@ -186,8 +261,9 @@ def chunk_max(
     epilogue: str = "loop",
 ) -> torch.Tensor:
     """Phase 1 of ``cosine_topk_fused``: chunk maxima ``[B, M_pad / chunk]``
-    f32, pad columns at -inf. CUDA tensors launch ``csrc/dense_cmax.cu``;
-    CPU tensors run ``chunk_max_ref``."""
+    f32, pad columns at -inf. CUDA tensors launch the kernel of
+    ``csrc/dense_cmax.cu`` that ``chunk_max_route`` names; CPU tensors run
+    ``chunk_max_ref``."""
     m_real = _check_chunk_args(
         queries, corpus_t, chunk, m_tile, m_real, precision, epilogue
     )
@@ -197,30 +273,12 @@ def chunk_max(
         )
     if queries.device.type != "cuda":
         raise ValueError(f"no chunk-max kernel for device {queries.device}")
-    from ircl_tpu_torch.utils.kernel_build import load_kernels
-
-    if not (queries.is_contiguous() and corpus_t.is_contiguous()):
-        raise ValueError("queries and corpus_t must be contiguous")
-    B, D = queries.shape
-    m = corpus_t.shape[1]
-    nc = m // chunk
-    n_spans = -(-nc // _KERNEL_CHUNKS_PER_BLOCK)
-    if n_spans > 65535:
-        raise ValueError(f"{nc} chunks exceed the kernel's grid (65535 x 128)")
-    kern = load_kernels()
-    out = torch.empty((B, nc), dtype=torch.float32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        rc = kern.lib.ircl_dense_cmax(
-            queries.data_ptr(), B, D, corpus_t.data_ptr(), m, chunk, m_tile,
-            m_real, _mode(precision, corpus_t.dtype), int(epilogue == "fold"),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    kern.check(rc, "dense chunk-max launch")
-    chunk_max.launches += 1
-    return out
+    return _launch_chunk_max(chunk_max, queries, corpus_t, None, chunk, m_tile, m_real,
+                             _mode(precision, corpus_t.dtype), epilogue)
 
 
 chunk_max.launches = 0
+chunk_max.launches_by_route = {"mma": 0, "simt": 0}
 
 
 def _check_presplit_args(queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue) -> int:
@@ -272,7 +330,8 @@ def chunk_max_presplit(
 ) -> torch.Tensor:
     """Phase 1 over a pre-split corpus: chunk maxima ``[B, M_pad / chunk]``
     f32, pad columns at -inf. CUDA tensors launch ``csrc/dense_cmax.cu``'s
-    pre-split mode; CPU tensors run ``chunk_max_presplit_ref``."""
+    pre-split mode (mode 4) on the route ``chunk_max_route`` names; CPU
+    tensors run ``chunk_max_presplit_ref``."""
     m_real = _check_presplit_args(queries, ct_hi, ct_lo, chunk, m_tile, m_real, epilogue)
     if queries.device.type == "cpu":
         return chunk_max_presplit_ref(
@@ -280,29 +339,12 @@ def chunk_max_presplit(
         )
     if queries.device.type != "cuda":
         raise ValueError(f"no chunk-max kernel for device {queries.device}")
-    from ircl_tpu_torch.utils.kernel_build import load_kernels
-
-    if not (queries.is_contiguous() and ct_hi.is_contiguous() and ct_lo.is_contiguous()):
-        raise ValueError("queries, ct_hi and ct_lo must be contiguous")
-    B, D = queries.shape
-    m = ct_hi.shape[1]
-    nc = m // chunk
-    if -(-nc // _KERNEL_CHUNKS_PER_BLOCK) > 65535:
-        raise ValueError(f"{nc} chunks exceed the kernel's grid (65535 x 128)")
-    kern = load_kernels()
-    out = torch.empty((B, nc), dtype=torch.float32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        rc = kern.lib.ircl_dense_cmax_presplit(
-            queries.data_ptr(), B, D, ct_hi.data_ptr(), ct_lo.data_ptr(), m, chunk,
-            m_tile, m_real, int(epilogue == "fold"), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kern.check(rc, "pre-split dense chunk-max launch")
-    chunk_max_presplit.launches += 1
-    return out
+    return _launch_chunk_max(chunk_max_presplit, queries, ct_hi, ct_lo, chunk, m_tile,
+                             m_real, 4, epilogue)
 
 
 chunk_max_presplit.launches = 0
+chunk_max_presplit.launches_by_route = {"mma": 0, "simt": 0}
 
 
 def cosine_topk_fused_presplit(

@@ -19,7 +19,12 @@ library refuses, in its words: sequence lengths under 128, and a key length
 that is not a multiple of 128. On CUDA tensors it launches
 ``csrc/flash_attention.cu`` (see the note there), which takes 64-wide
 heads only and raises for others; on CPU tensors it runs
-``flash_attention_ref``, the whole softmax in full fp32, at any width.
+``flash_attention_ref``, the whole softmax in full fp32, at any width. The
+kernel takes both matrix products on the tensor cores, every f32 operand
+split into two TF32 values (``utils/precision.py::split_tf32``) and a
+product taken as three: ``s = q k^T`` on ``wgmma``, ``o += p v`` on
+``mma.sync``; ``flash_attention_fwd_ref(..., products="tf32x3")`` is that
+arithmetic in plain PyTorch.
 
 It is differentiable. Where autograd is on and q, k or v asks for a
 gradient, the call goes through a ``torch.autograd.Function``, as the
@@ -29,11 +34,10 @@ of ``exp(s - m)``, ``[B, H, Lq]`` f32 each) and saves q, k, v, the segment
 ids, o, l and m; the backward recomputes the probabilities from them and
 launches ``csrc/flash_attention_bwd.cu``'s two kernels, one for dk and dv
 and one for dq (both sequence lengths multiples of 128), or on CPU tensors
-runs ``flash_attention_bwd_ref``. The kernels take their matrix products on
-the tensor cores, every f32 operand split into two TF32 values
-(``utils/precision.py::split_tf32``) and a product taken as three;
-``flash_attention_bwd_ref(..., products="tf32x3")`` is that arithmetic in
-plain PyTorch, for tests and for ``chip_smoke.py``, on no path of the port. ``flash_attention.launches``,
+runs ``flash_attention_bwd_ref``. The backward kernels take their products
+the same way; ``flash_attention_bwd_ref(..., products="tf32x3")`` is their
+arithmetic in plain PyTorch. Both ``products="tf32x3"`` versions serve
+tests and ``chip_smoke.py``, on no path of the port. ``flash_attention.launches``,
 ``flash_attention_bwd_dkv.launches`` and ``flash_attention_bwd_dq.launches``
 count the kernel launches. On CUDA tensors every path launches its kernel or
 raises; none gives way to a plain version.
@@ -168,19 +172,34 @@ def flash_attention_fwd_ref(
     v: torch.Tensor,  # [B, H, Lk, hd] f32
     segment_ids: SegmentIds = None,
     sm_scale: float = 1.0,
+    products: str = "f32",
 ):
     """Plain version of the forward: the whole ``[B, H, Lq, Lk]`` softmax,
     matrix products in full fp32 (TF32 off), as the library's
     ``mha_reference`` computes it. Returns ``(o [B, H, Lq, hd],
     SoftmaxStats)``, the statistics as the library's forward returns them
-    under differentiation."""
+    under differentiation.
+
+    ``products="tf32x3"`` takes both matrix products as the kernel takes
+    them on the tensor cores (``matmul_tf32x3``), as
+    ``flash_attention_bwd_ref`` does; the unnormalized probabilities go into
+    ``p @ v`` and the quotient by ``l`` comes after, as in the kernel. For
+    tests and ``chip_smoke.py``, on no path of the port; the default is what
+    the kernel is held to."""
+    if products not in ("f32", "tf32x3"):
+        raise ValueError(f'products must be "f32" or "tf32x3", got {products!r}')
     with float32_precision():
-        logits = _scores(q, k, segment_ids, sm_scale)
+        if products == "f32":
+            logits = _scores(q, k, segment_ids, sm_scale)
+        else:
+            logits = _scores(q, k, segment_ids, sm_scale, matmul_tf32x3)
         m = logits.amax(dim=-1, keepdim=True)
         unnormalized = torch.exp(logits - m)
         l = unnormalized.sum(dim=-1, keepdim=True)  # noqa: E741
-        weights = unnormalized / l
-        return weights @ v, SoftmaxStats(l=l[..., 0], m=m[..., 0])
+        stats = SoftmaxStats(l=l[..., 0], m=m[..., 0])
+        if products == "f32":
+            return (unnormalized / l) @ v, stats
+        return matmul_tf32x3(unnormalized, v) / l, stats
 
 
 def flash_attention_ref(q, k, v, segment_ids: SegmentIds = None, sm_scale=1.0):

@@ -53,6 +53,8 @@ _SIGNATURES = {
                         ctypes.c_int),
     "ircl_dense_cmax_presplit": ([_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
                                  ctypes.c_int),
+    "ircl_dense_cmax_mma": ([_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+                            ctypes.c_int),
     "ircl_fused_hybrid": ([_P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                            _P, _P, _P], ctypes.c_int),
     "ircl_fused_dot_light": ([_P, _P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I,

@@ -1,8 +1,8 @@
 """Build helper for the native C++ host libraries (ctypes-loaded).
 
 Counterpart of ``ircl_tpu/utils/native_build.py``, carried over line for line apart from
-imports: the port keeps its own copy of every module it needs and imports
-nothing of the JAX package.
+imports and the atomic write below: the port keeps its own copy of every
+module it needs and imports nothing of the JAX package.
 
 Compiles each source in ``native/src/`` into its shared object with g++ if
 the .so is missing or stale:
@@ -14,12 +14,20 @@ the .so is missing or stale:
 
 Build is best-effort: every caller has a pure-Python fallback, so failure
 here degrades performance only.
+
+Unlike the original, g++ writes into a temporary file beside the library,
+which is then renamed onto it (``os.replace``, atomic within a directory):
+processes that build and load at the same time, as a test run's workers do
+on a fresh checkout, never open a half-written library. The original lets
+g++ write the final path, and a loader that opens it mid-write fails for
+the rest of its process (``corpus/hashing.py::_load_native``).
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
+import threading
 
 _LIBS = {
     "native": ("ircl_native.cpp", "libircl_native.so", []),
@@ -40,6 +48,8 @@ def build_native(force: bool = False, lib: str = "native") -> str | None:
         return None
     if not force and os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
+    # one name per process and thread, in the library's own directory
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
     cmd = [
         "g++",
         "-O3",
@@ -49,14 +59,18 @@ def build_native(force: bool = False, lib: str = "native") -> str | None:
         "-std=c++17",
         *extra,
         "-o",
-        out,
+        tmp,
         src,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
     except Exception:
         return None
-    return out if os.path.exists(out) else None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
 
 
 if __name__ == "__main__":

@@ -419,3 +419,79 @@ def test_presplit_refuses_mismatched_halves(data):
         t_fused.chunk_max_presplit(_t(Q), hi[:, :240].contiguous(),
                                    lo[:, :240].contiguous(), 40, 120, 200)
     assert t_fused.chunk_max_presplit.launches == 0
+
+
+# ---- which kernel of csrc/dense_cmax.cu takes a call --------------------------
+
+@pytest.mark.parametrize("mode,D,chunk,m_tile,epilogue,want", [
+    (1, 128, 32, 8192, "fold", "mma"),   # bench_dense.py's shape, high3
+    (2, 128, 32, 8192, "fold", "mma"),   # its precision=None
+    (3, 128, 32, 8192, "fold", "mma"),   # a bf16 corpus
+    (4, 128, 32, 8192, "fold", "mma"),   # the pre-split corpus
+    (0, 128, 32, 8192, "fold", "simt"),  # "highest": fp32 products
+    (0, 128, 32, 1024, "loop", "simt"),
+    (1, 128, 128, 512, "fold", "simt"),  # the defaults: 4 chunks a tile
+    (1, 128, 16, 1024, "fold", "mma"),   # 64 chunks a tile
+    (1, 128, 32, 1024, "fold", "simt"),  # 32 chunks a tile
+    (1, 32, 32, 1024, "loop", "mma"),
+    (2, 48, 16, 128, "loop", "mma"),
+    (3, 16, 8, 64, "loop", "mma"),
+    (1, 128, 64, 1024, "loop", "simt"),  # a chunk wider than a warp's columns
+    (1, 128, 32, 96, "loop", "simt"),    # m_tile not a multiple of 64
+    (1, 40, 32, 8192, "fold", "simt"),   # D not a multiple of 16
+    (1, 144, 32, 8192, "fold", "simt"),  # D past the shared-memory tile
+    (3, 8, 8, 64, "loop", "simt"),
+])
+def test_chunk_max_route(mode, D, chunk, m_tile, epilogue, want):
+    assert t_fused.chunk_max_route(mode, D, chunk, m_tile, epilogue) == want
+    # the pre-split corpus (mode 4) goes where high3 (mode 1) goes
+    if mode == 1:
+        assert t_fused.chunk_max_route(4, D, chunk, m_tile, epilogue) == want
+
+
+@pytest.mark.parametrize("precision,bf16,mode,route", [
+    (None, False, 2, "mma"),
+    ("default", False, 2, "mma"),
+    ("high3", False, 1, "mma"),
+    ("highest", False, 0, "simt"),
+    ("high3", True, 3, "mma"),
+    ("highest", True, 3, "mma"),  # a bf16 corpus runs the 1-pass dot
+])
+def test_each_precision_takes_its_mode_and_route(precision, bf16, mode, route):
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    got = t_fused._mode(precision, dtype)
+    assert got == mode
+    assert t_fused.chunk_max_route(got, 128, 32, 8192, "fold") == route
+
+
+def test_cpu_tensors_launch_no_route(data):
+    Q, C = data
+    ct, hi, lo, m_real = _presplit(C, 128)
+    before = (t_fused.chunk_max.launches, dict(t_fused.chunk_max.launches_by_route),
+              t_fused.chunk_max_presplit.launches,
+              dict(t_fused.chunk_max_presplit.launches_by_route))
+    t_fused.chunk_max(_t(Q), ct, 16, 128, m_real, "high3", "loop")
+    t_fused.chunk_max_presplit(_t(Q), hi, lo, 16, 128, m_real, "fold")
+    assert before == (t_fused.chunk_max.launches, t_fused.chunk_max.launches_by_route,
+                      t_fused.chunk_max_presplit.launches,
+                      t_fused.chunk_max_presplit.launches_by_route)
+    assert set(before[1]) == {"mma", "simt"}
+
+
+def test_launch_checks_come_before_the_kernels_load():
+    """What the launch refuses before it builds anything: a corpus that is
+    not contiguous, a tensor the tensor-core kernel cannot read 16 bytes at a
+    time, and more chunks than either grid holds."""
+    q = torch.zeros(4, 32)
+    ct = torch.zeros(32, 2048)
+    launch = functools.partial(t_fused._launch_chunk_max, t_fused.chunk_max)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch(q, ct.T.contiguous().T, None, 32, 2048, 2048, 1, "fold")
+    shifted = torch.zeros(32 * 2048 + 1)[1:].view(32, 2048)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        launch(q, shifted, None, 32, 2048, 2048, 1, "fold")
+    wide = torch.empty(32, 65536 * 128 * 8, device="meta")
+    with pytest.raises(ValueError, match="mma kernel's grid"):
+        launch(q.to("meta"), wide, None, 8, 512, wide.shape[1], 1, "fold")
+    with pytest.raises(ValueError, match="simt kernel's grid"):
+        launch(q.to("meta"), wide, None, 8, 512, wide.shape[1], 0, "fold")

@@ -68,6 +68,38 @@ def test_plain_version_matches_the_library_kernel(L, hd, mask):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("L", [128, 256])
+@pytest.mark.parametrize("mask", ["pads_at_end", "no_pads", "one_real"])
+@pytest.mark.parametrize("sm_scale", [64 ** -0.5, SM_SCALE])
+def test_split_tf32_forward_matches_the_library_kernel(L, mask, sm_scale):
+    """The kernel's arithmetic (both products as three TF32 products each,
+    ``products="tf32x3"``) against the library on 64-wide heads, at the
+    scale the transformer passes, ``1 / sqrt(hd)``, and at this file's
+    sharper ``SM_SCALE``. hi + lo keeps 23 of x's 24 bits, so the split is
+    further from the library than full fp32 (measured here: up to 1.1e-6 at
+    the model's scale and 2.9e-6 at 0.25, against 2.1e-6 for fp32), and
+    stays within the same ``ATOL``; the statistics as well (l relative)."""
+    rng = np.random.default_rng(L + 64)
+    q, k, v = (rng.normal(size=(2, 2, L, 64)).astype(np.float32) for _ in range(3))
+    seg = _segments(mask, 2, L)
+    want = _library(q, k, v, seg, causal=False, sm_scale=sm_scale)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    seg_t = fa.SegmentIds(q=torch.from_numpy(seg), kv=torch.from_numpy(seg))
+    got, stats = fa.flash_attention_fwd_ref(*t, seg_t, sm_scale, products="tf32x3")
+    exact, exact_stats = fa.flash_attention_fwd_ref(*t, seg_t, sm_scale)
+    assert got.dtype == torch.float32 and got.shape == (2, 2, L, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    assert not torch.equal(got, exact)  # another arithmetic, not a no-op
+    np.testing.assert_allclose(stats.m.numpy(), exact_stats.m.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(stats.l.numpy(), exact_stats.l.numpy(), rtol=ATOL, atol=0)
+
+
+def test_forward_products_argument_is_checked():
+    x = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(ValueError, match="products"):
+        fa.flash_attention_fwd_ref(x, x, x, products="tf32")
+
+
 def test_no_segment_ids_matches_the_library_kernel():
     rng = np.random.default_rng(3)
     q, k, v = (rng.normal(size=(1, 3, 128, 32)).astype(np.float32) for _ in range(3))

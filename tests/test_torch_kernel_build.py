@@ -62,7 +62,7 @@ def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
     assert names == ["flash_attention_common.cuh", "mma_tf32.cuh", "topk_columns.cuh"]
     users = {
         "flash_attention_common.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
-        "mma_tf32.cuh": ["flash_attention_bwd.cu"],
+        "mma_tf32.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
         "topk_columns.cuh": ["fused_dot_light.cu", "fused_hybrid.cu",
                              "light_add_topk.cu"],
     }
