@@ -11,7 +11,10 @@ Phases, each printed as it runs:
 1. corpus and index, saved with ``CountIndex.save`` (50K docs, and the
    first 20K docs for the ELL engine);
 2. every CUDA kernel against its plain PyTorch version on the card, at the
-   shapes of the main path, with CUDA-event times for both;
+   shapes of the main path, with CUDA-event times for both; the slab
+   kernel also with both width buckets launched into one shared buffer,
+   and on seeded edge cases (runs of equal union slots, repeated terms,
+   terms out of order, a wide union, unaligned column offsets);
 3. the served path, hybrid: ``make_service`` + ``serve_stdin`` over JSONL,
    every reply held against scipy's top-k;
 4. the served path, ELL (20K docs, ``mode="auto"``), checked the same way;
@@ -71,7 +74,8 @@ Phases, each printed as it runs:
 17. sparse retrieval at scale, ``bench_scale.py``'s configuration: a
     synthetic 1M-doc index, 1024 queries of 24 terms, the staged bucketed
     engine, ``select_rescore=16`` and (on 32 queries) the ragged engine, each
-    held to the bench's scipy gate, then q/s, ms by stage and peak memory;
+    held to the bench's scipy gate, then q/s, ms by stage and peak memory,
+    and the slab kernel against its plain version on this index's slabs;
 18. the one-pass fused hybrid kernel against its plain version on both
     buckets of that index, and ``hybrid_topk_onepass`` on phase 17's inputs
     held to the staged engine's top-5 and to the scipy gate, with its ms a
@@ -1362,6 +1366,126 @@ def scale_gate(s, i, cpu_results, n):
     return bad
 
 
+def compare_slabs(phase, name, fn, cases):
+    """Slab kernel ``fn`` against ``membership_slab_ref`` on each case, bit
+    for bit, with CUDA-event times; the kernels line's numbers summed over
+    the cases, and each case's own beside them."""
+    import torch
+
+    from ircl_tpu_torch.ops.membership_cuda import membership_slab_ref
+
+    err, ms, plain_ms, bound_ms, by = 0.0, 0.0, 0.0, 0.0, (0.0, "")
+    per_case = {}
+    for label, args in cases.items():
+        got = fn(*args)
+        ref = membership_slab_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            fail(f"{phase}: {name} ({label}) differs from its plain version")
+        err = max(err, float((got - ref).abs().max()))
+        del ref
+        # every real term: a binary search of the union and one add, integer
+        # and f32 steps at one a lane and cycle; the slab written once
+        steps = int(np.ceil(np.log2(max(args[0].shape[0], 2)))) + 1
+        least = least_time((*args, got), int((args[1] >= 0).sum()) * steps,
+                           F32_FLOPS / 2)
+        del got
+        torch.cuda.empty_cache()
+        bound_ms += least["bound_ms"]
+        by = max(by, (least["bound_ms"], least["bound_by"]))
+        t_k = cuda_ms(lambda: fn(*args))
+        t_p = cuda_ms(lambda: membership_slab_ref(*args), reps=2)
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        per_case[label] = dict(shape=[args[0].shape[0], *args[1].shape], ms=t_k,
+                               plain_ms=t_p, bound_ms=least["bound_ms"])
+        log(f"{phase}: {name} {label}: U={args[0].shape[0]} "
+            f"K={args[1].shape[0]} N={args[1].shape[1]}: equal; "
+            f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {least['bound_ms']:.3f} "
+            f"ms by {least['bound_by']}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by[1], library_ms=None, cases=per_case)
+
+
+def shared_buffer_check(phase, u_pad, ranker):
+    """``_bucketed_membership``: both buckets launched into one [U, Na + Nb]
+    buffer, bit-equal to the two plain slabs side by side; its time beside
+    that of the two slabs alone."""
+    import torch
+
+    from ircl_tpu_torch.ops import hybrid as hy
+    from ircl_tpu_torch.ops.membership_cuda import (
+        membership_slab_ref,
+        membership_slab_windowed,
+    )
+
+    (ta, va), (tb, vb) = ranker._heavy_a, ranker._heavy_b
+    m, _ = hy._bucketed_membership(u_pad, ta, va, tb, vb, ranker.d_tile)
+    ref_a = membership_slab_ref(u_pad, ta, va)
+    same_a = torch.equal(m[:, : ta.shape[1]], ref_a)
+    del ref_a
+    same_b = torch.equal(m[:, ta.shape[1]:], membership_slab_ref(u_pad, tb, vb))
+    torch.cuda.synchronize()
+    if not (same_a and same_b) or m.shape[1] != ta.shape[1] + tb.shape[1]:
+        fail(f"{phase}: the shared bucketed buffer differs from the plain slabs")
+    del m
+    t_shared = cuda_ms(lambda: hy._bucketed_membership(u_pad, ta, va, tb, vb,
+                                                       ranker.d_tile))
+    t_alone = cuda_ms(lambda: (membership_slab_windowed(u_pad, ta, va),
+                               membership_slab_windowed(u_pad, tb, vb)))
+    log(f"{phase}: _bucketed_membership: both buckets in one [{u_pad.shape[0]}, "
+        f"{ta.shape[1] + tb.shape[1]}] buffer, bit-equal to the plain slabs side by "
+        f"side; {t_shared:.3f} ms (two slabs alone {t_alone:.3f} ms)")
+    torch.cuda.empty_cache()
+
+
+def slab_edge_cases(dev):
+    """Both slab entry points on seeded inputs that the judged shapes do not
+    reach, bit for bit against the plain version: a union padded with copies
+    of its last value (a run of 101 equal slots across row chunks) and docs
+    that repeat its terms; terms out of order (``membership_slab`` only); a
+    union past the kernel's shared-memory stage; ragged N into an unaligned
+    column range of a larger buffer; K = 0."""
+    import torch
+
+    from ircl_tpu_torch.ops.membership_cuda import (
+        membership_slab,
+        membership_slab_ref,
+        membership_slab_windowed,
+    )
+
+    rng = np.random.default_rng(2)
+    n_checked = 0
+    for U, K, N, vocab, ascending, col0 in (
+            (200, 30, 900, 220, True, 0), (200, 30, 900, 220, False, 0),
+            (20000, 40, 700, 80000, True, 0), (512, 24, 1001, 2048, False, 3),
+            (300, 17, 1001, 1200, True, 5), (100, 0, 300, 400, True, 0)):
+        u = np.sort(rng.choice(vocab, size=U, replace=False)).astype(np.int32)
+        if vocab < 2 * U:
+            u[U // 2:] = u[U // 2 - 1]
+        t = rng.integers(0, vocab, size=(K, N)).astype(np.int32)
+        t[rng.random((K, N)) < 0.3] = -1
+        if ascending:
+            t = np.sort(np.where(t < 0, np.iinfo(np.int32).max, t), axis=0)
+            t[t == np.iinfo(np.int32).max] = -1
+        v = rng.random((K, N)).astype(np.float32) * (t >= 0)
+        args = [torch.tensor(x, device=dev) for x in (u, t, v)]
+        ref = membership_slab_ref(*args)
+        for fn in ((membership_slab, membership_slab_windowed) if ascending
+                   else (membership_slab,)):
+            out = torch.full((U, N + col0 + 7), 7.0, device=dev)
+            got = fn(*args, out=out, col_offset=col0)
+            ok = (torch.equal(got, ref) and torch.equal(fn(*args), ref)
+                  and bool((out[:, :col0] == 7).all())
+                  and bool((out[:, col0 + N:] == 7).all()))
+            if not ok:
+                fail(f"phase 2: {fn.__name__} differs from its plain version at U={U}, "
+                     f"K={K}, N={N}, ascending {ascending}, col_offset {col0}")
+            n_checked += 1
+    log(f"phase 2: slab edge cases: {n_checked} calls bit-equal to the plain version "
+        f"(copies of the last union value with repeated terms, terms out of order, "
+        f"U=20000, ragged N at unaligned column offsets, K=0)")
+
+
 def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense_ref,
                           results, launches):
     """Kernels #7 and #8 against their plain versions, then each driven
@@ -1514,7 +1638,7 @@ def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense
         f"{chunk_max_presplit.launches_by_route}")
 
 
-def phase17_scale(dev):
+def phase17_scale(dev, results):
     """bench_scale.py's configuration on the port: index, rankers, the scipy
     gate for the staged engine, select_rescore and the ragged engine, q/s,
     ms by stage, peak memory. Returns what phases 18 and 19 reuse."""
@@ -1674,6 +1798,18 @@ def phase17_scale(dev):
         f"{ms[3]:.3f} ms, selection + exact rescore {ms[4]:.3f} ms")
     del m, wt, h_sel
     torch.cuda.empty_cache()
+
+    # kernel #2 at this index's shapes, where 197 of its 206 launches run
+    from ircl_tpu_torch.ops.membership_cuda import membership_slab_windowed
+
+    before = membership_slab_windowed.launches
+    results["membership_slab_windowed"]["scale"] = compare_slabs(
+        "phase 17", "membership_slab_windowed", membership_slab_windowed, {
+            "bucket a": (u_pad, *ranker._heavy_a),
+            "bucket b": (u_pad, *ranker._heavy_b),
+            "query": (u_pad, qb_t, qw_t),
+        })
+    membership_slab_windowed.launches = before  # comparisons are not the path
     return index, qb, qw, cpu_results, ranker, dev_in, (s_st, i_st)
 
 
@@ -1930,32 +2066,10 @@ def main() -> None:
     }
     results = {}
 
-    def compare_slabs(name, fn, cases):
-        err, ms, plain_ms, bound_ms, by = 0.0, 0.0, 0.0, 0.0, (0.0, "")
-        for label, args in cases.items():
-            got = fn(*args)
-            ref = membership_slab_ref(*args)
-            torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                fail(f"{name} ({label}) differs from its plain version")
-            err = max(err, float((got - ref).abs().max()))
-            # every real term: a binary search of the union and one add,
-            # integer and f32 steps at one a lane and cycle
-            steps = int(np.ceil(np.log2(max(args[0].shape[0], 2)))) + 1
-            least = least_time((*args, got), int((args[1] >= 0).sum()) * steps,
-                               F32_FLOPS / 2)
-            bound_ms += least["bound_ms"]
-            by = max(by, (least["bound_ms"], least["bound_by"]))
-            t_k = cuda_ms(lambda: fn(*args))
-            t_p = cuda_ms(lambda: membership_slab_ref(*args), reps=2)
-            ms, plain_ms = ms + t_k, plain_ms + t_p
-            log(f"phase 2: {name} {label}: U={args[0].shape[0]} "
-                f"K={args[1].shape[0]} N={args[1].shape[1]}: equal; "
-                f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=by[1], library_ms=None)
-
-    compare_slabs("membership_slab_windowed", membership_slab_windowed, slab_cases)
+    results["membership_slab_windowed"] = compare_slabs(
+        "phase 2", "membership_slab_windowed", membership_slab_windowed, slab_cases)
+    shared_buffer_check("phase 2", u_pad, ranker)
+    slab_edge_cases(dev)
 
     m, _ = hy._bucketed_membership(u_pad, *ranker._heavy_a, *ranker._heavy_b, 1024)
     wt = hy._query_slab(u_pad, qb_t, qw_t, 256, True)
@@ -2002,7 +2116,8 @@ def main() -> None:
         np.ascontiguousarray(eb.T), np.ascontiguousarray(ew.T), d_tile=128
     )
     eu = put(ell._union_slots(eb, ew, floor=4096))
-    compare_slabs("membership_slab", membership_slab, {
+    results["membership_slab"] = compare_slabs("phase 2", "membership_slab",
+                                               membership_slab, {
         "ELL docs": (eu, ell._ell_terms_t, ell._ell_vals_t),
         "ELL query": (eu, put(eq_t), put(ew_t)),
     })
@@ -2308,7 +2423,8 @@ def main() -> None:
     for fn in kernels.values():
         fn.launches = 0
     t_phase = time.perf_counter()
-    s_index, s_qb, s_qw, cpu_results, s_ranker, s_dev_in, s_staged = phase17_scale(dev)
+    s_index, s_qb, s_qw, cpu_results, s_ranker, s_dev_in, s_staged = phase17_scale(
+        dev, results)
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     phase18_onepass(dev, s_ranker, cpu_results, s_dev_in, s_staged, results)

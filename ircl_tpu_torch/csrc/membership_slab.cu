@@ -8,78 +8,299 @@
 //   M[u, d] = sum_k contrib[k, d] * (terms[k, d] == u_sorted[u])
 //
 // with u_sorted ascending (non-negative ids, sentinel pads at the end) and
-// terms/contrib k-major [K, N] (term -1 and contrib 0 on pads).
+// terms/contrib k-major [K, N] (term -1 and contrib 0 on pads). The slab is
+// written into out[u * ld + col0 + d], so two calls can fill the column
+// ranges of one buffer (the width buckets of the staged engines).
 //
 // Design. The TPU had no fast scatter, so Pallas compared every slab cell
-// with every k (U*N*K compares; the windowed kernel cut k to a value range).
-// Hopper scatters cheaply. One thread owns one column d: it walks k in
-// order, binary-searches terms[k, d] in u_sorted, and adds contrib[k, d]
-// into M[pos, d] on a hit. That is N*K searches of log2(U) steps instead of
-// U*N*K compares. No two threads share a column, so there are no atomics,
-// and each cell sums its terms in the Pallas loop's k order: the slab is
-// bit-identical to the TPU kernel's. The kernel adds, never assigns: query
-// pads are bucket 0 with weight 0 and may land on a real slot 0. Ids below
-// 0 are skipped, and a search that runs off the end of u_sorted never
-// writes, so out-of-range ids cannot write out of bounds.
+// with every k. Here a block owns 128 doc columns, one thread a column, and
+// a range of rows: all U where the doc blocks alone fill the card, else a
+// share of them, so that a narrow batch (the query slab) still has about
+// 2048 blocks. It stages its rows' union slots in shared memory (at most
+// 4096) and walks them in chunks of 64 rows: the [64, 128] tile is zero in
+// shared memory, each thread adds its own doc's hits into its own tile
+// column, and the block streams the tile out in 16-byte stores, one
+// 512-byte row segment a warp. Every slab cell is written once; nothing is
+// zeroed beforehand and nothing is read back. No two threads share a
+// column, so there are no atomics, and each cell sums its terms in k order
+// from 0, the Pallas loop's order: the slab is bit-identical to the
+// compare contract (adding 0 where a term does not match changes no sum,
+// because a sum from +0 is never -0).
 //
-// Bound on this card: memory. The wrapper zeroes M first (U*N*4 bytes: 1.68
-// GB at the 50K-doc bench shape, 0.5 ms at 3.35 TB/s), which outweighs the
-// kernel's own traffic: the k-major reads are coalesced (neighbouring
-// threads read neighbouring columns) and each hit is one scattered 4-byte
-// read-modify-write. The searches read u_sorted (tens of KB) through L1.
+// A doc whose terms ascend with its pads trailing is walked by a cursor
+// that reads each term once, four loads in flight, from the first term at
+// or above the block's first id (a binary search over k), in the chunk
+// whose ids it falls among: it stops at the first term past the chunk's last id and
+// resumes there in the next chunk, so the reads spread over the chunks and
+// overlap the block's stores. It keeps `floor`, the first slot past the
+// last term's: a term below that slot's id is not in the union (one
+// compare), any other is binary-searched from there within the chunk (the
+// first equal slot and the run of equal slots: a union padded with copies
+// of its last value matches every copy, and such a run may span chunks).
+// It stops reading once `floor` passes the block's rows. Equal terms of a
+// doc stand together and hit the same slots, so the cursor sums their
+// values first (from 0, in k order: the bits of the cells' own sums).
+// membership_slab_windowed's inputs ascend by contract and take the cursor
+// outright; membership_slab checks each doc first, and a doc whose terms do
+// not (a query with bucket-0 pads after its terms, or a pad before a term)
+// rescans its terms in every chunk, searching only those inside the chunk's value range. Ids
+// below 0 are skipped, and an id absent from the union has no run, so
+// out-of-range ids never write. Query pads are bucket 0 with weight 0 and
+// add 0 to a real slot 0.
+//
+// Bound on this card: memory. The slab is U*N*4 bytes written once (2.05 GB
+// for both buckets at 1M docs, 0.61 ms at 3.35 TB/s), plus the ELL rows read
+// once (K*N*8 bytes; a block of a split range reads its docs' terms up to
+// its last slot's id again). The searches are shared-memory reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void membership_slab_kernel(const int32_t* __restrict__ u_sorted,
-                                       int64_t U,
-                                       const int32_t* __restrict__ terms,
-                                       const float* __restrict__ contrib,
-                                       int64_t K, int64_t N,
-                                       float* __restrict__ out) {
-  const int64_t d = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (d >= N) return;
-  for (int64_t k = 0; k < K; ++k) {
-    const int32_t t = terms[k * N + d];
-    if (t < 0) continue;  // ELL pad
-    const float c = contrib[k * N + d];
-    int64_t lo = 0, hi = U;  // lower bound of t in u_sorted
+constexpr int kDocs = 128;               // doc columns (threads) a block
+constexpr int kRows = 64;                // slab rows a chunk
+constexpr int64_t kMaxBlockRows = 4096;  // rows a block, staged union slots
+constexpr int64_t kTargetBlocks = 2048;  // split the rows until this many blocks
+constexpr int kQuadsPerRow = kDocs / 4;  // 16-byte stores in a tile row
+
+// A column's terms, read four ahead: the loads of the next three are in
+// flight while the first is searched.
+struct TermStream {
+  const int32_t* p;  // terms + d, one term every N
+  int64_t N, K, k;   // t0 is term k
+  int32_t t0, t1, t2, t3;
+
+  __device__ __forceinline__ int32_t at(int64_t i) const {
+    return i < K ? p[i * N] : -1;
+  }
+  __device__ __forceinline__ void begin(const int32_t* p_, int64_t N_, int64_t K_,
+                                        int64_t k0) {
+    p = p_;
+    N = N_;
+    K = K_;
+    k = k0;
+    t0 = at(k0);
+    t1 = at(k0 + 1);
+    t2 = at(k0 + 2);
+    t3 = at(k0 + 3);
+  }
+  __device__ __forceinline__ bool done() const { return k >= K; }
+  __device__ __forceinline__ void pop() {
+    t0 = t1;
+    t1 = t2;
+    t2 = t3;
+    t3 = at(k + 4);
+    ++k;
+  }
+};
+
+// First slot in [lo, hi) whose id is not below t; u holds slots [r_lo, ...).
+__device__ __forceinline__ int64_t lower_bound(const int32_t* u, int64_t r_lo,
+                                               int64_t lo, int64_t hi, int32_t t) {
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (u[mid - r_lo] < t) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+template <bool kCheckOrder>
+__global__ void __launch_bounds__(kDocs)
+membership_slab_kernel(const int32_t* __restrict__ u_sorted, int64_t U,
+                       const int32_t* __restrict__ terms,
+                       const float* __restrict__ contrib, int64_t K, int64_t N,
+                       float* __restrict__ out, int64_t ld, int64_t col0,
+                       int64_t block_rows, bool aligned) {
+  extern __shared__ float4 smem4[];
+  float* tile = reinterpret_cast<float*>(smem4);  // [kRows][kDocs]
+  int32_t* su = reinterpret_cast<int32_t*>(tile + kRows * kDocs);  // slots R0..R1
+  const int dl = threadIdx.x;
+  const int64_t d0 = static_cast<int64_t>(blockIdx.x) * kDocs;
+  const int64_t d = d0 + dl;
+  const bool live = d < N;
+  const int64_t R0 = static_cast<int64_t>(blockIdx.y) * block_rows;
+  const int64_t R1 = R0 + block_rows < U ? R0 + block_rows : U;
+
+  for (int64_t i = dl; i < R1 - R0; i += kDocs) su[i] = u_sorted[R0 + i];
+  for (int i = dl; i < kRows * kQuadsPerRow; i += kDocs) {
+    smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  bool ascending = live;  // terms ascend, pads trailing
+  if (kCheckOrder && live) {
+    int32_t prev = 0;
+    bool pads = false;
+    for (int64_t k0 = 0; k0 < K && ascending; k0 += 4) {
+      int32_t t[4];  // four loads in flight
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[i] = k0 + i < K ? terms[(k0 + i) * N + d] : -1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (t[i] < 0) {
+          pads = true;
+        } else if (pads || t[i] < prev) {
+          ascending = false;
+        } else {
+          prev = t[i];
+        }
+      }
+    }
+  }
+
+  // The cursor. Slots below `floor` hold ids below every term not yet read;
+  // a pending hit adds p_val to slots [p_lo, p_end). A block whose rows
+  // start past slot 0 finds its doc's first term at or above its first id
+  // by binary search over k.
+  TermStream ts;
+  if (ascending) {
+    int64_t lo = 0, hi = R0 > 0 ? K : 0;
+    const int32_t first = R0 > 0 ? u_sorted[R0] : 0;
     while (lo < hi) {
       const int64_t mid = (lo + hi) >> 1;
-      if (__ldg(u_sorted + mid) < t) {
+      const int32_t t = terms[mid * N + d];
+      if (t >= 0 && t < first) {
         lo = mid + 1;
       } else {
         hi = mid;
       }
     }
-    // Every slot equal to t matches, as in the compare contract.
-    for (int64_t pos = lo; pos < U && __ldg(u_sorted + pos) == t; ++pos) {
-      float* cell = out + pos * N + d;
-      *cell = *cell + c;
-    }
+    ts.begin(terms + d, N, K, lo);
   }
+  int64_t floor = R0, p_lo = 0, p_end = 0;
+  float p_val = 0.f;
+  bool pending = false;
+
+  __syncthreads();  // the union's slots are staged
+  for (int64_t r0 = R0; r0 < R1; r0 += kRows) {
+    const int64_t r1 = r0 + kRows < R1 ? r0 + kRows : R1;
+    float* col = tile + dl;
+    if (ascending) {
+      const int32_t v_hi = su[r1 - 1 - R0];  // the chunk's last id
+      while (true) {
+        if (pending) {
+          const int64_t s_end = p_end < r1 ? p_end : r1;
+          for (int64_t s = p_lo > r0 ? p_lo : r0; s < s_end; ++s) {
+            col[(s - r0) * kDocs] += p_val;
+          }
+          if (p_end > r1) break;  // the run goes on in the next chunk
+          pending = false;
+        }
+        if (floor >= R1 || ts.done()) break;  // no hit left in these rows
+        const int32_t t = ts.t0;
+        if (t > v_hi) break;  // a later chunk's: read it there
+        const int64_t kt = ts.k;
+        ts.pop();
+        // a pad, or below the next slot's id: not in the union
+        if (t < 0 || t < su[floor - R0]) continue;
+        p_lo = lower_bound(su, R0, floor, r1, t);  // t <= v_hi: inside the chunk
+        p_end = p_lo;
+        while (p_end < R1 && su[p_end - R0] == t) ++p_end;
+        floor = p_end;
+        if (p_end == p_lo) continue;  // not in the union
+        // the doc's later copies of t come next (pads aside) and hit the
+        // same run, which may reach into later chunks: sum them here, from 0
+        // in k order, as the cells would
+        p_val = 0.f;
+        p_val += contrib[kt * N + d];
+        while (!ts.done() && (ts.t0 < 0 || ts.t0 == t)) {
+          if (ts.t0 == t) p_val += contrib[ts.k * N + d];
+          ts.pop();
+        }
+        pending = true;
+      }
+    } else if (live) {
+      const int32_t v_lo = su[r0 - R0], v_hi = su[r1 - 1 - R0];
+      for (int64_t k = 0; k < K; ++k) {
+        const int32_t t = terms[k * N + d];
+        if (t < 0 || t < v_lo || t > v_hi) continue;
+        const float c = contrib[k * N + d];
+        for (int64_t s = lower_bound(su, R0, r0, r1, t); s < r1 && su[s - R0] == t;
+             ++s) {
+          col[(s - r0) * kDocs] += c;
+        }
+      }
+    }
+    __syncthreads();
+    // stream the tile's rows out and zero them for the next chunk
+    const int rows = static_cast<int>(r1 - r0);
+    for (int q = dl; q < rows * kQuadsPerRow; q += kDocs) {
+      const int row = q / kQuadsPerRow;
+      const int64_t c = d0 + 4 * (q % kQuadsPerRow);
+      float* dst = out + (r0 + row) * ld + col0 + c;
+      const float4 v = smem4[q];
+      if (aligned && c + 3 < N) {
+        *reinterpret_cast<float4*>(dst) = v;
+      } else if (c < N) {  // the ragged edge, or an unaligned buffer
+        dst[0] = v.x;
+        if (c + 1 < N) dst[1] = v.y;
+        if (c + 2 < N) dst[2] = v.z;
+        if (c + 3 < N) dst[3] = v.w;
+      }
+      smem4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kCheckOrder>
+int launch(const void* u_sorted, int64_t U, const void* terms, const void* contrib,
+           int64_t K, int64_t N, void* out, int64_t ld, int64_t col0,
+           void* stream) {
+  if (N <= 0 || U <= 0) return static_cast<int>(cudaGetLastError());
+  // Rows a block: all U where the doc blocks alone fill the card, else split
+  // in multiples of a chunk until about kTargetBlocks blocks.
+  const int64_t col_blocks = (N + kDocs - 1) / kDocs;
+  const int64_t chunks = (U + kRows - 1) / kRows;
+  int64_t splits = (kTargetBlocks + col_blocks - 1) / col_blocks;
+  splits = splits < chunks ? splits : chunks;
+  const int64_t min_splits = (U + kMaxBlockRows - 1) / kMaxBlockRows;
+  splits = splits > min_splits ? splits : min_splits;
+  const int64_t block_rows = (chunks + splits - 1) / splits * kRows;
+  splits = (U + block_rows - 1) / block_rows;
+  const size_t smem = sizeof(float) * kRows * kDocs + sizeof(int32_t) * block_rows;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        membership_slab_kernel<kCheckOrder>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0 && ld % 4 == 0 &&
+                       col0 % 4 == 0;
+  const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(splits));
+  membership_slab_kernel<kCheckOrder>
+      <<<grid, kDocs, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(u_sorted), U,
+          static_cast<const int32_t*>(terms), static_cast<const float*>(contrib), K,
+          N, static_cast<float*>(out), ld, col0, block_rows, aligned);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out [U, N] must hold zeros on entry. Returns cudaGetLastError() after
-// the launch.
+// u_sorted [U] i32 ascending, terms/contrib [K, N] i32/f32 k-major; the slab
+// goes to out[u * ld + col0 + d] for u < U, d < N (every such cell written,
+// nothing else touched). Needs col0 + N <= ld, N / 128 < 2^31 and U / 64 <
+// 65536 (the wrapper checks). Returns cudaGetLastError() after the launch.
 extern "C" int ircl_membership_slab(const void* u_sorted, int64_t U,
                                     const void* terms, const void* contrib,
-                                    int64_t K, int64_t N, void* out,
-                                    void* stream) {
-  if (N > 0 && U > 0 && K > 0) {
-    const int threads = 256;
-    const int64_t blocks = (N + threads - 1) / threads;
-    membership_slab_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(u_sorted), U,
-        static_cast<const int32_t*>(terms), static_cast<const float*>(contrib),
-        K, N, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+                                    int64_t K, int64_t N, void* out, int64_t ld,
+                                    int64_t col0, void* stream) {
+  return launch<true>(u_sorted, U, terms, contrib, K, N, out, ld, col0, stream);
+}
+
+// The same slab for terms that ascend down every column with the pads (-1)
+// trailing: membership_slab_windowed's contract. No order check.
+extern "C" int ircl_membership_slab_windowed(const void* u_sorted, int64_t U,
+                                             const void* terms, const void* contrib,
+                                             int64_t K, int64_t N, void* out,
+                                             int64_t ld, int64_t col0,
+                                             void* stream) {
+  return launch<false>(u_sorted, U, terms, contrib, K, N, out, ld, col0, stream);
 }
 
 // Name of a CUDA error code, for the wrappers' exceptions.

@@ -9,10 +9,11 @@ materialized. Per (d-tile, column) of one ELL width bucket:
 
 and only the tile's top-k (score, global position ``base + d``) leave the
 kernel. On CUDA tensors ``fused_hybrid_tile_topk`` launches
-``csrc/fused_hybrid.cu``, which gathers the rows of ``wt`` a doc's terms
-hit instead of rebuilding the slab tile (see the note there); on CPU
-tensors it runs ``fused_hybrid_tile_topk_ref``: the plain slab, an fp32
-product, and the plain light add. Kernel and plain version sum a doc's
+``csrc/fused_hybrid.cu``, which searches each d-tile's terms once and
+gathers the rows of ``wt`` they hit instead of rebuilding the slab tile
+(see the note there); on CPU tensors it runs
+``fused_hybrid_tile_topk_ref``: the plain slab, an fp32 product, and the
+plain light add. Kernel and plain version sum a doc's
 terms in the same (ascending slot) order as fp32 FMAs; against a library
 GEMM's blocked sums they agree to rtol 1e-5, ids except across exact ties.
 ``hybrid_topk_onepass`` runs both buckets and the final top-k. In the
@@ -33,8 +34,44 @@ from ircl_tpu_torch.ops.membership_cuda import (
     scores_matmul,
 )
 
-_KERNEL_DOCS = 64  # docs per chunk in fused_hybrid.cu
+_KERNEL_DOCS = 32  # docs a chunk in fused_hybrid.cu
+_MAX_STAGED_U = 4096  # a union up to this many slots is staged in shared memory
 _MAX_SHARED = 227 * 1024  # bytes of shared memory a block may ask for
+
+
+def _kernel_shared_bytes(k_width: int, u: int) -> int:
+    """Shared memory of one block of ``csrc/fused_hybrid.cu``: the hits
+    (slot, run, value) of a chunk's docs, their counts, the chunk's terms
+    in rows padded by one, and the union when it is staged."""
+    docs = _KERNEL_DOCS
+    staged = u if u <= _MAX_STAGED_U else 0
+    return 4 * (3 * k_width * docs + docs + k_width * (docs + 1) + staged)
+
+
+def _check_kernel_geometry(terms_t, u_sorted, wt, d_tile: int, base: int) -> None:
+    """Raise on what the CUDA kernel cannot take (the plain version takes
+    it all): its chunk of 32 docs, its grid, its shared memory, 16-byte
+    reads of ``wt`` rows, int32 positions."""
+    k_width, n = terms_t.shape
+    if d_tile % _KERNEL_DOCS:
+        raise ValueError(f"the kernel needs d_tile % {_KERNEL_DOCS} == 0, got {d_tile}")
+    if n // d_tile > 65535:
+        raise ValueError(f"{n // d_tile} d-tiles exceed the kernel's grid (65535)")
+    shared = _kernel_shared_bytes(k_width, u_sorted.shape[0])
+    if shared > _MAX_SHARED:
+        raise ValueError(
+            f"ELL width {k_width} needs {shared} bytes of shared memory, past "
+            f"the kernel's {_MAX_SHARED}"
+        )
+    if wt.shape[1] % 4 or wt.data_ptr() % 16:
+        raise ValueError(
+            f"the kernel reads wt rows 16 bytes at a time: B_pad {wt.shape[1]} "
+            "must be a multiple of 4 and wt 16-byte aligned"
+        )
+    if u_sorted.shape[0] >= 2**31:
+        raise ValueError(f"a union of {u_sorted.shape[0]} slots overflows int32")
+    if base + n >= 2**31:
+        raise ValueError(f"positions up to {base + n} overflow int32")
 
 
 def _check_args(terms_t, vals_t, u_sorted, wt, docs_t, contribs_t, k, d_tile):
@@ -128,17 +165,10 @@ def fused_hybrid_tile_topk(
         raise ValueError(f"no fused hybrid kernel for device {terms_t.device}")
     from ircl_tpu_torch.utils.kernel_build import load_kernels
 
+    _check_kernel_geometry(terms_t, u_sorted, wt, d_tile, base)
     k_width, n = terms_t.shape
     B = wt.shape[1]
     n_dt = n // d_tile
-    if d_tile % _KERNEL_DOCS:
-        raise ValueError(f"the kernel needs d_tile % {_KERNEL_DOCS} == 0, got {d_tile}")
-    if n_dt > 65535:
-        raise ValueError(f"{n_dt} d-tiles exceed the kernel's grid (65535)")
-    if 4 * (3 * k_width * _KERNEL_DOCS + _KERNEL_DOCS) > _MAX_SHARED:
-        raise ValueError(f"ELL width {k_width} exceeds the kernel's shared memory")
-    if base + n >= 2**31:
-        raise ValueError(f"positions up to {base + n} overflow int32")
     k8 = -(-k // 8) * 8
     kern = load_kernels()
     out_s = torch.empty((n_dt * k8, B), dtype=torch.float32, device=wt.device)

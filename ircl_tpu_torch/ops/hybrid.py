@@ -82,16 +82,21 @@ def _sorted_pools(light_docs, light_contribs, pools_sorted: bool):
 
 
 def _bucketed_membership(u_sorted, terms_a, vals_a, terms_b, vals_b, d_tile):
-    """Twin width-bucket membership slabs concatenated along docs: the one
-    shared copy for the bucketed engines."""
+    """Twin width-bucket membership slabs side by side along docs, each
+    written straight into its column range of one buffer: the one shared
+    copy for the bucketed engines."""
     u_tile = _u_tile(u_sorted.shape[0], d_tile)
-    ma = membership_slab_windowed(
-        u_sorted, terms_a, vals_a, u_tile=u_tile, d_tile=d_tile
-    )
-    mb = membership_slab_windowed(
-        u_sorted, terms_b, vals_b, u_tile=u_tile, d_tile=d_tile
-    )
-    return torch.cat([ma, mb], dim=1), u_tile  # [U, Na_pad + Nb_pad]
+    na = terms_a.shape[1]
+    m = torch.empty(
+        (u_sorted.shape[0], na + terms_b.shape[1]),
+        dtype=torch.float32, device=u_sorted.device,
+    )  # [U, Na_pad + Nb_pad]; the kernel writes every cell
+    for terms, vals, col in ((terms_a, vals_a, 0), (terms_b, vals_b, na)):
+        membership_slab_windowed(
+            u_sorted, terms, vals, u_tile=u_tile, d_tile=d_tile,
+            out=m, col_offset=col,
+        )
+    return m, u_tile
 
 
 def _run_totals(sd: torch.Tensor, sv: torch.Tensor):

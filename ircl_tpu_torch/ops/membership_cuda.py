@@ -9,10 +9,13 @@ whose union of terms is ``u_sorted``:
 
 ``membership_slab`` and ``membership_slab_windowed`` keep the Pallas
 functions' arguments and k-major ``[K, N]`` layouts. On CUDA tensors both
-launch ``csrc/membership_slab.cu``, which scatters each term into its slab
-row instead of comparing every cell (see the note in that file); on CPU
-tensors both run ``membership_slab_ref``, the compare loop of the contract.
-The three agree bit for bit. ``membership_topk_fused`` is the ELL engine's
+launch ``csrc/membership_slab.cu``, which resolves each term to its slab
+rows once instead of comparing every cell and writes every cell once (see
+the note in that file); on CPU tensors both run ``membership_slab_ref``,
+the compare loop of the contract. The three agree bit for bit. Both take
+``out=`` and ``col_offset=``, keyword-only, to fill a column range of a
+larger buffer (``ops/hybrid.py::_bucketed_membership``).
+``membership_topk_fused`` is the ELL engine's
 top-k over the two slabs.
 """
 
@@ -67,26 +70,79 @@ def membership_slab_ref(
     return m
 
 
-def _launch_slab(u_sorted, terms_t, contrib_t) -> torch.Tensor:
-    """A new slab from the CUDA kernel, on the current stream."""
-    from ircl_tpu_torch.utils.kernel_build import load_kernels
+def _check_out(out, col_offset, u_sorted, terms_t) -> None:
+    """``out`` takes the slab in its columns [col_offset, col_offset + N)."""
+    if out is None:
+        if col_offset:
+            raise ValueError("col_offset needs out=")
+        return
+    n = terms_t.shape[1]
+    if out.dim() != 2 or out.shape[0] != u_sorted.shape[0]:
+        raise ValueError(
+            f"out must be [U={u_sorted.shape[0]}, >= N]; got {tuple(out.shape)}"
+        )
+    if not 0 <= col_offset <= out.shape[1] - n:
+        raise ValueError(
+            f"columns [{col_offset}, {col_offset + n}) do not fit out's "
+            f"{out.shape[1]}"
+        )
+    if out.dtype != torch.float32:
+        raise TypeError(f"out must be float32, got {out.dtype}")
+    if out.device != u_sorted.device:
+        raise ValueError("out lies on another device than the slab's inputs")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
 
+
+_MAX_ROW_CHUNKS = 65535  # the kernel's grid.y splits U into chunks of 64 rows
+
+
+def _check_slab_geometry(u_sorted, terms_t) -> None:
+    """Raise on what the CUDA kernel cannot take (the plain version takes
+    it all): a union of more than 65535 chunks of 64 rows, or more than
+    2^31 - 1 blocks of 128 docs."""
+    if -(-u_sorted.shape[0] // 64) > _MAX_ROW_CHUNKS:
+        raise ValueError(
+            f"a union of {u_sorted.shape[0]} slots exceeds the kernel's "
+            f"{64 * _MAX_ROW_CHUNKS}"
+        )
+    if -(-terms_t.shape[1] // 128) >= 2**31:
+        raise ValueError(f"{terms_t.shape[1]} docs exceed the kernel's grid")
+
+
+def _slab(fn, entry, u_sorted, terms_t, contrib_t, out, col_offset):
+    """The slab on CPU tensors (plain version) or from the CUDA entry point
+    ``entry`` (``ircl_membership_slab`` or its windowed twin), returned as
+    ``out``'s columns [col_offset, col_offset + N) when ``out`` is given."""
+    _check_slab_args(u_sorted, terms_t, contrib_t)
+    _check_out(out, col_offset, u_sorted, terms_t)
+    n = terms_t.shape[1]
+    if u_sorted.device.type == "cpu":
+        slab = membership_slab_ref(u_sorted, terms_t, contrib_t)
+        if out is None:
+            return slab
+        out[:, col_offset : col_offset + n] = slab
+        return out[:, col_offset : col_offset + n]
     if u_sorted.device.type != "cuda":
         raise ValueError(f"no membership slab kernel for device {u_sorted.device}")
+    _check_slab_geometry(u_sorted, terms_t)
+    from ircl_tpu_torch.utils.kernel_build import load_kernels
+
     kern = load_kernels()
-    out = torch.zeros(
-        (u_sorted.shape[0], terms_t.shape[1]),
-        dtype=torch.float32, device=u_sorted.device,
-    )
+    if out is None:  # every cell is written: no zero pass
+        out = torch.empty(
+            (u_sorted.shape[0], n), dtype=torch.float32, device=u_sorted.device
+        )
     with torch.cuda.device(u_sorted.device):
-        rc = kern.lib.ircl_membership_slab(
+        rc = getattr(kern.lib, entry)(
             u_sorted.data_ptr(), u_sorted.shape[0],
             terms_t.data_ptr(), contrib_t.data_ptr(),
-            terms_t.shape[0], terms_t.shape[1],
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            terms_t.shape[0], n, out.data_ptr(), out.shape[1], col_offset,
+            torch.cuda.current_stream().cuda_stream,
         )
     kern.check(rc, "membership slab launch")
-    return out
+    fn.launches += 1
+    return out[:, col_offset : col_offset + n]
 
 
 def membership_slab(
@@ -95,16 +151,18 @@ def membership_slab(
     contrib_t: torch.Tensor,  # [K, N] f32 values (0 on padding)
     u_tile: int = 512,
     d_tile: int = 256,
+    *,
+    out: torch.Tensor | None = None,  # [U, >= N] f32: write the slab into it
+    col_offset: int = 0,  # at out's columns [col_offset, col_offset + N)
 ) -> torch.Tensor:
     """Dense slab M [U, N] (exact). ``u_tile`` and ``d_tile`` are the Pallas
     grid tiles; the CUDA kernel has no such tiles and ignores them, and it
-    takes any U, N and K. CPU tensors go to ``membership_slab_ref``."""
-    _check_slab_args(u_sorted, terms_t, contrib_t)
-    if u_sorted.device.type == "cpu":
-        return membership_slab_ref(u_sorted, terms_t, contrib_t)
-    out = _launch_slab(u_sorted, terms_t, contrib_t)
-    membership_slab.launches += 1
-    return out
+    takes any U, N and K. With ``out`` the slab fills that buffer's columns
+    [col_offset, col_offset + N), leaving the others as they are, and the
+    view of those columns is returned. CPU tensors go to
+    ``membership_slab_ref``."""
+    return _slab(membership_slab, "ircl_membership_slab", u_sorted, terms_t,
+                 contrib_t, out, col_offset)
 
 
 membership_slab.launches = 0
@@ -117,19 +175,19 @@ def membership_slab_windowed(
     contrib_t: torch.Tensor,  # [K, N] f32
     u_tile: int = 512,
     d_tile: int = 256,
+    *,
+    out: torch.Tensor | None = None,
+    col_offset: int = 0,
 ) -> torch.Tensor:
     """The slab of ``membership_slab`` for inputs whose columns ascend with
     pads trailing. The Pallas version cut each grid cell's k loop to a
-    value window; the CUDA kernel already visits each term once, so both
-    wrappers launch the same kernel and ignore the tiles. Kept as its own
-    entry point, with its own launch count, to mirror the reference's call
-    sites."""
-    _check_slab_args(u_sorted, terms_t, contrib_t)
-    if u_sorted.device.type == "cpu":
-        return membership_slab_ref(u_sorted, terms_t, contrib_t)
-    out = _launch_slab(u_sorted, terms_t, contrib_t)
-    membership_slab_windowed.launches += 1
-    return out
+    value window; the CUDA kernel walks each column's terms once with a
+    cursor, relying on that order without checking it (``membership_slab``
+    checks each column). Same tiles, ``out`` and ``col_offset`` as
+    ``membership_slab``; its own launch count, to mirror the reference's
+    call sites."""
+    return _slab(membership_slab_windowed, "ircl_membership_slab_windowed",
+                 u_sorted, terms_t, contrib_t, out, col_offset)
 
 
 membership_slab_windowed.launches = 0

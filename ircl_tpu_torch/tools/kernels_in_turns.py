@@ -1,6 +1,7 @@
-"""Kernels #6a and #4 of this checkout against another's, in turns on one card.
+"""Kernels of this checkout against another's, in turns on one card.
 
-    python3 -m ircl_tpu_torch.tools.kernels_in_turns --parent-root DIR [--out FILE]
+    python3 -m ircl_tpu_torch.tools.kernels_in_turns --parent-root DIR
+        [--only flash,dense,slab,onepass] [--out FILE]
 
 DIR is another checkout of this repository (for example ``git archive`` of
 the parent commit, unpacked into a gitignored directory such as
@@ -16,9 +17,21 @@ this, parent:
   columns, chunk 32, ``m_tile`` 8192), fold/high3 and loop/highest: each
   checkout's call goes to the kernel its wrapper would route it to (a
   checkout without ``ircl_dense_cmax_mma`` has the SIMT kernel only), with
-  the largest difference between the two checkouts' chunk maxima.
+  the largest difference between the two checkouts' chunk maxima;
+- #2 (and #1), the membership slabs, at the judged configuration's shapes
+  (``bench.py``: 50,000 docs, 4096 claims; both width buckets into one
+  slab, and the query slab through both entry points) and at
+  ``bench_scale.py``'s (1M docs, 1024 queries): each checkout's call is
+  what its wrapper does, so a checkout whose entry point has no output
+  column offset zero-fills a slab a bucket and concatenates them;
+- #5, the one-pass fused hybrid kernel, on both buckets of the 1M-doc
+  index at ``chip_smoke.py`` phase 18's shapes, as given and with two
+  ablations that show where its time goes: every ELL term a pad (the light
+  pools and the top-k alone) and a union that no term matches (the
+  searches added, no hit).
 
-Prints one JSON report, with the card's name and power limit as
+Each part reports the largest difference between the two checkouts'
+outputs. Prints one JSON report, with the card's name and power limit as
 ``nvidia-smi`` gives them, and writes it to ``--out``. Needs a CUDA device.
 """
 
@@ -32,16 +45,28 @@ import sys
 
 import torch
 
+import numpy as np
+
 from ircl_tpu_torch.ops.dense_topk_cuda import _mode, chunk_max_route, pad_corpus_t
 from ircl_tpu_torch.tools.profile_verdict_train import (
     _in_turns,
     _load_other,
+    _ms,
     forward_in_turns,
 )
 from ircl_tpu_torch.utils.kernel_build import load_kernels
 
 DENSE_M, DENSE_D, DENSE_B = 1_000_000, 128, 1024  # bench_dense.py's shape
 DENSE_TILE, DENSE_CHUNK = 8192, 32
+HASH_SIZE = 1 << 24
+JUDGED_DOCS, JUDGED_CLAIMS = 50_000, 4096  # bench.py's configuration
+JUDGED_RANKER = dict(mode="hybrid", df_threshold=24, width_buckets=2,
+                     fixed_union_cap=4096, fixed_max_terms=64, precision="high",
+                     union_round=512)
+SCALE_DOCS, SCALE_TERMS, SCALE_VOCAB, SCALE_B = 1_000_000, 96, 2_000_000, 1024
+SCALE_RANKER = dict(mode="hybrid", df_threshold=256, width_buckets=2,
+                    precision="high", fixed_max_terms=24, d_tile=512)
+K = 5
 
 
 def dense_in_turns(parent, this, dev) -> dict:
@@ -96,11 +121,165 @@ def dense_in_turns(parent, this, dev) -> dict:
     return report
 
 
+def judged_inputs(dev):
+    """bench.py's ranker and one batch of its 4096 claims on the card:
+    (ranker, [u_pad, qb_t, qw_t, light docs, light contribs])."""
+    from ircl_tpu_torch.corpus.store import MemoryDocStore
+    from ircl_tpu_torch.corpus.synthetic import generate
+    from ircl_tpu_torch.index.build import build_count_index
+    from ircl_tpu_torch.index.ranker import TfidfRanker
+    from ircl_tpu_torch.index.tfidf import tfidf_transform
+
+    wiki = generate(num_docs=JUDGED_DOCS, num_claims=JUDGED_CLAIMS, seed=11)
+    store = MemoryDocStore({d: rec["text"] for d, rec in wiki.docs.items()})
+    index = tfidf_transform(build_count_index(store, ngram=2, hash_size=HASH_SIZE))
+    ranker = TfidfRanker(index, dev, **JUDGED_RANKER)
+    buckets, weights = ranker._vectorize([c.claim for c in wiki.claims])
+    host = ranker.hybrid_host_inputs(buckets, weights)
+    return ranker, [torch.tensor(np.ascontiguousarray(x), device=dev) for x in host]
+
+
+def scale_inputs(dev):
+    """bench_scale.py's ranker and its 1024 queries on the card."""
+    from ircl_tpu_torch.index.ranker import TfidfRanker
+    from ircl_tpu_torch.tools.scale_index import synth_index, synth_queries
+
+    index = synth_index(SCALE_DOCS, SCALE_TERMS, SCALE_VOCAB, HASH_SIZE)
+    qb, qw = synth_queries(index, SCALE_B)
+    ranker = TfidfRanker(index, dev, **SCALE_RANKER)
+    host = ranker.hybrid_host_inputs(qb, qw)
+    return ranker, [torch.tensor(np.ascontiguousarray(x), device=dev) for x in host]
+
+
+def _slab_call(kern, u, parts, windowed):
+    """What a checkout's slab wrapper does for the column parts
+    ``[(terms, vals), ...]`` side by side: one buffer and a launch a part
+    into its columns where the entry point takes an output column offset,
+    else a zero-filled slab a part (the launch adds into it), concatenated."""
+    lib = kern.lib
+    offsets = len(lib.ircl_membership_slab.argtypes) == 10
+    entry = (lib.ircl_membership_slab_windowed if windowed and offsets
+             else lib.ircl_membership_slab)
+    n_all = sum(t.shape[1] for t, _ in parts)
+
+    def launch(terms, vals, out, *ld_col):
+        rc = entry(u.data_ptr(), u.shape[0], terms.data_ptr(), vals.data_ptr(),
+                   terms.shape[0], terms.shape[1], out.data_ptr(), *ld_col,
+                   torch.cuda.current_stream().cuda_stream)
+        kern.check(rc, "membership slab launch")
+
+    def call():
+        if offsets:
+            out = torch.empty(u.shape[0], n_all, device=u.device)
+            col = 0
+            for terms, vals in parts:
+                launch(terms, vals, out, n_all, col)
+                col += terms.shape[1]
+            return out
+        slabs = []
+        for terms, vals in parts:
+            slabs.append(torch.zeros(u.shape[0], terms.shape[1], device=u.device))
+            launch(terms, vals, slabs[-1])
+        return slabs[0] if len(slabs) == 1 else torch.cat(slabs, dim=1)
+    return call
+
+
+def slab_in_turns(parent, this, ranker, dev_in) -> dict:
+    u, qb_t, qw_t = dev_in[:3]
+    cases = {
+        "buckets a + b, windowed": ([ranker._heavy_a, ranker._heavy_b], True),
+        "query, windowed": ([(qb_t, qw_t)], True),
+        "query, membership_slab": ([(qb_t, qw_t)], False),
+    }
+    report = {"U": u.shape[0], "buckets": [list(ranker._heavy_a[0].shape),
+                                           list(ranker._heavy_b[0].shape)],
+              "query": list(qb_t.shape)}
+    for label, (parts, windowed) in cases.items():
+        p_call = _slab_call(parent, u, parts, windowed)
+        t_call = _slab_call(this, u, parts, windowed)
+        p_out, t_out = p_call(), t_call()
+        torch.cuda.synchronize()
+        report[label] = {
+            "bit_equal": bool(torch.equal(p_out, t_out)),
+            "max_abs_difference_parent_this": float((p_out - t_out).abs().max()),
+            "ms_in_turns": _in_turns(p_call, t_call),
+        }
+        del p_out, t_out
+        torch.cuda.empty_cache()
+    # where this checkout's time goes on the two buckets: the stores alone
+    # (no ELL row: every cell a 0), and the terms read and searched with no
+    # hit (a union above every term); torch.zeros of the same slab beside
+    # them, as the card's rate of plain writes
+    parts = [ranker._heavy_a, ranker._heavy_b]
+    never = u + (1 << 30)
+    n_all = sum(t.shape[1] for t, _ in parts)
+    report["buckets a + b, this checkout's parts"] = {
+        "ms_stores_only": _ms(_slab_call(this, u, [(t[:0], v[:0]) for t, v in parts],
+                                         True)),
+        "ms_no_hit": _ms(_slab_call(this, never, parts, True)),
+        "ms_as_given": _ms(_slab_call(this, u, parts, True)),
+        "ms_torch_zeros": _ms(lambda: torch.zeros(u.shape[0], n_all, device=u.device)),
+    }
+    return report
+
+
+def onepass_in_turns(parent, this, ranker, dev_in) -> dict:
+    """#5 on both buckets at phase 18's shapes, as given and ablated."""
+    from ircl_tpu_torch.ops import hybrid as hy
+
+    u, qb_t, qw_t, ld, lc = dev_in
+    B = ld.shape[0]
+    wt = hy._query_slab(u, qb_t, qw_t, hy._u_tile(u.shape[0]), True)[:, :B].contiguous()
+    sd_t, sv_t = ld.T.contiguous(), lc.T.contiguous()
+    na = ranker._heavy_a[0].shape[1]
+    never = u + (1 << 30)  # ascending, above every term: searches, no hit
+    report = {"U": u.shape[0], "B": B, "P": sd_t.shape[0]}
+    for label, (terms, vals), base in (("bucket a", ranker._heavy_a, 0),
+                                       ("bucket b", ranker._heavy_b, na)):
+        d_tile = next(t for t in (1024, 512, 256) if terms.shape[1] % t == 0)
+        n_dt = terms.shape[1] // d_tile
+        pads = torch.full_like(terms, -1)
+        part = {"ell": list(terms.shape), "d_tile": d_tile}
+        for variant, t_in, u_in in (("as given", terms, u), ("all pads", pads, u),
+                                    ("no hit", terms, never)):
+            def direct(kern):
+                out_s = torch.empty(n_dt * 8, B, device=u.device)
+                out_i = torch.empty(n_dt * 8, B, dtype=torch.int32, device=u.device)
+
+                def call():
+                    rc = kern.lib.ircl_fused_hybrid(
+                        t_in.data_ptr(), vals.data_ptr(), t_in.shape[0], t_in.shape[1],
+                        u_in.data_ptr(), u_in.shape[0], wt.data_ptr(), B,
+                        sd_t.data_ptr(), sv_t.data_ptr(), sd_t.shape[0], d_tile, base,
+                        K, out_s.data_ptr(), out_i.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                    kern.check(rc, "fused hybrid launch")
+                return call, out_s, out_i
+
+            (p_call, ps, pi), (t_call, ts, ti) = direct(parent), direct(this)
+            p_call()
+            t_call()
+            torch.cuda.synchronize()
+            part[variant] = {
+                "bit_equal": bool(torch.equal(ps, ts) and torch.equal(pi, ti)),
+                "max_abs_difference_parent_this": float((ps - ts).abs().max()),
+                "positions_that_differ": int((pi != ti).sum()),
+                "ms_in_turns": _in_turns(p_call, t_call),
+            }
+        report[label] = part
+        del pads
+        torch.cuda.empty_cache()
+    return report
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-root", required=True)
+    ap.add_argument("--only", default="flash,dense,slab,onepass",
+                    help="comma-separated parts to run")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    parts = set(args.only.split(","))
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script measures the card")
     dev = torch.device("cuda")
@@ -109,9 +288,26 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     parent, this = _load_other(args.parent_root), load_kernels()
     report = {"device": smi, "torch": torch.__version__,
-              "parent_root": args.parent_root,
-              "flash_forward_in_turns": forward_in_turns(parent, this, dev),
-              "dense_chunk_max_in_turns": dense_in_turns(parent, this, dev)}
+              "parent_root": args.parent_root}
+    if "flash" in parts:
+        report["flash_forward_in_turns"] = forward_in_turns(parent, this, dev)
+    if "dense" in parts:
+        report["dense_chunk_max_in_turns"] = dense_in_turns(parent, this, dev)
+        torch.cuda.empty_cache()
+    if "slab" in parts:
+        ranker, dev_in = judged_inputs(dev)
+        report["membership_slab_50k_in_turns"] = slab_in_turns(parent, this, ranker,
+                                                               dev_in)
+        del ranker, dev_in
+        torch.cuda.empty_cache()
+    if parts & {"slab", "onepass"}:
+        ranker, dev_in = scale_inputs(dev)
+        if "slab" in parts:
+            report["membership_slab_1m_in_turns"] = slab_in_turns(parent, this, ranker,
+                                                                  dev_in)
+        if "onepass" in parts:
+            report["fused_hybrid_1m_in_turns"] = onepass_in_turns(parent, this, ranker,
+                                                                  dev_in)
     text = json.dumps(report, indent=1)
     print(text)
     if args.out:

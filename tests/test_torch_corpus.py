@@ -11,6 +11,8 @@ stores must be equal, not close. Both load the same
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -71,7 +73,44 @@ def test_filters_are_equal():
             assert t_filters.filter_ngram(gram, mode) == j_filters.filter_ngram(gram, mode)
 
 
-def test_hashes_are_equal():
+# Both loaders, in a fresh process, on the library at argv[1]: a loader
+# remembers its first load for the rest of its process, so this process's
+# own answers depend on what the test run's other workers were building.
+_LOADERS = """
+import sys
+from ircl_tpu.corpus import hashing as j_hash
+from ircl_tpu_torch.corpus import hashing as t_hash
+for m in (j_hash, t_hash):
+    m._native_lib_path = lambda: sys.argv[1]
+print(t_hash.native_available(), j_hash.native_available())
+"""
+
+
+def _loaders_on_a_complete_library(tmp_path, monkeypatch):
+    """The two packages' ``native_available()`` on one complete library.
+
+    The reference's ``build_native`` writes ``native/libircl_native.so`` in
+    place, so on a fresh checkout another worker may be halfway through
+    writing it while this one loads it. Here the port's ``build_native``,
+    which renames a finished file into place, builds the library from the
+    repository's source into ``tmp_path``, and a fresh process points both
+    loaders at it.
+    """
+    root = t_build.repo_root()
+    os.makedirs(tmp_path / "native")
+    os.symlink(os.path.join(root, "native", "src"), tmp_path / "native" / "src")
+    with monkeypatch.context() as m:
+        m.setattr(t_build, "repo_root", lambda: str(tmp_path))
+        lib = t_build.build_native()
+    assert lib is None or os.path.exists(lib)
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOADERS, str(lib or tmp_path / "missing.so")],
+        cwd=root, capture_output=True, text=True, check=True, timeout=120,
+    )
+    return proc.stdout.strip()
+
+
+def test_hashes_are_equal(tmp_path, monkeypatch):
     rng = np.random.default_rng(5)
     words = ["".join(chr(int(c)) for c in rng.integers(97, 123, size=int(n)))
              for n in rng.integers(1, 12, size=200)] + ["café", "東京", ""]
@@ -82,7 +121,7 @@ def test_hashes_are_equal():
     got, want = t_hash.hash_tokens(words, 1 << 20), j_hash.hash_tokens(words, 1 << 20)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    assert t_hash.native_available() == j_hash.native_available()
+    assert _loaders_on_a_complete_library(tmp_path, monkeypatch) in ("True True", "False False")
     assert t_hash._native_lib_path() == j_hash._native_lib_path()
     assert t_build.repo_root() == j_build.repo_root() and t_build._LIBS == j_build._LIBS
 

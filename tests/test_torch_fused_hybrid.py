@@ -235,3 +235,23 @@ def test_arguments_are_checked():
     with pytest.raises(ValueError, match="k must be"):
         t_fh.fused_hybrid_tile_topk(z, v, u, wt, d, c, d_tile=256, k=0)
     assert t_fh.fused_hybrid_tile_topk.launches == 0  # CPU tensors launch nothing
+
+    # what the CUDA kernel cannot take (the plain version takes it all)
+    geo = t_fh._check_kernel_geometry
+    geo(z, u, wt, 256, 0)  # the shapes above fit
+    with pytest.raises(ValueError, match="d_tile % 32"):
+        geo(torch.zeros((8, 240), dtype=torch.int32), u, wt, 48, 0)
+    wide = torch.zeros((500, 256), dtype=torch.int32)
+    assert t_fh._kernel_shared_bytes(500, 128) > 227 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        geo(wide, u, wt, 256, 0)
+    # bench_scale.py's buckets fit: ELL widths 64 and 80 at U=512
+    assert t_fh._kernel_shared_bytes(80, 512) < 227 * 1024 // 4
+    with pytest.raises(ValueError, match="16 bytes"):
+        geo(z, u, torch.zeros((128, 130)), 256, 0)
+    with pytest.raises(ValueError, match="16 bytes"):  # wt 4 bytes off alignment
+        geo(z, u, torch.zeros(128 * 128 + 1)[1:].view(128, 128), 256, 0)
+    with pytest.raises(ValueError, match="grid"):
+        geo(torch.empty((8, 32 * 65536), dtype=torch.int32, device="meta"), u, wt, 32, 0)
+    with pytest.raises(ValueError, match="overflow int32"):
+        geo(z, u, wt, 256, 2**31 - 100)

@@ -33,6 +33,14 @@ def test_every_entry_point_has_a_signature():
         assert restype is not None
     # pointers and the stream cross as c_void_p, never as a 32-bit int
     assert ctypes.c_int not in kb._SIGNATURES["ircl_membership_slab"][0]
+    # both slab entries write into a column range of a buffer: out, its
+    # leading dimension and the column offset, then the stream
+    for name in ("ircl_membership_slab", "ircl_membership_slab_windowed"):
+        assert kb._SIGNATURES[name][0] == [ctypes.c_void_p, ctypes.c_int64,
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_void_p, ctypes.c_int64,
+                                           ctypes.c_int64, ctypes.c_void_p]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_dense_cmax"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_flash_attention"][0]
@@ -54,6 +62,18 @@ def test_every_entry_point_has_a_signature():
         kb._SIGNATURES["ircl_flash_attention"][0]) + 2
     assert len(kb._SIGNATURES["ircl_flash_attention_bwd_dkv"][0]) == len(
         kb._SIGNATURES["ircl_flash_attention_bwd_dq"][0]) + 1
+
+
+def test_every_c_entry_point_is_listed():
+    """Each ``extern "C"`` function of the sources has a ctypes signature,
+    and the list names no function the sources lack."""
+    import re
+
+    text = "".join(open(p, encoding="utf-8").read() for p in kb.sources())
+    found = set(re.findall(r'extern "C" [\w\s*]+?\b(ircl_\w+)\(', text))
+    assert found == set(kb._SIGNATURES)
+    assert {"ircl_membership_slab", "ircl_membership_slab_windowed",
+            "ircl_fused_hybrid"} <= found
 
 
 def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):

@@ -18,11 +18,13 @@ import torch
 from _torch_parity import assert_topk_match, one_torch_thread  # noqa: F401
 from ircl_tpu.corpus.store import MemoryDocStore
 from ircl_tpu.corpus.synthetic import generate
+from ircl_tpu.ops import hybrid as j_hy
 from ircl_tpu.ops import membership_pallas as mp
 from ircl_tpu_torch.index.build import build_count_index
 from ircl_tpu_torch.index.ell import to_ell
 from ircl_tpu_torch.index.ranker import TfidfRanker
 from ircl_tpu_torch.index.tfidf import tfidf_transform
+from ircl_tpu_torch.ops import hybrid as t_hy
 from ircl_tpu_torch.ops import membership_cuda as mc
 
 HASH_SIZE = 2**20
@@ -146,6 +148,56 @@ def test_cpu_calls_do_not_count_launches(inputs):
     )
 
 
+@pytest.fixture(scope="module")
+def buckets():
+    """Two width buckets of a hybrid ranker (rows ascending, pads trailing,
+    tile-padded as the ranker pads them) and a batch's union."""
+    wiki = generate(num_docs=150, num_claims=40, seed=13)
+    store = MemoryDocStore({d: rec["text"] for d, rec in wiki.docs.items()})
+    index = tfidf_transform(build_count_index(store, ngram=2, hash_size=HASH_SIZE))
+    ranker = TfidfRanker(index, "cpu", mode="hybrid", df_threshold=4,
+                         width_buckets=2, d_tile=256)
+    b, w = ranker._vectorize([c.claim for c in wiki.claims])
+    u = ranker.hybrid_host_inputs(b, w)[0]
+    heavy = [x.numpy() for x in (*ranker._heavy_a, *ranker._heavy_b)]
+    assert heavy[0].shape[0] != heavy[2].shape[0]  # two widths
+    return u, heavy
+
+
+def test_bucketed_membership_fills_one_buffer(buckets):
+    """``_bucketed_membership`` writes both buckets into one [U, Na + Nb]
+    buffer: equal to the reference's (Pallas in interpret mode, then a
+    concatenation) and to ``torch.cat`` of the two plain slabs, bit for bit."""
+    u, heavy = buckets
+    want, want_tile = j_hy._bucketed_membership(
+        jnp.asarray(u), *(jnp.asarray(x) for x in heavy), 256, True)
+    got, u_tile = t_hy._bucketed_membership(_t(u), *(_t(x) for x in heavy), 256)
+    assert u_tile == want_tile
+    assert got.shape == (len(u), heavy[0].shape[1] + heavy[2].shape[1])
+    assert got.is_contiguous() and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    cat = torch.cat([mc.membership_slab_ref(_t(u), _t(heavy[0]), _t(heavy[1])),
+                     mc.membership_slab_ref(_t(u), _t(heavy[2]), _t(heavy[3]))], dim=1)
+    assert torch.equal(got, cat)
+    assert np.count_nonzero(want) > 100
+
+
+@pytest.mark.parametrize("windowed", [False, True], ids=["plain", "windowed"])
+def test_out_and_col_offset_are_honoured(inputs, windowed):
+    """The plain path writes the slab into ``out``'s columns [col_offset,
+    col_offset + N), returns that view and leaves the other columns alone."""
+    fn = mc.membership_slab_windowed if windowed else mc.membership_slab
+    u, tt, vt = _t(inputs["u"]), _t(inputs["tt"]), _t(inputs["vt"])
+    n = tt.shape[1]
+    out = torch.full((u.shape[0], n + 12), 7.0)
+    got = fn(u, tt, vt, out=out, col_offset=5)
+    want = mc.membership_slab_ref(u, tt, vt)
+    assert got.data_ptr() == out[:, 5:].data_ptr() and got.shape == want.shape
+    assert torch.equal(got, want) and torch.equal(out[:, 5 : 5 + n], want)
+    assert (out[:, :5] == 7.0).all() and (out[:, 5 + n :] == 7.0).all()
+    assert torch.equal(fn(u, tt, vt, out=torch.empty(u.shape[0], n)), want)
+
+
 @pytest.mark.parametrize(
     "case,exc",
     [
@@ -155,12 +207,37 @@ def test_cpu_calls_do_not_count_launches(inputs):
         ("u_2d", ValueError),
         ("not_contiguous", ValueError),
         ("meta_device", ValueError),
+        ("out_rows", ValueError),
+        ("out_1d", ValueError),
+        ("out_f64", TypeError),
+        ("out_meta_device", ValueError),
+        ("out_not_contiguous", ValueError),
+        ("col_offset_past_out", ValueError),
+        ("col_offset_negative", ValueError),
+        ("col_offset_without_out", ValueError),
     ],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
     u = torch.tensor([1, 2, 3], dtype=torch.int32)
     terms = torch.tensor([[1, 2], [3, -1]], dtype=torch.int32)
     vals = torch.ones((2, 2), dtype=torch.float32)
+    kw = {}
+    if case == "out_rows":
+        kw = dict(out=torch.zeros((2, 4)))
+    elif case == "out_1d":
+        kw = dict(out=torch.zeros(12))
+    elif case == "out_f64":
+        kw = dict(out=torch.zeros((3, 4), dtype=torch.float64))
+    elif case == "out_meta_device":
+        kw = dict(out=torch.zeros((3, 4), device="meta"))
+    elif case == "out_not_contiguous":
+        kw = dict(out=torch.zeros((4, 3)).T)
+    elif case == "col_offset_past_out":
+        kw = dict(out=torch.zeros((3, 4)), col_offset=3)
+    elif case == "col_offset_negative":
+        kw = dict(out=torch.zeros((3, 4)), col_offset=-1)
+    elif case == "col_offset_without_out":
+        kw = dict(col_offset=2)
     if case == "terms_int64":
         terms = terms.long()
     elif case == "vals_f64":
@@ -175,7 +252,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
         u, terms, vals = (x.to("meta") for x in (u, terms, vals))
     for fn in (mc.membership_slab, mc.membership_slab_windowed):
         with pytest.raises(exc):
-            fn(u, terms, vals)
+            fn(u, terms, vals, **kw)
+
+
+def test_kernel_geometry_is_checked():
+    """What the CUDA kernel cannot take raises before a launch; the plain
+    version takes any U, N and K."""
+    terms = torch.zeros((2, 5), dtype=torch.int32)
+    mc._check_slab_geometry(torch.zeros(64 * 65535, dtype=torch.int32), terms)
+    with pytest.raises(ValueError, match="union"):
+        mc._check_slab_geometry(
+            torch.empty(64 * 65535 + 1, dtype=torch.int32, device="meta"), terms)
+    with pytest.raises(ValueError, match="grid"):
+        mc._check_slab_geometry(torch.zeros(4, dtype=torch.int32),
+                                torch.empty((1, 128 * 2**31), dtype=torch.int32,
+                                            device="meta"))
 
 
 def test_scores_matmul_restores_precision():
