@@ -1439,12 +1439,14 @@ def shared_buffer_check(phase, u_pad, ranker):
 
 
 def slab_edge_cases(dev):
-    """Both slab entry points on seeded inputs that the judged shapes do not
-    reach, bit for bit against the plain version: a union padded with copies
-    of its last value (a run of 101 equal slots across row chunks) and docs
-    that repeat its terms; terms out of order (``membership_slab`` only); a
-    union past the kernel's shared-memory stage; ragged N into an unaligned
-    column range of a larger buffer; K = 0."""
+    """Both slab wrappers (one kernel) on seeded inputs that the judged
+    shapes do not reach, bit for bit against the plain version: a union
+    padded with copies of its last value (a run of 101 equal slots across
+    row chunks) and docs that repeat its terms; terms out of order (the
+    kernel checks each doc's order: the windowed wrapper's contract is
+    ascending terms, but its slab is right for any); a union past the
+    kernel's shared-memory stage; ragged N into an unaligned column range of
+    a larger buffer (``out=`` of the windowed wrapper); K = 0."""
     import torch
 
     from ircl_tpu_torch.ops.membership_cuda import (
@@ -1470,15 +1472,16 @@ def slab_edge_cases(dev):
         v = rng.random((K, N)).astype(np.float32) * (t >= 0)
         args = [torch.tensor(x, device=dev) for x in (u, t, v)]
         ref = membership_slab_ref(*args)
-        for fn in ((membership_slab, membership_slab_windowed) if ascending
-                   else (membership_slab,)):
-            out = torch.full((U, N + col0 + 7), 7.0, device=dev)
-            got = fn(*args, out=out, col_offset=col0)
-            ok = (torch.equal(got, ref) and torch.equal(fn(*args), ref)
-                  and bool((out[:, :col0] == 7).all())
-                  and bool((out[:, col0 + N:] == 7).all()))
+        out = torch.full((U, N + col0 + 7), 7.0, device=dev)
+        got = membership_slab_windowed(*args, out=out, col_offset=col0)
+        for name, ok in (
+                ("membership_slab", torch.equal(membership_slab(*args), ref)),
+                ("membership_slab_windowed",
+                 torch.equal(got, ref) and torch.equal(membership_slab_windowed(*args), ref)
+                 and bool((out[:, :col0] == 7).all())
+                 and bool((out[:, col0 + N:] == 7).all()))):
             if not ok:
-                fail(f"phase 2: {fn.__name__} differs from its plain version at U={U}, "
+                fail(f"phase 2: {name} differs from its plain version at U={U}, "
                      f"K={K}, N={N}, ascending {ascending}, col_offset {col0}")
             n_checked += 1
     log(f"phase 2: slab edge cases: {n_checked} calls bit-equal to the plain version "
@@ -1774,29 +1777,39 @@ def phase17_scale(dev, results):
     torch.cuda.synchronize()
     upload_ms = 1e3 * (time.perf_counter() - t0)
     u_pad, qb_t, qw_t, ld, lc = dev_in
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    ev[0].record()
-    m, u_tile = hy._bucketed_membership(u_pad, *ranker._heavy_a, *ranker._heavy_b,
-                                        ranker.d_tile)
-    wt = hy._query_slab(u_pad, qb_t, qw_t, u_tile, True)
-    ev[1].record()
-    h = scores_matmul(wt.T, m)[: ld.shape[0]]
-    ev[2].record()
-    hy._merge_light(h, ld, lc, K, h.shape[1], pools_sorted=True)
-    ev[3].record()
-    del h
-    h_sel = torch.matmul(wt[:, : ld.shape[0]].T.to(torch.bfloat16), m.to(torch.bfloat16))
-    ev[4].record()
-    hy._select_rescore_topk(m, wt, h_sel, ld, lc, K, SCALE_SELECT, h_sel.shape[1], True)
-    ev[5].record()
-    torch.cuda.synchronize()
-    ms = [ev[j].elapsed_time(ev[j + 1]) for j in range(5)]
+    # the batch twice: the first pays the allocator for its buffers (the
+    # 2 GB slab among them), the second reuses them, so its split holds the
+    # kernels alone
+    splits = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        m, u_tile = hy._bucketed_membership(u_pad, *ranker._heavy_a,
+                                            *ranker._heavy_b, ranker.d_tile)
+        wt = hy._query_slab(u_pad, qb_t, qw_t, u_tile, True)
+        ev[1].record()
+        h = scores_matmul(wt.T, m)[: ld.shape[0]]
+        ev[2].record()
+        hy._merge_light(h, ld, lc, K, h.shape[1], pools_sorted=True)
+        ev[3].record()
+        del h
+        h_sel = torch.matmul(wt[:, : ld.shape[0]].T.to(torch.bfloat16),
+                             m.to(torch.bfloat16))
+        ev[4].record()
+        hy._select_rescore_topk(m, wt, h_sel, ld, lc, K, SCALE_SELECT, h_sel.shape[1],
+                                True)
+        ev[5].record()
+        torch.cuda.synchronize()
+        splits.append([ev[j].elapsed_time(ev[j + 1]) for j in range(5)])
+        slab_shape = list(m.shape)
+        del m, wt, h_sel
+    first, ms = splits
     log(f"phase 17: one batch by stage: host pool gather and query prep {host_ms:.2f} "
         f"ms, upload {upload_ms:.2f} ms (pools [{ld.shape[0]}, {ld.shape[1]}]); slabs "
-        f"[{m.shape[0]}, {m.shape[1]}] {ms[0]:.3f} ms, fp32 GEMM {ms[1]:.3f} ms, "
+        f"{slab_shape} {ms[0]:.3f} ms (the first batch, which allocates the "
+        f"buffers: {first[0]:.3f} ms), fp32 GEMM {ms[1]:.3f} ms, "
         f"top-k + light merge {ms[2]:.3f} ms; select_rescore: bf16 casts + GEMM "
         f"{ms[3]:.3f} ms, selection + exact rescore {ms[4]:.3f} ms")
-    del m, wt, h_sel
     torch.cuda.empty_cache()
 
     # kernel #2 at this index's shapes, where 197 of its 206 launches run
@@ -2252,26 +2265,31 @@ def main() -> None:
     u_pad, qb_t, qw_t, ld, lc = (put(x) for x in host)
     torch.cuda.synchronize()
     upload_ms = 1e3 * (time.perf_counter() - t0)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
-    m, u_tile = hy._bucketed_membership(
-        u_pad, *ranker._heavy_a, *ranker._heavy_b, ranker.d_tile
-    )
-    wt = hy._query_slab(u_pad, qb_t, qw_t, u_tile, True)
-    ev[1].record()
-    h_t = scores_matmul(m.T, wt)[:, : ld.shape[0]].contiguous()
-    ev[2].record()
-    ts, ti = light_add_topk_t(
-        h_t, ld.T.contiguous(), lc.T.contiguous(), k=K, d_tile=d_lt
-    )
-    top_s, top_pos = torch.topk(ts.T, K, dim=1)
-    ev[3].record()
-    torch.cuda.synchronize()
+    splits = []
+    for _ in range(2):  # the second batch reuses the first one's buffers
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        m, u_tile = hy._bucketed_membership(
+            u_pad, *ranker._heavy_a, *ranker._heavy_b, ranker.d_tile
+        )
+        wt = hy._query_slab(u_pad, qb_t, qw_t, u_tile, True)
+        ev[1].record()
+        h_t = scores_matmul(m.T, wt)[:, : ld.shape[0]].contiguous()
+        ev[2].record()
+        ts, ti = light_add_topk_t(
+            h_t, ld.T.contiguous(), lc.T.contiguous(), k=K, d_tile=d_lt
+        )
+        top_s, top_pos = torch.topk(ts.T, K, dim=1)
+        ev[3].record()
+        torch.cuda.synchronize()
+        splits.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+        if len(splits) == 1:
+            del m, wt, h_t, ts, ti, top_s, top_pos
+    first, ms = splits[0][0], splits[1]
     log(f"phase 5: split of one batch: host vectorize + pool gather "
-        f"{host_ms:.2f} ms, upload {upload_ms:.2f} ms, slabs "
-        f"{ev[0].elapsed_time(ev[1]):.3f} ms, GEMM "
-        f"{ev[1].elapsed_time(ev[2]):.3f} ms, light-add + top-k "
-        f"{ev[2].elapsed_time(ev[3]):.3f} ms")
+        f"{host_ms:.2f} ms, upload {upload_ms:.2f} ms, slabs {ms[0]:.3f} ms (the "
+        f"first batch, which allocates the buffers: {first:.3f} ms), GEMM "
+        f"{ms[1]:.3f} ms, light-add + top-k {ms[2]:.3f} ms")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"phases 1-5: {time.perf_counter() - t_sparse:.1f} s")
     del ranker, m, wt, h_t, ts, ti, top_s, top_pos, u_pad, qb_t, qw_t, ld, lc

@@ -20,38 +20,43 @@
 // 4096) and walks them in chunks of 64 rows: the [64, 128] tile is zero in
 // shared memory, each thread adds its own doc's hits into its own tile
 // column, and the block streams the tile out in 16-byte stores, one
-// 512-byte row segment a warp. Every slab cell is written once; nothing is
-// zeroed beforehand and nothing is read back. No two threads share a
-// column, so there are no atomics, and each cell sums its terms in k order
-// from 0, the Pallas loop's order: the slab is bit-identical to the
-// compare contract (adding 0 where a term does not match changes no sum,
-// because a sum from +0 is never -0).
+// 512-byte row segment a warp, marked evict-first (__stcs): the slab is
+// not read again here, and its stores would otherwise push out of L2 the
+// terms that each block reads twice (the check, then the cursor). Every
+// slab cell is written once; nothing is zeroed beforehand and nothing is
+// read back. No two threads share a column, so there are no atomics, and
+// each cell sums its terms in k order from 0, the Pallas loop's order: the
+// slab is bit-identical to the compare contract (adding 0 where a term does
+// not match changes no sum, because a sum from +0 is never -0).
 //
-// A doc whose terms ascend with its pads trailing is walked by a cursor
-// that reads each term once, four loads in flight, from the first term at
-// or above the block's first id (a binary search over k), in the chunk
-// whose ids it falls among: it stops at the first term past the chunk's last id and
-// resumes there in the next chunk, so the reads spread over the chunks and
-// overlap the block's stores. It keeps `floor`, the first slot past the
-// last term's: a term below that slot's id is not in the union (one
-// compare), any other is binary-searched from there within the chunk (the
-// first equal slot and the run of equal slots: a union padded with copies
-// of its last value matches every copy, and such a run may span chunks).
-// It stops reading once `floor` passes the block's rows. Equal terms of a
-// doc stand together and hit the same slots, so the cursor sums their
-// values first (from 0, in k order: the bits of the cells' own sums).
-// membership_slab_windowed's inputs ascend by contract and take the cursor
-// outright; membership_slab checks each doc first, and a doc whose terms do
-// not (a query with bucket-0 pads after its terms, or a pad before a term)
-// rescans its terms in every chunk, searching only those inside the chunk's value range. Ids
-// below 0 are skipped, and an id absent from the union has no run, so
-// out-of-range ids never write. Query pads are bucket 0 with weight 0 and
-// add 0 to a real slot 0.
+// Each thread first reads its doc's terms once, sixteen loads in flight,
+// to check that they ascend with the pads trailing and to count those below
+// the block's first id (where a block whose rows start past slot 0 starts
+// reading). A doc that passes is walked by a cursor that reads each term
+// once, four loads in flight, in the chunk whose ids it falls among: it
+// stops at the first term past the chunk's last id and resumes there in the
+// next chunk, so the reads spread over the chunks and overlap the block's
+// stores. It keeps `floor`, the first slot past the last term's: a term
+// below that slot's id is not in the union (one compare), any other is
+// binary-searched from there within the chunk (the first equal slot and the
+// run of equal slots: a union padded with copies of its last value matches
+// every copy, and such a run may span chunks). It stops reading once
+// `floor` passes the block's rows. Equal terms of a doc stand together and
+// hit the same slots, so the cursor sums their values first (from 0, in k
+// order: the bits of the cells' own sums). A doc that fails the check (a
+// query with bucket-0 pads after its terms, or a pad before a term) rereads
+// its terms in every chunk, eight loads in flight, and searches only those
+// inside the chunk's value range. So the slab never depends on the order
+// of the terms: membership_slab_windowed's inputs ascend by contract and
+// pass the check. Ids below 0 are skipped, and an id absent from the union
+// has no run, so out-of-range ids never write. Query pads are bucket 0 with
+// weight 0 and add 0 to a real slot 0.
 //
 // Bound on this card: memory. The slab is U*N*4 bytes written once (2.05 GB
 // for both buckets at 1M docs, 0.61 ms at 3.35 TB/s), plus the ELL rows read
-// once (K*N*8 bytes; a block of a split range reads its docs' terms up to
-// its last slot's id again). The searches are shared-memory reads.
+// once (K*N*8 bytes; every block of a split range reads its docs' terms
+// again for the check, mostly from L2). The searches are shared-memory
+// reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -109,7 +114,6 @@ __device__ __forceinline__ int64_t lower_bound(const int32_t* u, int64_t r_lo,
   return lo;
 }
 
-template <bool kCheckOrder>
 __global__ void __launch_bounds__(kDocs)
 membership_slab_kernel(const int32_t* __restrict__ u_sorted, int64_t U,
                        const int32_t* __restrict__ terms,
@@ -131,46 +135,33 @@ membership_slab_kernel(const int32_t* __restrict__ u_sorted, int64_t U,
     smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  bool ascending = live;  // terms ascend, pads trailing
-  if (kCheckOrder && live) {
+  // The check: terms ascend with the pads trailing. For such a doc, `lo`
+  // counts the terms below the block's first id, where its cursor starts.
+  bool ascending = live;
+  int64_t lo = 0;
+  if (live) {
+    const int32_t first = R0 > 0 ? u_sorted[R0] : 0;
     int32_t prev = 0;
     bool pads = false;
-    for (int64_t k0 = 0; k0 < K && ascending; k0 += 4) {
-      int32_t t[4];  // four loads in flight
+    for (int64_t k0 = 0; k0 < K; k0 += 16) {
+      int32_t t[16];  // sixteen loads in flight
 #pragma unroll
-      for (int i = 0; i < 4; ++i) t[i] = k0 + i < K ? terms[(k0 + i) * N + d] : -1;
+      for (int i = 0; i < 16; ++i) t[i] = k0 + i < K ? terms[(k0 + i) * N + d] : -1;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (t[i] < 0) {
-          pads = true;
-        } else if (pads || t[i] < prev) {
-          ascending = false;
-        } else {
-          prev = t[i];
-        }
+      for (int i = 0; i < 16; ++i) {
+        const bool pad = t[i] < 0;
+        ascending = ascending && (pad || (!pads && t[i] >= prev));
+        if (!pad) prev = t[i];
+        pads = pads || pad;
+        lo += !pad && t[i] < first;
       }
     }
   }
 
   // The cursor. Slots below `floor` hold ids below every term not yet read;
-  // a pending hit adds p_val to slots [p_lo, p_end). A block whose rows
-  // start past slot 0 finds its doc's first term at or above its first id
-  // by binary search over k.
+  // a pending hit adds p_val to slots [p_lo, p_end).
   TermStream ts;
-  if (ascending) {
-    int64_t lo = 0, hi = R0 > 0 ? K : 0;
-    const int32_t first = R0 > 0 ? u_sorted[R0] : 0;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      const int32_t t = terms[mid * N + d];
-      if (t >= 0 && t < first) {
-        lo = mid + 1;
-      } else {
-        hi = mid;
-      }
-    }
-    ts.begin(terms + d, N, K, lo);
-  }
+  if (ascending) ts.begin(terms + d, N, K, lo);
   int64_t floor = R0, p_lo = 0, p_end = 0;
   float p_val = 0.f;
   bool pending = false;
@@ -215,13 +206,18 @@ membership_slab_kernel(const int32_t* __restrict__ u_sorted, int64_t U,
       }
     } else if (live) {
       const int32_t v_lo = su[r0 - R0], v_hi = su[r1 - 1 - R0];
-      for (int64_t k = 0; k < K; ++k) {
-        const int32_t t = terms[k * N + d];
-        if (t < 0 || t < v_lo || t > v_hi) continue;
-        const float c = contrib[k * N + d];
-        for (int64_t s = lower_bound(su, R0, r0, r1, t); s < r1 && su[s - R0] == t;
-             ++s) {
-          col[(s - r0) * kDocs] += c;
+      for (int64_t k0 = 0; k0 < K; k0 += 8) {
+        int32_t t[8];  // eight loads in flight
+#pragma unroll
+        for (int i = 0; i < 8; ++i) t[i] = k0 + i < K ? terms[(k0 + i) * N + d] : -1;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (t[i] < 0 || t[i] < v_lo || t[i] > v_hi) continue;
+          const float c = contrib[(k0 + i) * N + d];
+          for (int64_t s = lower_bound(su, R0, r0, r1, t[i]);
+               s < r1 && su[s - R0] == t[i]; ++s) {
+            col[(s - r0) * kDocs] += c;
+          }
         }
       }
     }
@@ -234,7 +230,7 @@ membership_slab_kernel(const int32_t* __restrict__ u_sorted, int64_t U,
       float* dst = out + (r0 + row) * ld + col0 + c;
       const float4 v = smem4[q];
       if (aligned && c + 3 < N) {
-        *reinterpret_cast<float4*>(dst) = v;
+        __stcs(reinterpret_cast<float4*>(dst), v);  // evict first
       } else if (c < N) {  // the ragged edge, or an unaligned buffer
         dst[0] = v.x;
         if (c + 1 < N) dst[1] = v.y;
@@ -247,7 +243,6 @@ membership_slab_kernel(const int32_t* __restrict__ u_sorted, int64_t U,
   }
 }
 
-template <bool kCheckOrder>
 int launch(const void* u_sorted, int64_t U, const void* terms, const void* contrib,
            int64_t K, int64_t N, void* out, int64_t ld, int64_t col0,
            void* stream) {
@@ -265,42 +260,32 @@ int launch(const void* u_sorted, int64_t U, const void* terms, const void* contr
   const size_t smem = sizeof(float) * kRows * kDocs + sizeof(int32_t) * block_rows;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        membership_slab_kernel<kCheckOrder>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        membership_slab_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const bool aligned = reinterpret_cast<uintptr_t>(out) % 16 == 0 && ld % 4 == 0 &&
                        col0 % 4 == 0;
   const dim3 grid(static_cast<unsigned>(col_blocks), static_cast<unsigned>(splits));
-  membership_slab_kernel<kCheckOrder>
-      <<<grid, kDocs, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(u_sorted), U,
-          static_cast<const int32_t*>(terms), static_cast<const float*>(contrib), K,
-          N, static_cast<float*>(out), ld, col0, block_rows, aligned);
+  membership_slab_kernel<<<grid, kDocs, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(u_sorted), U, static_cast<const int32_t*>(terms),
+      static_cast<const float*>(contrib), K, N, static_cast<float*>(out), ld, col0,
+      block_rows, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// u_sorted [U] i32 ascending, terms/contrib [K, N] i32/f32 k-major; the slab
-// goes to out[u * ld + col0 + d] for u < U, d < N (every such cell written,
-// nothing else touched). Needs col0 + N <= ld, N / 128 < 2^31 and U / 64 <
-// 65536 (the wrapper checks). Returns cudaGetLastError() after the launch.
+// u_sorted [U] i32 ascending, terms/contrib [K, N] i32/f32 k-major, in any
+// order down a column; the slab goes to out[u * ld + col0 + d] for u < U,
+// d < N (every such cell written, nothing else touched). Needs col0 + N <=
+// ld, N / 128 < 2^31 and U / 64 < 65536 (the wrapper checks). Returns
+// cudaGetLastError() after the launch.
 extern "C" int ircl_membership_slab(const void* u_sorted, int64_t U,
                                     const void* terms, const void* contrib,
                                     int64_t K, int64_t N, void* out, int64_t ld,
                                     int64_t col0, void* stream) {
-  return launch<true>(u_sorted, U, terms, contrib, K, N, out, ld, col0, stream);
-}
-
-// The same slab for terms that ascend down every column with the pads (-1)
-// trailing: membership_slab_windowed's contract. No order check.
-extern "C" int ircl_membership_slab_windowed(const void* u_sorted, int64_t U,
-                                             const void* terms, const void* contrib,
-                                             int64_t K, int64_t N, void* out,
-                                             int64_t ld, int64_t col0,
-                                             void* stream) {
-  return launch<false>(u_sorted, U, terms, contrib, K, N, out, ld, col0, stream);
+  return launch(u_sorted, U, terms, contrib, K, N, out, ld, col0, stream);
 }
 
 // Name of a CUDA error code, for the wrappers' exceptions.

@@ -12,9 +12,10 @@ functions' arguments and k-major ``[K, N]`` layouts. On CUDA tensors both
 launch ``csrc/membership_slab.cu``, which resolves each term to its slab
 rows once instead of comparing every cell and writes every cell once (see
 the note in that file); on CPU tensors both run ``membership_slab_ref``,
-the compare loop of the contract. The three agree bit for bit. Both take
-``out=`` and ``col_offset=``, keyword-only, to fill a column range of a
-larger buffer (``ops/hybrid.py::_bucketed_membership``).
+the compare loop of the contract. The three agree bit for bit.
+``membership_slab_windowed`` also takes ``out=`` and ``col_offset=``,
+keyword-only, to fill a column range of a larger buffer
+(``ops/hybrid.py::_bucketed_membership``).
 ``membership_topk_fused`` is the ELL engine's
 top-k over the two slabs.
 """
@@ -110,9 +111,9 @@ def _check_slab_geometry(u_sorted, terms_t) -> None:
         raise ValueError(f"{terms_t.shape[1]} docs exceed the kernel's grid")
 
 
-def _slab(fn, entry, u_sorted, terms_t, contrib_t, out, col_offset):
+def _slab(fn, u_sorted, terms_t, contrib_t, out=None, col_offset=0):
     """The slab on CPU tensors (plain version) or from the CUDA entry point
-    ``entry`` (``ircl_membership_slab`` or its windowed twin), returned as
+    ``ircl_membership_slab``, counted as a launch of ``fn``, returned as
     ``out``'s columns [col_offset, col_offset + N) when ``out`` is given."""
     _check_slab_args(u_sorted, terms_t, contrib_t)
     _check_out(out, col_offset, u_sorted, terms_t)
@@ -134,7 +135,7 @@ def _slab(fn, entry, u_sorted, terms_t, contrib_t, out, col_offset):
             (u_sorted.shape[0], n), dtype=torch.float32, device=u_sorted.device
         )
     with torch.cuda.device(u_sorted.device):
-        rc = getattr(kern.lib, entry)(
+        rc = kern.lib.ircl_membership_slab(
             u_sorted.data_ptr(), u_sorted.shape[0],
             terms_t.data_ptr(), contrib_t.data_ptr(),
             terms_t.shape[0], n, out.data_ptr(), out.shape[1], col_offset,
@@ -151,18 +152,12 @@ def membership_slab(
     contrib_t: torch.Tensor,  # [K, N] f32 values (0 on padding)
     u_tile: int = 512,
     d_tile: int = 256,
-    *,
-    out: torch.Tensor | None = None,  # [U, >= N] f32: write the slab into it
-    col_offset: int = 0,  # at out's columns [col_offset, col_offset + N)
 ) -> torch.Tensor:
     """Dense slab M [U, N] (exact). ``u_tile`` and ``d_tile`` are the Pallas
     grid tiles; the CUDA kernel has no such tiles and ignores them, and it
-    takes any U, N and K. With ``out`` the slab fills that buffer's columns
-    [col_offset, col_offset + N), leaving the others as they are, and the
-    view of those columns is returned. CPU tensors go to
+    takes any U, N and K, in any order down a column. CPU tensors go to
     ``membership_slab_ref``."""
-    return _slab(membership_slab, "ircl_membership_slab", u_sorted, terms_t,
-                 contrib_t, out, col_offset)
+    return _slab(membership_slab, u_sorted, terms_t, contrib_t)
 
 
 membership_slab.launches = 0
@@ -176,18 +171,20 @@ def membership_slab_windowed(
     u_tile: int = 512,
     d_tile: int = 256,
     *,
-    out: torch.Tensor | None = None,
-    col_offset: int = 0,
+    out: torch.Tensor | None = None,  # [U, >= N] f32: write the slab into it
+    col_offset: int = 0,  # at out's columns [col_offset, col_offset + N)
 ) -> torch.Tensor:
     """The slab of ``membership_slab`` for inputs whose columns ascend with
     pads trailing. The Pallas version cut each grid cell's k loop to a
-    value window; the CUDA kernel walks each column's terms once with a
-    cursor, relying on that order without checking it (``membership_slab``
-    checks each column). Same tiles, ``out`` and ``col_offset`` as
-    ``membership_slab``; its own launch count, to mirror the reference's
-    call sites."""
-    return _slab(membership_slab_windowed, "ircl_membership_slab_windowed",
-                 u_sorted, terms_t, contrib_t, out, col_offset)
+    value window; the CUDA kernel is ``membership_slab``'s, which walks
+    such a column's terms once with a cursor (it checks the order, so the
+    slab is right for any input). Same tiles as ``membership_slab``; its
+    own launch count, to mirror the reference's call sites. With ``out``
+    the slab fills that buffer's columns [col_offset, col_offset + N),
+    leaving the others as they are, and the view of those columns is
+    returned."""
+    return _slab(membership_slab_windowed, u_sorted, terms_t, contrib_t, out,
+                 col_offset)
 
 
 membership_slab_windowed.launches = 0

@@ -18,12 +18,18 @@ this, parent:
   checkout's call goes to the kernel its wrapper would route it to (a
   checkout without ``ircl_dense_cmax_mma`` has the SIMT kernel only), with
   the largest difference between the two checkouts' chunk maxima;
-- #2 (and #1), the membership slabs, at the judged configuration's shapes
+- #2 and #1, the membership slabs, at the judged configuration's shapes
   (``bench.py``: 50,000 docs, 4096 claims; both width buckets into one
-  slab, and the query slab through both entry points) and at
-  ``bench_scale.py``'s (1M docs, 1024 queries): each checkout's call is
-  what its wrapper does, so a checkout whose entry point has no output
-  column offset zero-fills a slab a bucket and concatenates them;
+  slab, the query slab through both wrappers, and #1's ELL-docs slab of
+  ``chip_smoke.py`` phase 2: the ELL index of the first 20,000 docs and the
+  union of 256 claims) and at ``bench_scale.py``'s (1M docs, 1024
+  queries): each checkout's call is what its wrapper does, so a checkout
+  whose entry point has no output column offset zero-fills a slab a
+  bucket and concatenates them, and one with a separate entry point for
+  the windowed wrapper calls it there; for the two buckets and the ELL
+  docs, this checkout's time with no ELL row (the stores alone) and with a
+  union that no term matches (the terms read and searched), beside
+  ``torch.zeros`` of the same slab;
 - #5, the one-pass fused hybrid kernel, on both buckets of the 1M-doc
   index at ``chip_smoke.py`` phase 18's shapes, as given and with two
   ablations that show where its time goes: every ELL term a pad (the light
@@ -63,6 +69,8 @@ JUDGED_DOCS, JUDGED_CLAIMS = 50_000, 4096  # bench.py's configuration
 JUDGED_RANKER = dict(mode="hybrid", df_threshold=24, width_buckets=2,
                      fixed_union_cap=4096, fixed_max_terms=64, precision="high",
                      union_round=512)
+ELL_DOCS, ELL_CLAIMS = 20_000, 256  # chip_smoke.py phase 2's ELL slab
+ELL_RANKER = dict(mode="ell", fixed_max_terms=24, fixed_union_cap=4096, union_round=512)
 SCALE_DOCS, SCALE_TERMS, SCALE_VOCAB, SCALE_B = 1_000_000, 96, 2_000_000, 1024
 SCALE_RANKER = dict(mode="hybrid", df_threshold=256, width_buckets=2,
                     precision="high", fixed_max_terms=24, d_tile=512)
@@ -123,7 +131,9 @@ def dense_in_turns(parent, this, dev) -> dict:
 
 def judged_inputs(dev):
     """bench.py's ranker and one batch of its 4096 claims on the card:
-    (ranker, [u_pad, qb_t, qw_t, light docs, light contribs])."""
+    (ranker, [u_pad, qb_t, qw_t, light docs, light contribs], ELL docs),
+    ELL docs being chip_smoke.py phase 2's (union, terms, values) of the
+    ELL index over the first 20,000 docs and 256 claims."""
     from ircl_tpu_torch.corpus.store import MemoryDocStore
     from ircl_tpu_torch.corpus.synthetic import generate
     from ircl_tpu_torch.index.build import build_count_index
@@ -134,9 +144,16 @@ def judged_inputs(dev):
     store = MemoryDocStore({d: rec["text"] for d, rec in wiki.docs.items()})
     index = tfidf_transform(build_count_index(store, ngram=2, hash_size=HASH_SIZE))
     ranker = TfidfRanker(index, dev, **JUDGED_RANKER)
-    buckets, weights = ranker._vectorize([c.claim for c in wiki.claims])
+    claims = [c.claim for c in wiki.claims]
+    buckets, weights = ranker._vectorize(claims)
     host = ranker.hybrid_host_inputs(buckets, weights)
-    return ranker, [torch.tensor(np.ascontiguousarray(x), device=dev) for x in host]
+    index_ell = tfidf_transform(build_count_index(
+        store, ngram=2, hash_size=HASH_SIZE, doc_ids=store.get_doc_ids()[:ELL_DOCS]))
+    ell = TfidfRanker(index_ell, dev, **ELL_RANKER)
+    eb, ew = ell._vectorize(claims[:ELL_CLAIMS])
+    eu = torch.tensor(ell._union_slots(eb, ew, floor=4096), device=dev)
+    return (ranker, [torch.tensor(np.ascontiguousarray(x), device=dev) for x in host],
+            (eu, ell._ell_terms_t, ell._ell_vals_t))
 
 
 def scale_inputs(dev):
@@ -158,8 +175,9 @@ def _slab_call(kern, u, parts, windowed):
     else a zero-filled slab a part (the launch adds into it), concatenated."""
     lib = kern.lib
     offsets = len(lib.ircl_membership_slab.argtypes) == 10
-    entry = (lib.ircl_membership_slab_windowed if windowed and offsets
-             else lib.ircl_membership_slab)
+    entry = lib.ircl_membership_slab
+    if windowed and offsets and hasattr(lib, "ircl_membership_slab_windowed"):
+        entry = lib.ircl_membership_slab_windowed
     n_all = sum(t.shape[1] for t, _ in parts)
 
     def launch(terms, vals, out, *ld_col):
@@ -184,19 +202,22 @@ def _slab_call(kern, u, parts, windowed):
     return call
 
 
-def slab_in_turns(parent, this, ranker, dev_in) -> dict:
+def slab_in_turns(parent, this, ranker, dev_in, ell=None) -> dict:
     u, qb_t, qw_t = dev_in[:3]
     cases = {
-        "buckets a + b, windowed": ([ranker._heavy_a, ranker._heavy_b], True),
-        "query, windowed": ([(qb_t, qw_t)], True),
-        "query, membership_slab": ([(qb_t, qw_t)], False),
+        "buckets a + b, windowed": (u, [ranker._heavy_a, ranker._heavy_b], True),
+        "query, windowed": (u, [(qb_t, qw_t)], True),
+        "query, membership_slab": (u, [(qb_t, qw_t)], False),
     }
     report = {"U": u.shape[0], "buckets": [list(ranker._heavy_a[0].shape),
                                            list(ranker._heavy_b[0].shape)],
               "query": list(qb_t.shape)}
-    for label, (parts, windowed) in cases.items():
-        p_call = _slab_call(parent, u, parts, windowed)
-        t_call = _slab_call(this, u, parts, windowed)
+    if ell is not None:  # #1's main launch
+        cases["ELL docs, membership_slab"] = (ell[0], [ell[1:]], False)
+        report["ELL docs"] = {"U": ell[0].shape[0], "terms": list(ell[1].shape)}
+    for label, (u_in, parts, windowed) in cases.items():
+        p_call = _slab_call(parent, u_in, parts, windowed)
+        t_call = _slab_call(this, u_in, parts, windowed)
         p_out, t_out = p_call(), t_call()
         torch.cuda.synchronize()
         report[label] = {
@@ -206,20 +227,23 @@ def slab_in_turns(parent, this, ranker, dev_in) -> dict:
         }
         del p_out, t_out
         torch.cuda.empty_cache()
-    # where this checkout's time goes on the two buckets: the stores alone
-    # (no ELL row: every cell a 0), and the terms read and searched with no
-    # hit (a union above every term); torch.zeros of the same slab beside
-    # them, as the card's rate of plain writes
-    parts = [ranker._heavy_a, ranker._heavy_b]
-    never = u + (1 << 30)
-    n_all = sum(t.shape[1] for t, _ in parts)
-    report["buckets a + b, this checkout's parts"] = {
-        "ms_stores_only": _ms(_slab_call(this, u, [(t[:0], v[:0]) for t, v in parts],
-                                         True)),
-        "ms_no_hit": _ms(_slab_call(this, never, parts, True)),
-        "ms_as_given": _ms(_slab_call(this, u, parts, True)),
-        "ms_torch_zeros": _ms(lambda: torch.zeros(u.shape[0], n_all, device=u.device)),
-    }
+    # where this checkout's time goes on the two buckets (and #1's ELL
+    # docs): the stores alone (no ELL row: every cell a 0), and the terms
+    # read and searched with no hit (a union above every term); torch.zeros
+    # of the same slab beside them, as the card's rate of plain writes
+    for label in ("buckets a + b, windowed", "ELL docs, membership_slab"):
+        if label not in cases:
+            continue
+        u_in, parts, windowed = cases[label]
+        n_all = sum(t.shape[1] for t, _ in parts)
+        report[label.split(",")[0] + ", this checkout's parts"] = {
+            "ms_stores_only": _ms(_slab_call(
+                this, u_in, [(t[:0], v[:0]) for t, v in parts], windowed)),
+            "ms_no_hit": _ms(_slab_call(this, u_in + (1 << 30), parts, windowed)),
+            "ms_as_given": _ms(_slab_call(this, u_in, parts, windowed)),
+            "ms_torch_zeros": _ms(
+                lambda: torch.zeros(u_in.shape[0], n_all, device=u_in.device)),
+        }
     return report
 
 
@@ -295,10 +319,10 @@ def main() -> None:
         report["dense_chunk_max_in_turns"] = dense_in_turns(parent, this, dev)
         torch.cuda.empty_cache()
     if "slab" in parts:
-        ranker, dev_in = judged_inputs(dev)
+        ranker, dev_in, ell = judged_inputs(dev)
         report["membership_slab_50k_in_turns"] = slab_in_turns(parent, this, ranker,
-                                                               dev_in)
-        del ranker, dev_in
+                                                               dev_in, ell)
+        del ranker, dev_in, ell
         torch.cuda.empty_cache()
     if parts & {"slab", "onepass"}:
         ranker, dev_in = scale_inputs(dev)

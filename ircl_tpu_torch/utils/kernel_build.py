@@ -47,8 +47,6 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     # name: (argtypes, restype)
     "ircl_membership_slab": ([_P, _I, _P, _P, _I, _I, _P, _I, _I, _P], ctypes.c_int),
-    "ircl_membership_slab_windowed": ([_P, _I, _P, _P, _I, _I, _P, _I, _I, _P],
-                                      ctypes.c_int),
     "ircl_light_add_topk": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
                             ctypes.c_int),
     "ircl_dense_cmax": ([_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -33,9 +33,10 @@ def test_every_entry_point_has_a_signature():
         assert restype is not None
     # pointers and the stream cross as c_void_p, never as a 32-bit int
     assert ctypes.c_int not in kb._SIGNATURES["ircl_membership_slab"][0]
-    # both slab entries write into a column range of a buffer: out, its
-    # leading dimension and the column offset, then the stream
-    for name in ("ircl_membership_slab", "ircl_membership_slab_windowed"):
+    # the slab entry (both slab wrappers' one kernel) writes into a column
+    # range of a buffer: out, its leading dimension and the column offset,
+    # then the stream
+    for name in ("ircl_membership_slab",):
         assert kb._SIGNATURES[name][0] == [ctypes.c_void_p, ctypes.c_int64,
                                            ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_int64, ctypes.c_int64,
@@ -72,8 +73,8 @@ def test_every_c_entry_point_is_listed():
     text = "".join(open(p, encoding="utf-8").read() for p in kb.sources())
     found = set(re.findall(r'extern "C" [\w\s*]+?\b(ircl_\w+)\(', text))
     assert found == set(kb._SIGNATURES)
-    assert {"ircl_membership_slab", "ircl_membership_slab_windowed",
-            "ircl_fused_hybrid"} <= found
+    assert {"ircl_membership_slab", "ircl_fused_hybrid"} <= found
+    assert "ircl_membership_slab_windowed" not in found  # one slab kernel
 
 
 def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):

@@ -184,18 +184,27 @@ def test_bucketed_membership_fills_one_buffer(buckets):
 
 @pytest.mark.parametrize("windowed", [False, True], ids=["plain", "windowed"])
 def test_out_and_col_offset_are_honoured(inputs, windowed):
-    """The plain path writes the slab into ``out``'s columns [col_offset,
-    col_offset + N), returns that view and leaves the other columns alone."""
-    fn = mc.membership_slab_windowed if windowed else mc.membership_slab
+    """The windowed wrapper's plain path writes the slab into ``out``'s
+    columns [col_offset, col_offset + N), returns that view and leaves the
+    other columns alone; ``membership_slab`` keeps the reference's arguments
+    (no ``out``) and returns the same slab on its own."""
     u, tt, vt = _t(inputs["u"]), _t(inputs["tt"]), _t(inputs["vt"])
     n = tt.shape[1]
     out = torch.full((u.shape[0], n + 12), 7.0)
-    got = fn(u, tt, vt, out=out, col_offset=5)
     want = mc.membership_slab_ref(u, tt, vt)
+    if not windowed:
+        with pytest.raises(TypeError):
+            mc.membership_slab(u, tt, vt, out=out, col_offset=5)
+        assert (out == 7.0).all()
+        mc.membership_slab_windowed(u, tt, vt, out=out, col_offset=5)
+        assert torch.equal(mc.membership_slab(u, tt, vt), out[:, 5 : 5 + n])
+        return
+    got = mc.membership_slab_windowed(u, tt, vt, out=out, col_offset=5)
     assert got.data_ptr() == out[:, 5:].data_ptr() and got.shape == want.shape
     assert torch.equal(got, want) and torch.equal(out[:, 5 : 5 + n], want)
     assert (out[:, :5] == 7.0).all() and (out[:, 5 + n :] == 7.0).all()
-    assert torch.equal(fn(u, tt, vt, out=torch.empty(u.shape[0], n)), want)
+    assert torch.equal(
+        mc.membership_slab_windowed(u, tt, vt, out=torch.empty(u.shape[0], n)), want)
 
 
 @pytest.mark.parametrize(
@@ -250,7 +259,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, exc):
         terms, vals = terms.T, vals.T
     elif case == "meta_device":  # neither CPU nor CUDA: no kernel, no fallback
         u, terms, vals = (x.to("meta") for x in (u, terms, vals))
-    for fn in (mc.membership_slab, mc.membership_slab_windowed):
+    # out= and col_offset= are the windowed wrapper's alone
+    for fn in ((mc.membership_slab_windowed,) if kw else
+               (mc.membership_slab, mc.membership_slab_windowed)):
         with pytest.raises(exc):
             fn(u, terms, vals, **kw)
 
