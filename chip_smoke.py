@@ -14,7 +14,10 @@ Phases, each printed as it runs:
    shapes of the main path, with CUDA-event times for both; the slab
    kernel also with both width buckets launched into one shared buffer,
    and on seeded edge cases (runs of equal union slots, repeated terms,
-   terms out of order, a wide union, unaligned column offsets);
+   terms out of order, a wide union, unaligned column offsets); the light
+   add on seeded edge cases, bit for bit (k on and above its register
+   lists, ties across its row groups, one column's pool in one d-tile,
+   empty pools, other d_tile, B off its column block and odd);
 3. the served path, hybrid: ``make_service`` + ``serve_stdin`` over JSONL,
    every reply held against scipy's top-k;
 4. the served path, ELL (20K docs, ``mode="auto"``), checked the same way;
@@ -67,8 +70,10 @@ Phases, each printed as it runs:
     ``VerdictClassifier`` and held to ``predict_in_batches``, whose
     examples/s at batch 64 is printed;
 16. the two probe kernels against their plain versions: the fused dot +
-    light add on phase 5's 50K-doc operands (slabs split into bf16 halves),
-    also held to the fused engine's top-5; the pre-split dense chunk-max on
+    light add on seeded edge cases (U off its stages and empty, B off its
+    column block, other d_tile, k above its register lists) and on phase
+    5's 50K-doc operands (slabs split into bf16 halves), also held to the
+    fused engine's top-5; the pre-split dense chunk-max on
     phase 7's 1M x 128 corpus, bit for bit equal to the "high3" kernel, and
     ``cosine_topk_fused_presplit`` through ``bench_dense.py``'s gate;
 17. sparse retrieval at scale, ``bench_scale.py``'s configuration: a
@@ -1489,6 +1494,108 @@ def slab_edge_cases(dev):
         f"U=20000, ragged N at unaligned column offsets, K=0)")
 
 
+def seeded_pools(rng, n_pad, B, P, one_tile=None):
+    """Doc-ascending pools [P, B] as the ranker gathers them: a random
+    share of each column real, the tail padded with ``n_pad``; column 0
+    held inside ``one_tile = (lo, hi)`` when given."""
+    docs = np.sort(rng.integers(0, n_pad, size=(P, B)), axis=0)
+    if one_tile is not None:
+        docs[:, 0] = np.sort(rng.integers(*one_tile, size=P))
+    fill = rng.integers(P // 2, P + 1, size=B)
+    docs = np.where(np.arange(P)[:, None] < fill[None, :], docs, n_pad).astype(np.int32)
+    contribs = np.where(docs < n_pad, rng.integers(1, 4, size=(P, B)) * 0.5, 0.0)
+    return docs, contribs.astype(np.float32)
+
+
+def light_add_edge_cases(dev):
+    """``light_add_topk_t`` on seeded inputs that the judged shapes do not
+    reach, each bit for bit against the plain version (ids equal off exact
+    ties): scores of small integers (many exact ties), k = 1, 5, 8 on the
+    register lists and k = 9 above them, runs of equal scores across the
+    row groups' borders, a column whose whole pool falls in one d-tile,
+    empty pools, d_tile 256, 512 and 1024, B off the kernel's 64-column
+    block (200) and odd (37: the column kernel)."""
+    import torch
+
+    from ircl_tpu_torch.ops.light_add_cuda import light_add_topk_t, light_add_topk_t_ref
+
+    rng = np.random.default_rng(3)
+    n_checked = 0
+    for n_pad, B, P, k, d_tile, case in (
+            (4096, 256, 48, 1, 256, "ties"), (4096, 256, 48, 5, 512, "ties"),
+            (4096, 256, 48, 8, 1024, "ties"), (4096, 256, 48, 9, 1024, "ties"),
+            (4096, 192, 40, 5, 256, "straddle"), (4096, 200, 40, 5, 512, "one tile"),
+            (4096, 128, 40, 8, 256, "empty pools"), (2048, 37, 24, 5, 256, "ties")):
+        h = rng.integers(0, 6, size=(n_pad, B)).astype(np.float32)
+        h *= rng.random((n_pad, B)) < 0.5
+        if case == "straddle":  # equal scores on both sides of every border
+            h[:] = 0.0
+            border = np.arange(d_tile // 8, n_pad, d_tile // 8)
+            for off in (-2, -1, 0, 1):
+                h[border + off] = 3.0
+        docs, contribs = seeded_pools(rng, n_pad, B, P, (512, 512 + d_tile)
+                                      if case == "one tile" else None)
+        if case == "empty pools":
+            docs, contribs = docs[:0], contribs[:0]
+        args = [torch.tensor(np.ascontiguousarray(x), device=dev)
+                for x in (h, docs, contribs)]
+        s1, i1 = light_add_topk_t(*args, k=k, d_tile=d_tile)
+        s2, i2 = light_add_topk_t_ref(*args, k=k, d_tile=d_tile)
+        torch.cuda.synchronize()
+        if not torch.equal(s1, s2) or not bool(((i1 == i2) | (s1 == s2)).all()):
+            fail(f"phase 2: light_add_topk_t ({case}, B={B}, k={k}, d_tile={d_tile}) "
+                 f"differs from its plain version")
+        n_checked += 1
+    log(f"phase 2: light add edge cases: {n_checked} calls bit-equal to the plain "
+        f"version (k = 1, 5, 8, 9; ties across row groups; one column's pool in one "
+        f"d-tile; empty pools; d_tile 256, 512, 1024; B = 200 and 37)")
+
+
+def fused_dot_light_edge_cases(dev):
+    """``fused_dot_light_topk`` on seeded sparse slabs that phase 16's shape
+    does not reach, each within the probe's bound of the plain version,
+    every differing position carrying its own plain total: U off the
+    kernel's 32-row stage (100, 1000) and empty, B off its 256-column block
+    (64, 320), d_tile 128, 256 and 1024, k = 12 (above the register list)."""
+    import torch
+
+    from ircl_tpu_torch.ops.fused_dot_light_cuda import (
+        fused_dot_light_topk, fused_dot_light_topk_ref, high3_scores_t_ref, split_hi_lo,
+    )
+
+    rng = np.random.default_rng(16)
+    n_checked = 0
+    for U, n, B, P, k, d_tile in ((100, 1024, 320, 16, 5, 256),
+                                  (1000, 2048, 64, 24, 5, 128),
+                                  (256, 2048, 256, 20, 5, 1024),
+                                  (0, 512, 128, 8, 5, 256),
+                                  (300, 2048, 192, 20, 12, 1024)):
+        m = (rng.random((U, n)) < 0.05) * rng.random((U, n))
+        w = (rng.random((U, B)) < 0.05) * rng.random((U, B))
+        (mh, ml), (wh, wl) = (split_hi_lo(torch.tensor(x, dtype=torch.float32, device=dev))
+                              for x in (m, w))
+        sd, sv = (torch.tensor(x, device=dev) for x in seeded_pools(rng, n, B, P))
+        args = (mh, ml, wh, wl, sd, sv)
+        got = fused_dot_light_topk(*args, k=k, d_tile=d_tile)
+        ref = fused_dot_light_topk_ref(*args, k=k, d_tile=d_tile)
+        h_t = high3_scores_t_ref(mh, ml, wh, wl)
+        k8 = -(-k // 8) * 8
+
+        def own(rows, cols, pos):
+            totals = plain_totals_at(h_t, sd, sv, pos, cols)
+            return torch.where(pos // d_tile == rows // k8, totals, torch.nan)
+
+        ok, err, _ = tiles_agree(got, ref, FUSED_DOT_RTOL, FUSED_DOT_ATOL, own)
+        if not ok:
+            fail(f"phase 16: fused_dot_light_topk (U={U}, N={n}, B={B}, k={k}, "
+                 f"d_tile={d_tile}) leaves the probe's bound of its plain version "
+                 f"({err})")
+        n_checked += 1
+    log(f"phase 16: fused dot + light add edge cases: {n_checked} calls within the "
+        f"probe's bound of the plain version (U = 100, 1000, 0; B = 64, 320, 192; "
+        f"d_tile 128, 256, 1024; k = 12)")
+
+
 def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense_ref,
                           results, launches):
     """Kernels #7 and #8 against their plain versions, then each driven
@@ -1506,6 +1613,7 @@ def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense
     )
 
     put = lambda x: torch.tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    fused_dot_light_edge_cases(dev)
     # ---- #7 on the judged configuration's operands (phase 5's) -------------
     ranker = TfidfRanker(
         index, dev, mode="hybrid", df_threshold=24, width_buckets=2,
@@ -1538,16 +1646,20 @@ def phase16_probe_kernels(dev, index, claims, dense_queries, dense_corpus, dense
         fail(f"phase 16: fused_dot_light_topk differs from its plain version: scores "
              f"by {err}, or one of {n_ids} differing positions does not carry its "
              f"own plain total")
+    live = ref[1] >= 0  # how much of the bound the scores use
+    used = float(((got[0] - ref[0]).abs() / (FUSED_DOT_ATOL + FUSED_DOT_RTOL
+                                             * ref[0].abs()))[live].max())
     t_k = cuda_ms(lambda: fused_dot_light_topk(*args, k=K, d_tile=d_lt), reps=2)
     t_p = cuda_ms(lambda: fused_dot_light_topk_ref(*args, k=K, d_tile=d_lt), reps=1)
     U, n_pad = m_hi.shape
     B = w_hi.shape[1]
     results["fused_dot_light_topk"] = dict(
-        max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+        max_abs_err=err, share_of_tolerance=used, ms=t_k, plain_ms=t_p, library_ms=None,
         **least_time((*args, *got), 3 * 2 * U * n_pad * B, BF16_FLOPS))
     log(f"phase 16: fused_dot_light_topk m [{U}, {n_pad}] x w [{U}, {B}] bf16 halves, "
         f"P={sd.shape[0]}, d_tile={d_lt}: per-tile scores within {err:.3g} of the "
-        f"plain version (bound rtol {FUSED_DOT_RTOL}, atol {FUSED_DOT_ATOL}; {n_ids} "
+        f"plain version, {used:.3f} of the bound at most (rtol {FUSED_DOT_RTOL}, "
+        f"atol {FUSED_DOT_ATOL}; {n_ids} "
         f"positions differ, each carrying its own plain total inside it); kernel {t_k:.3f} ms "
         f"({3 * 2 * U * n_pad * B / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.3f} ms, bound "
         f"{results['fused_dot_light_topk']['bound_ms']:.3f} ms; the split of both "
@@ -2114,6 +2226,7 @@ def main() -> None:
         f"d_tile={d_lt}: scores within rtol 1e-6 ({int((i1 != i2).sum())} "
         f"ids differ, all at ties); kernel {results['light_add_topk_t']['ms']:.3f}"
         f" ms, plain {results['light_add_topk_t']['plain_ms']:.3f} ms")
+    light_add_edge_cases(dev)
     log(f"phase 2: scoring GEMM [{h_t.shape[0]} x {u_pad.shape[0]}] @ "
         f"[{u_pad.shape[0]} x {h_t.shape[1]}] fp32: {gemm_ms:.3f} ms")
     del h_t, s1, i1, s2, i2

@@ -14,13 +14,14 @@ nearest even), and per (d-tile, column):
 
 then the tile's top-k, with ``light_add_topk_t``'s outputs and tie rule.
 On CUDA tensors ``fused_dot_light_topk`` launches ``csrc/fused_dot_light.cu``
-(bf16 tensor-core products, see the note there); on CPU tensors it runs
-``fused_dot_light_topk_ref``. A product of two bf16 values is exact in
-fp32, so the two differ only in the order of the fp32 sums (the kernel
-groups ``hi.hi + (lo.hi + hi.lo)``); both differ from the exact fp32 slab
-product by the dropped ``lo.lo`` term, about 2^-16 of a score: the probe
-holds itself to rtol 2e-5, atol 1e-5 against the fused engine, and so do
-the tests.
+(bf16 ``wgmma`` products on TMA-fed tiles, see the note there); on CPU
+tensors it runs ``fused_dot_light_topk_ref``. A product of two bf16 values
+is exact in fp32, so the two differ only in the order of the fp32 sums (the
+plain version groups ``(hi.hi + lo.hi) + hi.lo``, the kernel sums the three
+products of a union row into one accumulator); both differ from the exact
+fp32 slab product by the dropped ``lo.lo`` term, about 2^-16 of a score: the
+probe holds itself to rtol 2e-5, atol 1e-5 against the fused engine, and so
+do the tests.
 """
 
 from __future__ import annotations
@@ -33,7 +34,10 @@ from ircl_tpu_torch.ops.light_add_cuda import light_add_topk_t_ref
 from ircl_tpu_torch.ops.membership_cuda import scores_matmul
 from ircl_tpu_torch.utils.precision import split_hi_lo  # noqa: F401  (re-exported)
 
-_KERNEL_DOCS, _KERNEL_COLS, _KERNEL_UNION = 128, 64, 32  # fused_dot_light.cu's tiles
+# the kernel's contract: d_tile a multiple of its 128-doc sub-tile, B of 64
+# (its 256-column blocks read past B as zeros); the bf16 operands' rows and
+# bases 16-byte aligned for its TMA tiles
+_KERNEL_DOCS, _KERNEL_COLS, _TMA_ALIGN = 128, 64, 16
 
 
 def _check_args(m_hi, m_lo, w_hi, w_lo, docs_t, contribs_t, k, d_tile):
@@ -74,6 +78,28 @@ def _check_args(m_hi, m_lo, w_hi, w_lo, docs_t, contribs_t, k, d_tile):
         raise ValueError(f"k must be in [1, d_tile={d_tile}], got {k}")
 
 
+def kernel_geometry(m_hi, m_lo, w_hi, w_lo, d_tile: int):
+    """What the CUDA kernel takes beyond ``_check_args``: d_tile % 128 == 0,
+    B % 64 == 0, at most 65535 d-tiles, 16-byte aligned bf16 operands.
+    Returns (U, N_pad, B, n_dt) as the kernel is launched, U = 1 for an
+    empty union (the caller pads one zero row); raises otherwise."""
+    U, n = m_hi.shape
+    B = w_hi.shape[1]
+    n_dt = n // d_tile
+    if d_tile % _KERNEL_DOCS or B % _KERNEL_COLS:
+        raise ValueError(
+            f"the kernel needs d_tile % {_KERNEL_DOCS} == 0 and B % "
+            f"{_KERNEL_COLS} == 0, got d_tile={d_tile}, B={B}"
+        )
+    if n_dt > 65535:
+        raise ValueError(f"{n_dt} d-tiles exceed the kernel's grid (65535)")
+    if any(t.data_ptr() % _TMA_ALIGN for t in (m_hi, m_lo, w_hi, w_lo)):
+        raise ValueError(
+            f"the kernel's TMA tiles need {_TMA_ALIGN}-byte aligned bf16 operands"
+        )
+    return max(U, 1), n, B, n_dt
+
+
 def high3_scores_t_ref(m_hi, m_lo, w_hi, w_lo):
     """Plain heavy scores ``H_T [N_pad, B]``: the three dots as fp32 matrix
     products of the bf16 halves (TF32 off), summed in the probe kernel's
@@ -110,8 +136,9 @@ def fused_dot_light_topk(
     [n_dt * k8, B], doc positions [n_dt * k8, B]) as ``light_add_topk_t``
     does. ``d_tile`` shapes the output and is honoured; ``b_tile`` is the
     Pallas batch tile, which the CUDA kernel does not have, and is ignored.
-    The kernel takes d_tile % 128 == 0 and B % 64 == 0; a union that is not
-    a multiple of 32 is padded with zero rows here."""
+    The kernel takes d_tile % 128 == 0, B % 64 == 0 and 16-byte aligned
+    operands; it reads union rows past U as zeros, so only an empty union
+    is padded here (one zero row)."""
     _check_args(m_hi, m_lo, w_hi, w_lo, docs_t, contribs_t, k, d_tile)
     if m_hi.device.type == "cpu":
         return fused_dot_light_topk_ref(
@@ -121,23 +148,11 @@ def fused_dot_light_topk(
         raise ValueError(f"no fused dot + light add kernel for device {m_hi.device}")
     from ircl_tpu_torch.utils.kernel_build import load_kernels
 
-    U, n = m_hi.shape
-    B = w_hi.shape[1]
-    n_dt = n // d_tile
-    if d_tile % _KERNEL_DOCS or B % _KERNEL_COLS:
-        raise ValueError(
-            f"the kernel needs d_tile % {_KERNEL_DOCS} == 0 and B % "
-            f"{_KERNEL_COLS} == 0, got d_tile={d_tile}, B={B}"
-        )
-    if n_dt > 65535:
-        raise ValueError(f"{n_dt} d-tiles exceed the kernel's grid (65535)")
-    if U == 0 or U % _KERNEL_UNION:
-        extra = max(_KERNEL_UNION, -(-U // _KERNEL_UNION) * _KERNEL_UNION) - U
-        rows = (0, 0, 0, extra)  # zero union rows add nothing
+    U, n, B, n_dt = kernel_geometry(m_hi, m_lo, w_hi, w_lo, d_tile)
+    if U != m_hi.shape[0]:  # an empty union: one zero row adds nothing
         m_hi, m_lo, w_hi, w_lo = (
-            torch.nn.functional.pad(t, rows) for t in (m_hi, m_lo, w_hi, w_lo)
+            torch.nn.functional.pad(t, (0, 0, 0, U)) for t in (m_hi, m_lo, w_hi, w_lo)
         )
-        U += extra
     k8 = -(-k // 8) * 8
     kern = load_kernels()
     out_s = torch.empty((n_dt * k8, B), dtype=torch.float32, device=m_hi.device)

@@ -1,7 +1,7 @@
 """Kernels of this checkout against another's, in turns on one card.
 
     python3 -m ircl_tpu_torch.tools.kernels_in_turns --parent-root DIR
-        [--only flash,dense,slab,onepass] [--out FILE]
+        [--only flash,dense,slab,onepass,lightadd,dotlight] [--out FILE]
 
 DIR is another checkout of this repository (for example ``git archive`` of
 the parent commit, unpacked into a gitignored directory such as
@@ -34,7 +34,16 @@ this, parent:
   index at ``chip_smoke.py`` phase 18's shapes, as given and with two
   ablations that show where its time goes: every ELL term a pad (the light
   pools and the top-k alone) and a union that no term matches (the
-  searches added, no hit).
+  searches added, no hit);
+- #3, the light add + tile top-k, on ``chip_smoke.py`` phase 2's scores
+  (the judged configuration's ``H_T [51200, 4096]``, its pools, k=5,
+  ``d_tile`` 1024), as given and with three ablations: all-zero scores (the
+  list filled once and then rarely touched), empty pools (no run add), and
+  scores of -inf with empty pools (the stream alone: no row enters a list);
+  ``torch.amax`` over the same tiles beside them, as the card's rate of
+  plain reads;
+- #7, the fused dot + light add, on ``chip_smoke.py`` phase 16's operands
+  (the judged slabs split into bf16 halves), as given and with empty pools.
 
 Each part reports the largest difference between the two checkouts'
 outputs. Prints one JSON report, with the card's name and power limit as
@@ -296,10 +305,112 @@ def onepass_in_turns(parent, this, ranker, dev_in) -> dict:
     return report
 
 
+def _top_k_call(kern, entry, args, n_rows, B, d_tile):
+    """A checkout's light_add_topk_t-shaped C entry on ``args`` (everything
+    before d_tile, k and the outputs), into one pair of output buffers."""
+    n_dt, k8 = n_rows // d_tile, -(-K // 8) * 8
+    out_s = torch.empty(n_dt * k8, B, device="cuda")
+    out_i = torch.empty(n_dt * k8, B, dtype=torch.int32, device="cuda")
+
+    def call():
+        rc = getattr(kern.lib, entry)(*args, d_tile, K, out_s.data_ptr(), out_i.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+        kern.check(rc, f"{entry} launch")
+    return call, out_s, out_i
+
+
+def _compare(p, t, bit_equal=True, compare=True) -> dict:
+    """Both checkouts' calls in turns, with the difference between their
+    outputs (``compare=False`` for an ablation whose outputs are arbitrary)."""
+    (p_call, ps, pi), (t_call, ts, ti) = p, t
+    out = {}
+    if compare:
+        p_call()
+        t_call()
+        torch.cuda.synchronize()
+        out = {"max_abs_difference_parent_this": float((ps - ts).abs().max()),
+               "positions_that_differ": int((pi != ti).sum())}
+        if bit_equal:
+            out["bit_equal"] = bool(torch.equal(ps, ts) and torch.equal(pi, ti))
+    out["ms_in_turns"] = _in_turns(p_call, t_call)
+    return out
+
+
+def _judged_scores(ranker, dev_in):
+    """Phase 2's operands: the judged slab M [U, N_pad] and query slab
+    [U, B] f32, the pools [P, B]."""
+    from ircl_tpu_torch.ops import hybrid as hy
+
+    u, qb_t, qw_t, ld, lc = dev_in
+    m, u_tile = hy._bucketed_membership(u, *ranker._heavy_a, *ranker._heavy_b,
+                                        ranker.d_tile)
+    wt = hy._query_slab(u, qb_t, qw_t, u_tile, True)[:, : ld.shape[0]].contiguous()
+    return m, wt, ld.T.contiguous(), lc.T.contiguous()
+
+
+def light_add_in_turns(parent, this, ranker, dev_in) -> dict:
+    """#3 on phase 2's H_T, as given and ablated (see the module note)."""
+    from ircl_tpu_torch.ops.membership_cuda import scores_matmul
+
+    m, wt, sd, sv = _judged_scores(ranker, dev_in)
+    h_t = scores_matmul(m.T, wt).contiguous()
+    del m, wt
+    n, B = h_t.shape
+    d_tile = next(t for t in (1024, 512, 256) if n % t == 0)
+    report = {"H_T": [n, B], "P": sd.shape[0], "d_tile": d_tile, "k": K}
+    zeros, never = torch.zeros_like(h_t), torch.full_like(h_t, float("-inf"))
+    for label, h, d, c in (("as given", h_t, sd, sv), ("zero H_T", zeros, sd, sv),
+                           ("empty pools", h_t, sd[:0], sv[:0]),
+                           ("stream only", never, sd[:0], sv[:0])):
+        args = (h.data_ptr(), d.data_ptr(), c.data_ptr(), n, B, d.shape[0])
+        report[label] = _compare(  # with no score above -inf, any rows are a top-k
+            _top_k_call(parent, "ircl_light_add_topk", args, n, B, d_tile),
+            _top_k_call(this, "ircl_light_add_topk", args, n, B, d_tile),
+            compare=label != "stream only")
+    report["ms_torch_amax_of_the_tiles"] = _ms(
+        lambda: torch.amax(h_t.view(n // d_tile, d_tile, B), dim=1))
+    return report
+
+
+def dot_light_in_turns(parent, this, ranker, dev_in) -> dict:
+    """#7 on phase 16's operands, as given and with empty pools. The two
+    checkouts sum in other orders: the largest difference is reported, and
+    for each, how much of the probe's bound (rtol 2e-5, atol 1e-5) its
+    scores use against the plain version's."""
+    from ircl_tpu_torch.ops.fused_dot_light_cuda import (
+        fused_dot_light_topk_ref, split_hi_lo,
+    )
+
+    m, wt, sd, sv = _judged_scores(ranker, dev_in)
+    (mh, ml), (wh, wl) = split_hi_lo(m), split_hi_lo(wt)
+    del m, wt
+    (U, n), B = mh.shape, wh.shape[1]
+    d_tile = next(t for t in (1024, 512, 256) if n % t == 0)
+    report = {"m": [U, n], "w": [U, B], "P": sd.shape[0], "d_tile": d_tile, "k": K}
+    for label, d, c in (("as given", sd, sv), ("empty pools", sd[:0], sv[:0])):
+        args = (mh.data_ptr(), ml.data_ptr(), U, n, wh.data_ptr(), wl.data_ptr(), B,
+                d.data_ptr(), c.data_ptr(), d.shape[0])
+        calls = [_top_k_call(kern, "ircl_fused_dot_light", args, n, B, d_tile)
+                 for kern in (parent, this)]
+        report[label] = _compare(*calls, bit_equal=False)
+        if label == "as given":
+            ref_s, ref_i = fused_dot_light_topk_ref(mh, ml, wh, wl, d, c, k=K,
+                                                    d_tile=d_tile)
+            live = ref_i >= 0
+            for name, (_, got_s, _) in zip(("parent", "this"), calls):
+                gap = (got_s - ref_s).abs()
+                report[label][f"{name}_against_plain"] = {
+                    "max_abs_difference": float(gap[live].max()),
+                    "share_of_tolerance": float(
+                        (gap / (1e-5 + 2e-5 * ref_s.abs()))[live].max()),
+                }
+    return report
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-root", required=True)
-    ap.add_argument("--only", default="flash,dense,slab,onepass",
+    ap.add_argument("--only", default="flash,dense,slab,onepass,lightadd,dotlight",
                     help="comma-separated parts to run")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -318,10 +429,17 @@ def main() -> None:
     if "dense" in parts:
         report["dense_chunk_max_in_turns"] = dense_in_turns(parent, this, dev)
         torch.cuda.empty_cache()
-    if "slab" in parts:
+    if parts & {"slab", "lightadd", "dotlight"}:
         ranker, dev_in, ell = judged_inputs(dev)
-        report["membership_slab_50k_in_turns"] = slab_in_turns(parent, this, ranker,
-                                                               dev_in, ell)
+        if "slab" in parts:
+            report["membership_slab_50k_in_turns"] = slab_in_turns(parent, this, ranker,
+                                                                   dev_in, ell)
+        if "lightadd" in parts:
+            report["light_add_topk_in_turns"] = light_add_in_turns(parent, this, ranker,
+                                                                   dev_in)
+        if "dotlight" in parts:
+            report["fused_dot_light_in_turns"] = dot_light_in_turns(parent, this, ranker,
+                                                                    dev_in)
         del ranker, dev_in, ell
         torch.cuda.empty_cache()
     if parts & {"slab", "onepass"}:

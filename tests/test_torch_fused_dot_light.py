@@ -31,6 +31,7 @@ from ircl_tpu_torch.ops import hybrid as t_hy
 from ircl_tpu_torch.ops.fused_dot_light_cuda import (
     fused_dot_light_topk,
     fused_dot_light_topk_ref,
+    kernel_geometry,
     split_hi_lo,
 )
 
@@ -174,3 +175,39 @@ def test_arguments_are_checked():
         fused_dot_light_topk(m, m, w, w, d, c, k=0, d_tile=256)
     s, i = fused_dot_light_topk(m, m, w, w, d, c, k=5, d_tile=256)
     assert s.shape == (8, 128) and fused_dot_light_topk.launches == 0
+
+
+def _bf(rows, cols, offset=0):
+    """A contiguous bf16 [rows, cols] starting ``offset`` elements into a
+    buffer (offset 1: 2 bytes past a 16-byte boundary)."""
+    buf = torch.zeros(rows * cols + offset + 8, dtype=torch.bfloat16)
+    return buf[offset: offset + rows * cols].view(rows, cols)
+
+
+@pytest.mark.parametrize("case,U,N,B,d_tile,offset,want", [
+    # what the kernel takes: U past a 32-row stage and B past its 256-column
+    # block are read as zeros, so neither is padded; an empty union is one
+    # zero row
+    ("main", 8192, 51200, 4096, 1024, 0, (8192, 51200, 4096, 50)),
+    ("U not a stage", 100, 1024, 320, 256, 0, (100, 1024, 320, 4)),
+    ("B not a block", 64, 512, 64, 128, 0, (64, 512, 64, 4)),
+    ("empty union", 0, 256, 128, 256, 0, (1, 256, 128, 1)),
+    # what it refuses
+    ("d_tile not 128", 64, 768, 128, 384 // 2, 0, None),
+    ("B not 64", 64, 256, 96, 256, 0, None),
+    ("misaligned", 64, 256, 128, 256, 1, None),
+    ("grid", 8, 65536 * 128, 64, 128, 0, None),
+])
+def test_kernel_geometry(case, U, N, B, d_tile, offset, want):
+    if case == "grid":  # the check needs only the shapes: no 4 GB buffers
+        m = torch.empty((U, N), dtype=torch.bfloat16, device="meta")
+        w = torch.empty((U, B), dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="grid"):
+            kernel_geometry(m, m, w, w, d_tile)
+        return
+    m, w = _bf(U, N, offset), _bf(U, B)
+    if want is None:
+        with pytest.raises(ValueError):
+            kernel_geometry(m, m, w, w, d_tile)
+    else:
+        assert kernel_geometry(m, m, w, w, d_tile) == want

@@ -80,12 +80,14 @@ def test_every_c_entry_point_is_listed():
 def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
     """An edited ``csrc/*.cuh`` rebuilds the sources that include it."""
     names = [os.path.basename(p) for p in kb.headers()]
-    assert names == ["flash_attention_common.cuh", "mma_tf32.cuh", "topk_columns.cuh"]
+    assert names == ["flash_attention_common.cuh", "mma_tf32.cuh", "topk_columns.cuh",
+                     "topk_registers.cuh"]
     users = {
         "flash_attention_common.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
         "mma_tf32.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
         "topk_columns.cuh": ["fused_dot_light.cu", "fused_hybrid.cu",
                              "light_add_topk.cu"],
+        "topk_registers.cuh": ["fused_dot_light.cu", "light_add_topk.cu"],
     }
     for name in names:
         included = [p for p in kb.sources()
@@ -99,6 +101,28 @@ def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
     k1 = kb._source_key([str(a)])
     header.write_text("// two\n")
     assert kb._source_key([str(a)]) != k1
+
+
+@pytest.mark.parametrize("source,needs", [
+    # the fused dot: TMA tiles into an mbarrier ring, warpgroup products on
+    # MN-major operands, a producer warpgroup that hands its registers over
+    ("fused_dot_light.cu", ["cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                            "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                            "p, 1, 1, 1, 1;", "setmaxnreg.dec", "setmaxnreg.inc",
+                            "cuTensorMapEncodeTiled", "CU_TENSOR_MAP_SWIZZLE_128B"]),
+    # the light add: row groups streamed through bulk-copy rings, register
+    # lists, and the column kernel for k above the list
+    ("light_add_topk.cu", ["cp.async.bulk.shared::cluster.global",
+                           "mbarrier.try_wait.parity", "RegisterTopK", "lower_bounds",
+                           "ColumnTopK", "k <= kList"]),
+])
+def test_kernels_take_their_hopper_design(source, needs):
+    text = open(os.path.join(kb.package_root(), "csrc", source), encoding="utf-8").read()
+    for word in needs:
+        assert word in text, word
+    # the tensor-map encoder is looked up through the runtime: the library
+    # links without -lcuda
+    assert "-lcuda" not in kb.LINK_FLAGS
 
 
 def test_source_key_follows_content(tmp_path):

@@ -125,3 +125,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     with pytest.raises((ValueError, TypeError)):
         lc.light_add_topk_t(h, docs, con, k=k, d_tile=d_tile)
     assert lc.light_add_topk_t.launches == before
+
+
+def _row_group_emulation(h, docs, contribs, k, d_tile, groups=8, list_len=8):
+    """The CUDA kernel's algorithm for k <= 8 in plain numpy: each d-tile's
+    rows split into ``groups`` equal groups; a group's rows walked from the
+    last to the first, each total the score plus its pool run added in pool
+    order (f32), kept in a best-``list_len`` list where a later (smaller)
+    row enters only on a strictly larger score; then the groups' lists
+    merged in any order by (score, then the larger row) and the first k
+    emitted, then the pads."""
+    n_pad, B = h.shape
+    n_dt, k8 = n_pad // d_tile, -(-k // 8) * 8
+    rows = d_tile // groups
+    out_s = np.full((n_dt * k8, B), np.float32(-3.4e38), np.float32)
+    out_i = np.full((n_dt * k8, B), -1, np.int32)
+    beats = lambda a, b: a[0] > b[0] or (a[0] == b[0] and a[1] > b[1])  # noqa: E731
+    for b in range(B):
+        col = docs[:, b]
+        for t in range(n_dt):
+            merged = []
+            for g in range(groups):
+                lo = t * d_tile + g * rows
+                top = []
+                for d in range(lo + rows - 1, lo - 1, -1):
+                    x = np.float32(h[d, b])
+                    for p in np.nonzero(col == d)[0]:  # pool order
+                        x = np.float32(x + contribs[p, b])
+                    j = len(top)
+                    while j > 0 and x > top[j - 1][0]:
+                        j -= 1
+                    top.insert(j, (x, d))
+                    del top[list_len:]
+                merged.extend(top)
+            best = []
+            for e in merged[::-1]:  # any order gives the same list
+                j = len(best)
+                while j > 0 and beats(e, best[j - 1]):
+                    j -= 1
+                best.insert(j, e)
+                del best[list_len:]
+            for r, (x, d) in enumerate(best[:k]):
+                out_s[t * k8 + r, b], out_i[t * k8 + r, b] = x, d
+    return out_s, out_i
+
+
+@pytest.mark.parametrize("case,k,d_tile", [
+    ("ties", 1, 256), ("ties", 5, 256), ("ties", 8, 512), ("ties", 5, 1024),
+    ("straddle", 5, 256), ("one tile", 5, 256), ("empty pools", 8, 512),
+])
+def test_row_group_split_and_merge_match_pallas(case, k, d_tile):
+    """The kernel's split of a tile into 8 row groups and the merge of their
+    lists keep the Pallas outputs bit for bit, ties included: inputs with
+    many exact ties (``_inputs``), runs of equal scores across the groups'
+    borders, a column whose whole pool falls in one d-tile, empty pools."""
+    h, docs, contribs = _inputs(11 + k, n_pad=1024, B=8, P=24)
+    if case == "straddle":  # equal scores on both sides of each border
+        h[:] = 0.0
+        border = np.arange(d_tile // 8, 1024, d_tile // 8)
+        for off in (-2, -1, 0, 1):
+            h[border + off, :] = 3.0
+    elif case == "one tile":
+        docs[:, 0] = np.sort(np.random.default_rng(5).integers(256, 512, size=24))
+        contribs[:, 0] = 0.5
+    elif case == "empty pools":
+        docs[:] = 1024
+        contribs[:] = 0.0
+    js, ji, _, _ = _both(h, docs, contribs, k, d_tile)
+    es, ei = _row_group_emulation(h, docs, contribs, k, d_tile)
+    np.testing.assert_array_equal(es, js)
+    np.testing.assert_array_equal(ei, ji)
