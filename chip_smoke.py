@@ -86,7 +86,21 @@ Phases, each printed as it runs:
     held to the staged engine's top-5 and to the scipy gate, with its ms a
     batch and peak memory beside the staged engine's;
 19. ``ChunkedHybridRanker`` over the same index in two chunks of 500K docs,
-    held to the single ranker's scores and ids, then q/s.
+    held to the single ranker's scores and ids, then q/s;
+20. contrastive training, ``bench_train.py``'s compiled step: ``TrainConfig()``
+    (BiLSTM 3 x 256 bidirectional over 768-d hash features -> 128, 128 x 2
+    micro-batches, queue 12,544, Adam) on ``bench_train.py``'s seeded ids:
+    one step on the card against the CPU from one state (loss, grad norm,
+    both encoders, Adam's moments, the queue, pointer and step), the queue
+    term switching on at ``queue_start_steps``, a bfloat16 step, then 30
+    timed steps (steps/s, device ms, peak memory), their CUDA launches and
+    idle share by ``torch.profiler``, and one step's device time by stage;
+21. ``bench_train.py --e2e``: ``ContrastiveTrainer`` over 2,000 synthetic
+    docs with augment pairs, 200 timed steps; its checkpoint restored bit
+    for bit and resumed; stage 2's claim/evidence cosine from the trained
+    state; then ProtoNCE at (4096, 6144, 8192) clusters over 20,000 docs,
+    refreshed twice by k-means on the card, its centroids and densities
+    checked.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -95,6 +109,8 @@ before phase 14 and read after phase 15 (the training path), inside phase
 16 after its comparisons (the probes' paths) and before phase 17, read after
 phase 19 (the scale path); every kernel must have run on its path, and
 launches made to compare a kernel with its plain version are not counted.
+No kernel lies on the contrastive training path: every count is zeroed
+before phase 20 and must still be 0 after phase 21.
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -148,6 +164,16 @@ TRAIN_BATCH, TRAIN_WARMUP, TRAIN_LR, TRAIN_TIMED_STEPS = 8, 3, 1e-5, 20
 TRAIN_GRAD_ATOL = 1e-5  # gradient leaves, flash against xla: fp32 through 12 layers
 TRAIN_GRAD_RTOL = 1e-2  # and of each leaf's largest element
 TRAINER_PAIRS, TRAINER_EPOCHS, PREDICT_BATCH = 256, 2, 64
+# the contrastive training phases: bench_train.py's two shapes, TrainConfig()
+CT_FEAT = dict(dim=768, max_len=64)  # HashEmbedFeaturizer: a 2^18 x 768 table
+CT_TRAIN = {}  # TrainConfig's defaults: BiLSTM 3 x 256 bi over 768-d -> 128
+CT_WARMUP, CT_TIMED_STEPS, CT_PROFILED_STEPS = 3, 30, 3
+CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 20, 200, 256
+CT_STAGED_STEPS = 20
+CT_PROTO_DOCS, CT_PROTO_STEPS, CT_PROTO_EVERY, CT_PROTO_LOG = 20_000, 20, 10, 5
+CT_RTOL = 1e-5  # loss and gradient norm, card against CPU: fp32, TF32 off
+CT_QUEUE_ATOL = 1e-5  # the enqueued keys: unit vectors, card against CPU
+CT_MOMENT_RTOL = (1e-4, 2e-4)  # mu, nu: of each leaf's largest element
 # the scale phases: bench_scale.py's configuration
 SCALE_DOCS, SCALE_TERMS, SCALE_VOCAB, SCALE_B = 1_000_000, 96, 2_000_000, 1024
 SCALE_RANKER = dict(mode="hybrid", df_threshold=256, width_buckets=2,
@@ -423,10 +449,9 @@ def phase8_encoder(dev, wiki, doc_ids):
     of the docs embedded."""
     import torch
 
-    from ircl_tpu_torch.contrastive.state import TrainConfig
+    from ircl_tpu_torch.contrastive.state import TrainConfig, init_train_state
     from ircl_tpu_torch.contrastive.train import make_embed_fn
     from ircl_tpu_torch.dense.embed import embed_corpus
-    from ircl_tpu_torch.models.encoder import init_encoder_params
     from ircl_tpu_torch.models.featurizer import FeaturizerConfig, TransformerFeaturizer
     from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
     from ircl_tpu_torch.utils.convert import to_device
@@ -438,9 +463,8 @@ def phase8_encoder(dev, wiki, doc_ids):
     )
     feat = TransformerFeaturizer.random_init(tok, fcfg, device=dev)
     tcfg = TrainConfig()
-    params = init_encoder_params(
-        torch.Generator().manual_seed(ENC_SEED), tcfg.encoder, device=dev
-    )
+    state = init_train_state(ENC_SEED, tcfg, device=dev)  # its encoder drawn first
+    params = state.params_q
     embed_fn = make_embed_fn(tcfg, feat)
     n_tf = sum(t.numel() for t in _leaves(feat.params))
     n_enc = sum(t.numel() for t in _leaves(params))
@@ -490,7 +514,7 @@ def phase8_encoder(dev, wiki, doc_ids):
     log(f"phase 8: embedded {len(sents)} sentences of {len(doc_ids)} docs at "
         f"batch {ENC_BATCH} in {dt:.2f} s: {len(sents) / dt:.1f} sentences/s "
         f"(host tokenization included); all finite, unit norm within 1e-5")
-    return tcfg, feat, params, doc_sentences, table
+    return tcfg, feat, state, doc_sentences, table
 
 
 def _leaves(tree):
@@ -509,7 +533,7 @@ def same_keys_up_to_ties(a, b, atol=1e-6):
     return True
 
 
-def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, params,
+def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
                            doc_sentences, table, tmpdir):
     """Served sentence search over the encoder docs, each reply checked; then
     the dense top-k over the sentence table against numpy."""
@@ -529,7 +553,7 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, params
     ))
     path = os.path.join(tmpdir, "index_sentences.npz")
     index.save(path)
-    fly = ContrastiveSentenceScorer(tcfg, feat, params, batch_size=ENC_BATCH)
+    fly = ContrastiveSentenceScorer(tcfg, feat, state, batch_size=ENC_BATCH)
     pre = PrecomputedSentenceScorer(fly.embed, doc_sentences, table=table)
     svc = make_service(path, device=dev, doc_sentences=doc_sentences,
                        sentence_scorer=pre)
@@ -2067,6 +2091,398 @@ def phase19_chunked(dev, index, qb, qw, staged, cpu_results):
         + ", ".join(f"{q:.1f}" for q in rounds) + " q/s")
 
 
+def state_to(st, device):
+    """A copy of a contrastive ``TrainState`` on ``device``."""
+    from ircl_tpu_torch.contrastive.state import TrainState
+    from ircl_tpu_torch.utils.tree import tree_map
+
+    move = lambda x: x.to(device, copy=True) if hasattr(x, "to") else x  # noqa: E731
+    return TrainState(**tree_map(move, vars(st)))
+
+
+def profile_steps(step, st, batch, n):
+    """``n`` steps under ``torch.profiler``: (state, launches a step, the
+    device's idle share over the steps' span, device ms by kernel name, top
+    first), or (state, None, None, {}) where the profiler saw no device work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            st, _, _ = step(st, *batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return st, None, None, {}
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return st, len(kernels) / n, 1.0 - busy / span, top
+
+
+def contrastive_stage_split(cfg, feat, st, batch):
+    """Device ms of one train step by stage, from CUDA events between the
+    stages that ``make_train_step`` runs, in its order (featurizer, BiLSTM
+    forward of q with autograd and of k without, loss, backward, enqueue a
+    micro-batch; then optimizer, EMA)."""
+    import torch
+
+    from ircl_tpu_torch.contrastive.losses import nt_xent_loss
+    from ircl_tpu_torch.contrastive.state import global_norm, make_optimizer
+    from ircl_tpu_torch.contrastive.train import _enqueue, ema_update
+    from ircl_tpu_torch.models.encoder import seq2vec
+    from ircl_tpu_torch.utils.precision import float32_precision
+    from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    eff = cfg.micro_batch * cfg.accum_steps
+    flag = float(st.step >= cfg.queue_start_steps)
+    with float32_precision():
+        mark("start")
+        views = tree_map(lambda t: t.detach().requires_grad_(), st.params_q)
+        queue, ptr, grads = st.queue.clone(), st.queue_ptr, None
+        for a in range(cfg.accum_steps):
+            ids_a, mask_a, ids_k, mask_k = (x[a] for x in batch)
+            with torch.no_grad():
+                fa = feat.apply(feat.params, ids_a, mask_a)
+                fk = feat.apply(feat.params, ids_k, mask_k)
+            mark("featurizer")
+            with torch.enable_grad():
+                q = seq2vec(views, cfg.encoder, fa, mask_a)
+            mark("BiLSTM forward, q")
+            with torch.no_grad():
+                k = seq2vec(st.params_k, cfg.encoder, fk, mask_k)
+            mark("BiLSTM forward, k")
+            with torch.enable_grad():
+                loss = nt_xent_loss(q, k, cfg.temperature, queue, flag) / eff
+            mark("loss")
+            g = torch.autograd.grad(loss, tree_leaves(views))
+            mark("backward")
+            queue, ptr = _enqueue(queue, ptr, k, cfg.queue_size)
+            mark("enqueue")
+            grads = list(g) if grads is None else torch._foreach_add(grads, g)
+        pq, _ = make_optimizer(cfg).update(st.params_q, tree_unflatten(st.params_q, grads),
+                                           st.opt_state, global_norm(grads))
+        mark("optimizer")
+        ema_update(st.params_k, pq, cfg.momentum)
+        mark("EMA")
+    torch.cuda.synchronize()
+    ms = {}
+    for (_, e0), (name, e1) in zip(marks, marks[1:]):
+        ms[name] = ms.get(name, 0.0) + e0.elapsed_time(e1)
+    return ms
+
+
+def phase20_contrastive_step(dev):
+    """bench_train.py's compiled step on the card: one step against the CPU
+    from one state, the queue switching on at ``queue_start_steps``, a
+    bfloat16 step, then timed steps, their launches, idle share and stages."""
+    import dataclasses
+
+    import torch
+
+    from ircl_tpu_torch.contrastive.state import TrainConfig, init_train_state
+    from ircl_tpu_torch.contrastive.train import make_train_step
+    from ircl_tpu_torch.models.featurizer import FeaturizerConfig, HashEmbedFeaturizer
+
+    cfg = TrainConfig(**CT_TRAIN)
+    enc = cfg.encoder
+    t0 = time.perf_counter()
+    fcfg = FeaturizerConfig(**CT_FEAT)
+    feat_cpu = HashEmbedFeaturizer(fcfg, device="cpu")
+    feat = HashEmbedFeaturizer(fcfg, device=dev, params=feat_cpu.params)
+    rng = np.random.default_rng(0)  # bench_train.py:141-148
+    shape = (cfg.accum_steps, cfg.micro_batch, fcfg.max_len)
+    ids = rng.integers(0, fcfg.vocab_buckets, size=shape).astype(np.int32)
+    ids_k = rng.integers(0, fcfg.vocab_buckets, size=shape).astype(np.int32)
+    mask = (rng.random(shape) < 0.8).astype(np.float32)
+    batch = (ids, mask, ids_k, mask)
+    init = init_train_state(0, cfg, device="cpu")
+    n_enc = sum(t.numel() for t in _leaves(init.params_q))
+    log(f"phase 20: TrainConfig(): BiLSTM {enc.num_layers} x {enc.hidden_size} bi over "
+        f"{enc.input_size}-d -> {enc.output_size} ({n_enc / 1e6:.2f}M params), "
+        f"micro-batch {cfg.micro_batch} x {cfg.accum_steps}, L={fcfg.max_len}, queue "
+        f"{cfg.queue_size}, T={cfg.temperature}, {cfg.optimizer} {cfg.learning_rate}, "
+        f"clip {cfg.grad_clip}; hash featurizer table {tuple(feat.params['table'].shape)}; "
+        f"set up in {time.perf_counter() - t0:.1f} s")
+
+    # one step from one state on the card and on the CPU
+    step = make_train_step(cfg, feat)
+    t0 = time.perf_counter()
+    s_d, l_d, n_d = step(state_to(init, dev), *batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_c, l_c, n_c = make_train_step(cfg, feat_cpu)(init, *batch)
+    cpu_s = time.perf_counter() - t0
+    del feat_cpu
+    l_d, n_d, l_c, n_c = float(l_d), float(n_d), float(l_c), float(n_c)
+    lr = cfg.learning_rate
+    far, frac, moved = (0.0, ""), (0.0, ""), 0.0
+    for tree in ("params_q", "params_k"):
+        for (name, a), (_, b), (_, start) in zip(
+                named_leaves(getattr(s_d, tree)), named_leaves(getattr(s_c, tree)),
+                named_leaves(getattr(init, tree))):
+            d = (a.cpu() - b).abs()
+            far = max(far, (float(d.max()), tree + name))
+            frac = max(frac, (float((d > 0.1 * lr).float().mean()), tree + name))
+            moved = max(moved, float((a.cpu() - start).abs().max()))
+    worst_m = [(0.0, ""), (0.0, "")]
+    for i, key in enumerate(("mu", "nu")):
+        for (name, a), (_, b) in zip(named_leaves(s_d.opt_state[key]),
+                                     named_leaves(s_c.opt_state[key])):
+            size = float(b.abs().max())
+            worst_m[i] = max(worst_m[i], (float((a.cpu() - b).abs().max()) / max(size, 1e-30),
+                                          key + name))
+    q_err = float((s_d.queue.cpu() - s_c.queue).abs().max())
+    if not (abs(l_d - l_c) <= CT_RTOL * abs(l_c) and abs(n_d - n_c) <= CT_RTOL * abs(n_c)
+            and far[0] <= 2.1 * lr and frac[0] <= 1e-2 and moved >= 0.5 * lr
+            and worst_m[0][0] <= CT_MOMENT_RTOL[0] and worst_m[1][0] <= CT_MOMENT_RTOL[1]
+            and q_err <= CT_QUEUE_ATOL and s_d.queue_ptr == s_c.queue_ptr
+            and s_d.step == s_c.step == 1
+            and s_d.opt_state["count"] == s_c.opt_state["count"] == 1):
+        fail(f"phase 20: one step on the card and on the CPU differ: loss {l_d} against "
+             f"{l_c}, grad norm {n_d} against {n_c}, parameters by {far}, share over "
+             f"lr/10 {frac}, moved {moved}, moments {worst_m}, queue {q_err}, pointer "
+             f"{s_d.queue_ptr}/{s_c.queue_ptr}, step {s_d.step}/{s_c.step}")
+    log(f"phase 20: one step on the card ({first_s:.2f} s, the first) and on the CPU "
+        f"({cpu_s:.2f} s): loss {l_d:.7f} against {l_c:.7f}, grad norm {n_d:.6f} against "
+        f"{n_c:.6f} (rtol {CT_RTOL}); params_q and params_k moved by up to {moved:.3g} "
+        f"and differ by at most {far[0]:.3g} ({far[1]}; bound 2.1 x lr {lr}), the share "
+        f"of a leaf's elements over lr/10 at most {frac[0]:.3g} ({frac[1]}; bound 1e-2); "
+        f"mu within {worst_m[0][0]:.3g} and nu within {worst_m[1][0]:.3g} of each leaf's "
+        f"largest element (bounds {CT_MOMENT_RTOL}); queue within {q_err:.3g} (bound "
+        f"{CT_QUEUE_ATOL}); pointer {s_d.queue_ptr}, step {s_d.step} on both")
+    del s_c
+
+    # the queue term switches on at queue_start_steps
+    dbatch = tuple(torch.as_tensor(x, device=dev) for x in batch)
+
+    def two_losses(st):
+        out = []
+        for _ in range(2):
+            st, loss, _ = step(st, *dbatch)
+            out.append(float(loss))
+        return out
+
+    on = two_losses(dataclasses.replace(s_d, step=cfg.queue_start_steps - 1))
+    off = two_losses(dataclasses.replace(s_d, step=0))
+    if not (abs(on[0] - off[0]) <= 1e-6 * abs(off[0]) and on[1] > off[1]):
+        fail(f"phase 20: queue activation: losses {on} with it at the second step, "
+             f"{off} without")
+    log(f"phase 20: from step {cfg.queue_start_steps - 1}, the queue term switches on "
+        f"at the second step: losses {on[0]:.6f}, {on[1]:.6f} against {off[0]:.6f}, "
+        f"{off[1]:.6f} without it (equal, then higher, as test_queue_activation_raises_loss "
+        f"expects)")
+
+    # a bfloat16 step from the same state
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    s_b, l_b, n_b = make_train_step(bcfg, feat)(state_to(init, dev), *dbatch)
+    l_b, n_b = float(l_b), float(n_b)
+    finite = all(bool(torch.isfinite(t).all()) for t in _leaves(s_b.params_q))
+    if not (np.isfinite(l_b) and np.isfinite(n_b) and finite
+            and s_b.queue.dtype == torch.float32 and bool(torch.isfinite(s_b.queue).all())):
+        fail(f"phase 20: the bfloat16 step: loss {l_b}, grad norm {n_b}, params finite "
+             f"{finite}, queue {s_b.queue.dtype}")
+    log(f"phase 20: a bfloat16 step: loss {l_b:.6f} ({abs(l_b - l_d) / l_d:.3g} of the "
+        f"f32 step's from the same state), grad norm {n_b:.6f}; finite, the queue float32")
+    del s_b
+
+    # timed steps: bench_train.py's 30 after warm-ups, on pre-staged batches
+    st = s_d
+    for _ in range(CT_WARMUP):
+        st, loss, _ = step(st, *dbatch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(CT_TIMED_STEPS):
+        st, loss, norm = step(st, *dbatch)
+    e1.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dev_ms = e0.elapsed_time(e1) / CT_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (np.isfinite(float(loss)) and np.isfinite(float(norm))):
+        fail(f"phase 20: timed steps end at loss {float(loss)}, grad norm {float(norm)}")
+    st, launches, idle, top = profile_steps(step, st, dbatch, CT_PROFILED_STEPS)
+    # the work a step needs: 4 passes of 2 x 2 FLOP a weight and token through
+    # the BiLSTM and the projection (q and k forward, q backward twice), the
+    # loss's products, at the f32 rate
+    tokens = cfg.accum_steps * cfg.micro_batch * fcfg.max_len
+    lstm_weights = sum(t.numel() for name, t in named_leaves(init.params_q)
+                       if name.endswith(("w_ih", "w_hh", "proj_w")))
+    flops = 4 * 2 * tokens * lstm_weights
+    bound_ms = 1e3 * flops / F32_FLOPS
+    log(f"phase 20: {CT_TIMED_STEPS} steps after {CT_WARMUP} warm-ups: "
+        f"{CT_TIMED_STEPS / dt:.2f} steps/s ({CT_TIMED_STEPS / dt * tokens / fcfg.max_len:.0f}"
+        f" pairs/s), {dev_ms:.2f} ms of device time a step (CUDA events), peak "
+        f"{peak:.2f} GiB; the step's {flops / 1e12:.3f} TFLOP at the f32 rate: "
+        f"{bound_ms:.2f} ms")
+    if launches is None:
+        log("phase 20: torch.profiler saw no device work: launches and idle share not "
+            "measured")
+    else:
+        log(f"phase 20: torch.profiler over {CT_PROFILED_STEPS} steps: {launches:.0f} "
+            f"CUDA kernel launches a step, device idle share {idle:.3f}; ms a step by "
+            f"kernel: " + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top.items()))
+    first = sum(contrastive_stage_split(cfg, feat, st, dbatch).values())
+    split = contrastive_stage_split(cfg, feat, st, dbatch)
+    log(f"phase 20: one step by stage (CUDA events, ms; the second of two): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()) + f"; sum {sum(split.values()):.2f} "
+        f"(the first: {first:.2f})")
+    return feat, dict(steps_per_s=CT_TIMED_STEPS / dt, device_ms=dev_ms, peak_gib=peak,
+                      launches=launches, idle=idle)
+
+
+def phase21_contrastive_trainer(dev, feat, tmpdir):
+    """bench_train.py --e2e: ContrastiveTrainer over 2,000 synthetic docs with
+    augment pairs, timed; its checkpoint round trip and resume; stage 2 from
+    the trained state; then ProtoNCE at the reference's granularities over
+    20,000 docs with two k-means refreshes on the card."""
+    import dataclasses
+
+    import torch
+
+    from ircl_tpu_torch.contrastive.cluster import run_kmeans
+    from ircl_tpu_torch.contrastive.state import TrainConfig, init_train_state
+    from ircl_tpu_torch.contrastive.trainer import ContrastiveTrainer
+    from ircl_tpu_torch.corpus.synthetic import generate
+    from ircl_tpu_torch.data.pairs import DocPairSampler
+    from ircl_tpu_torch.dense.embed import embed_corpus
+    from ircl_tpu_torch.pipeline.dense_scorer import ContrastiveSentenceScorer
+    from ircl_tpu_torch.pipeline.intrinsic import mean_claim_evidence_cosine
+    from ircl_tpu_torch.utils.checkpoint import latest_checkpoint, restore_state, save_state
+
+    cfg = TrainConfig(**CT_TRAIN)
+    t0 = time.perf_counter()
+    # the docs come first from the generator, so they are num_claims=1's
+    wiki = generate(num_docs=CT_E2E_DOCS, num_claims=CT_E2E_CLAIMS, seed=11)
+    docs = list(wiki.sentences.values())
+    kw = dict(ckptdir=os.path.join(tmpdir, "ct_ckpt"), logdir=os.path.join(tmpdir, "ct_log"),
+              device=dev)
+    tr = ContrastiveTrainer(cfg, feat, DocPairSampler(docs, sample="augment", seed=7), **kw)
+    tr.train(total_steps=CT_E2E_WARMUP, log_step=10**9)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = tr.train(total_steps=CT_E2E_WARMUP + CT_E2E_STEPS, log_step=10**9)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(t).all()) for t in _leaves(state.params_q))
+    if state.step != CT_E2E_WARMUP + CT_E2E_STEPS or not finite:
+        fail(f"phase 21: the trainer ended at step {state.step}, params finite {finite}")
+    e2e_sps = CT_E2E_STEPS / dt
+    # the trainer's step alone, at once after, on the sampler's next batches
+    # staged on the card: what the trainer's host work adds is the gap
+    staged = [tuple(torch.as_tensor(x, device=dev) for x in b[1:])
+              for b in tr.sampler.batches(feat, cfg.accum_steps, cfg.micro_batch,
+                                          CT_STAGED_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = state
+    for b in staged:
+        st, _, _ = tr.step_fn(st, *b)
+    torch.cuda.synchronize()
+    staged_sps = CT_STAGED_STEPS / (time.perf_counter() - t0)
+    del st, staged
+    log(f"phase 21: ContrastiveTrainer over {len(docs)} docs (augment pairs): "
+        f"{CT_E2E_WARMUP} warm-up steps in {warm_s:.1f} s (corpus and trainer built), "
+        f"then {CT_E2E_STEPS} steps in {dt:.1f} s: {e2e_sps:.2f} steps/s, host pair "
+        f"sampling and tokenization included; the same step on {CT_STAGED_STEPS} of "
+        f"the sampler's batches staged on the card at once after: {staged_sps:.2f} "
+        f"steps/s (the trainer's host work: {1 - e2e_sps / staged_sps:.3f} of its time)")
+
+    # checkpoint: save, find, restore into a fresh state, resume
+    path = save_state(kw["ckptdir"], tr.tag, state)
+    if latest_checkpoint(kw["ckptdir"], tr.tag) != path:
+        fail(f"phase 21: latest_checkpoint does not find {path}")
+    back = restore_state(path, init_train_state(1, cfg, device=dev))
+    for (name, a), (_, b) in zip(named_leaves(vars(back)), named_leaves(vars(state))):
+        same = torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+        if not same or (isinstance(b, torch.Tensor) and a.device != b.device):
+            fail(f"phase 21: the restored {name} differs")
+    fresh = ContrastiveTrainer(cfg, feat, DocPairSampler(docs, sample="augment"), **kw)
+    if fresh.maybe_resume() != state.step:
+        fail(f"phase 21: maybe_resume returned {fresh.state.step}, not {state.step}")
+    log(f"phase 21: checkpoint {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.1f}"
+        f" MiB) restored bit for bit; a fresh trainer resumes at step {state.step}")
+    del fresh, back
+
+    # stage 2 from the trained state, against the untrained one
+    for label, st in (("trained", state), ("untrained", init_train_state(1337, cfg, device=dev))):
+        scorer = ContrastiveSentenceScorer(cfg, feat, st, batch_size=ENC_BATCH)
+        res = mean_claim_evidence_cosine(scorer.embed, wiki.claims, wiki.sentences)
+        log(f"phase 21: stage 2 from the {label} state: mean claim/evidence cosine "
+            f"{res['mean_cosine']:.4f} over {res['pairs']} pairs, shuffled control "
+            f"{res['shuffled_cosine']:.4f} (reported, not gated)")
+    del tr, state
+
+    # ProtoNCE at the reference's granularities, refreshed twice on the card
+    t0 = time.perf_counter()
+    pwiki = generate(num_docs=CT_PROTO_DOCS, num_claims=1, seed=11)
+    pdocs = list(pwiki.sentences.values())
+    pcfg = dataclasses.replace(cfg, loss="ProtoNCE", cluster_start_steps=0,
+                               cluster_update_steps=CT_PROTO_EVERY)
+    pkw = dict(kw, ckptdir=os.path.join(tmpdir, "ct_ckpt_proto"))
+    ptr = ContrastiveTrainer(pcfg, feat, DocPairSampler(pdocs, sample="augment", seed=7),
+                             **pkw)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pstate = ptr.train(total_steps=CT_PROTO_STEPS, log_step=CT_PROTO_LOG)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    losses = [r["train_loss"] for r in map(json.loads, open(ptr.metrics.path))
+              if "train_loss" in r]
+    cr = ptr.cluster_result
+    bad = []
+    for g, (c, d, a) in enumerate(zip(cr.centroids, cr.density, cr.emb2cluster)):
+        norms = torch.linalg.vector_norm(c, dim=1)
+        if c.shape[0] != pcfg.num_clusters[g] or a.shape[0] != len(pdocs):
+            bad.append(f"granularity {g}: shapes {tuple(c.shape)}, {tuple(a.shape)}")
+        if float((norms - 1).abs().max()) > 1e-5:
+            bad.append(f"granularity {g}: centroid norms off by {float((norms - 1).abs().max())}")
+        if not bool(torch.isfinite(d).all()) or not bool((d > 0).all()) or (
+                abs(float(d.mean()) - pcfg.temperature) > 1e-5):
+            bad.append(f"granularity {g}: densities mean {float(d.mean())}")
+    if (pstate.step != CT_PROTO_STEPS or ptr.refresh_count != 2
+            or len(losses) != CT_PROTO_STEPS // CT_PROTO_LOG
+            or not np.isfinite(losses).all() or bad):
+        fail(f"phase 21: ProtoNCE: step {pstate.step}, refreshes {ptr.refresh_count}, "
+             f"losses {losses}, {bad}")
+    # one refresh's split, timed again on the trained state
+    texts = [doc[0] if doc else "" for doc in ptr.sampler.docs]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    emb = embed_corpus(ptr.embed_fn, pstate.params_q, feat, texts)
+    t2 = time.perf_counter()
+    run_kmeans(emb, pcfg.num_clusters, pcfg.temperature, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"phase 21: ProtoNCE over {len(pdocs)} docs at num_clusters "
+        f"{pcfg.num_clusters}, {pcfg.num_neg_proto} negative prototypes: "
+        f"{CT_PROTO_STEPS} steps in {dt:.1f} s (set-up {setup_s:.1f} s) with "
+        f"{ptr.refresh_count} refreshes, refresh_seconds {ptr.refresh_seconds:.2f}; "
+        f"losses every {CT_PROTO_LOG} steps {', '.join(f'{x:.3f}' for x in losses)}; "
+        f"centroids of unit norm, densities finite, positive, mean {pcfg.temperature} "
+        f"within 1e-5")
+    log(f"phase 21: one refresh again: embed {len(texts)} docs {t2 - t1:.2f} s, "
+        f"run_kmeans {t3 - t2:.2f} s ({(t3 - t2) / (t3 - t1):.3f} of the refresh)")
+    return e2e_sps, staged_sps, ptr.refresh_seconds
+
+
 def named_leaves(tree, prefix=""):
     """(path, leaf) in ``utils/tree.py``'s order."""
     if isinstance(tree, dict):
@@ -2438,13 +2854,13 @@ def main() -> None:
     # ---- phase 8: the encoder at full width --------------------------------
     t_phase = time.perf_counter()
     enc_docs = store.get_doc_ids()[:ENC_DOCS]
-    tcfg, feat, enc_params, doc_sentences, table = phase8_encoder(dev, wiki, enc_docs)
+    tcfg, feat, enc_state, doc_sentences, table = phase8_encoder(dev, wiki, enc_docs)
     log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- phase 9: served sentence search -----------------------------------
     t_phase = time.perf_counter()
     index_path, pre, mine = phase9_sentence_search(
-        dev, store, wiki, claims, enc_docs, tcfg, feat, enc_params, doc_sentences,
+        dev, store, wiki, claims, enc_docs, tcfg, feat, enc_state, doc_sentences,
         table, tmp.name)
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     if chunk_max.launches == 0:
@@ -2457,7 +2873,7 @@ def main() -> None:
         f"by route {dense_routes}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(phases 7-9)")
-    del table, enc_params
+    del table, enc_state
     torch.cuda.empty_cache()
 
     # ---- phase 10: kernel #6a against its plain version --------------------
@@ -2574,6 +2990,36 @@ def main() -> None:
             fail(f"{name} was not launched on the scale path")
     launches["fused_hybrid_tile_topk"] = scale_launches["fused_hybrid_tile_topk"]
     log(f"phases 17-19: kernel launches {scale_launches}")
+
+    # ---- the contrastive training path: phases 20-21 -------------------------
+    # no kernel of the kernels line lies on it: every count must stay at 0
+    from ircl_tpu_torch.ops.dense_topk_cuda import chunk_max_presplit
+    from ircl_tpu_torch.ops.fused_dot_light_cuda import fused_dot_light_topk
+
+    counted = dict(kernels, fused_dot_light_topk=fused_dot_light_topk,
+                   chunk_max_presplit=chunk_max_presplit)
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    ct_feat, ct = phase20_contrastive_step(dev)
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    e2e_sps, staged_sps, refresh_s = phase21_contrastive_trainer(dev, ct_feat, tmp.name)
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    moved = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    if moved:
+        fail(f"kernels of the kernels line launched on the training path: {moved}")
+    launches_txt = "not measured" if ct["launches"] is None else f"{ct['launches']:.0f}"
+    log(f"phases 20-21: steps/s {ct['steps_per_s']:.2f} (device {ct['device_ms']:.2f} ms "
+        f"a step, {launches_txt} launches a step, peak {ct['peak_gib']:.2f} GiB), e2e "
+        f"steps/s {e2e_sps:.2f} (staged {staged_sps:.2f}), refresh_seconds "
+        f"{refresh_s:.2f}; no kernel of the "
+        f"kernels line launched")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(phases 20-21)")
+    del ct_feat
 
     tmp.cleanup()
     loaded = sorted(m for m in sys.modules

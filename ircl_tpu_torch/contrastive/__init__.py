@@ -1,6 +1,12 @@
-"""Contrastive encoder: configuration and the inference path.
+"""Contrastive training of the sentence encoder.
 
-Counterpart of ``ircl_tpu/contrastive/``. Ported so far: ``TrainConfig``
-and ``make_embed_fn``. The losses, the optimizer, ``TrainState`` and the
-train step wait for ROADMAP.md queue 1 item 10.
+Counterpart of ``ircl_tpu/contrastive/``: ``TrainConfig``, ``TrainState``
+and the optimizer (``state.py``), the losses (``losses.py``), the train step
+and the inference path (``train.py``), k-means and Ward clustering for
+ProtoNCE (``cluster.py``) and the host training loop ``ContrastiveTrainer``
+(``trainer.py``).
 """
+
+from ircl_tpu_torch.contrastive.losses import nt_xent_loss, moco_infonce_loss, proto_loss
+
+__all__ = ["nt_xent_loss", "moco_infonce_loss", "proto_loss"]

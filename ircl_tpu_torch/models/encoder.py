@@ -65,9 +65,12 @@ def init_encoder_params(
 def encoder_apply(
     params: Dict[str, Any], config: EncoderConfig, features: torch.Tensor
 ) -> torch.Tensor:
-    """[B, L, I] -> [B, L, output_size] (pre-pooling)."""
+    """[B, L, I] -> [B, L, output_size] (pre-pooling), in float32 for
+    float32 or bfloat16 features."""
     h = bilstm_apply(params["lstm"], features)
-    out = h @ params["proj_w"].to(h.dtype).T + params["proj_b"]
+    # bf16 operands multiplied in f32 (exact) for an f32 result, as the
+    # reference's preferred_element_type=f32; the identity in float32
+    out = h.float() @ params["proj_w"].to(h.dtype).float().T + params["proj_b"]
     return _ACTIVATIONS[config.activation](out)
 
 

@@ -17,7 +17,8 @@ replaces the reference's cuDNN ``nn.LSTM`` encoder head
 
 cuDNN's LSTM is not used, so no TF32 switch applies to the recurrence; the
 products run in full fp32 under ``utils.precision.float32_precision`` at the
-callers (``contrastive.train.make_embed_fn``).
+callers (``contrastive.train``). Autograd runs through the loop: each step's
+``h`` is kept and the outputs are stacked once.
 """
 
 from __future__ import annotations
@@ -77,26 +78,34 @@ def init_bilstm_params(
 
 def _bilstm_layer(dirs: List[Dict[str, torch.Tensor]], x: torch.Tensor):
     """One layer, its directions stepping together. x: [B, L, I] ->
-    [B, L, H * len(dirs)]; dirs[1], when present, runs backwards."""
+    [B, L, H * len(dirs)] in x's dtype; dirs[1], when present, runs
+    backwards. In bfloat16, as the reference with ``preferred_element_type
+    =f32``: ``h`` is carried in bf16, ``c`` and the gates in f32, and every
+    product takes bf16 operands in f32 (exact there) with an f32 result;
+    PyTorch's own bf16 product would round its result to bf16. In float32
+    every cast below is the identity."""
     B, L, _ = x.shape
     H = dirs[0]["w_hh"].shape[1]
     n = len(dirs)
-    # hoisted input projections: [n, B, L, 4H]
-    xp = torch.stack([x @ p["w_ih"].T + p["b"] for p in dirs])
-    w_hh_t = torch.stack([p["w_hh"].T for p in dirs])  # [n, H, 4H]
+    dtype = x.dtype
+    f32 = lambda t: t.to(dtype).float()  # noqa: E731  the operand rounded to dtype
+    # hoisted input projections, each direction in its own step order:
+    # [n, B, L, 4H]
+    xf = x.float()
+    proj = [xf @ f32(p["w_ih"]).T + p["b"] for p in dirs]
+    xs = torch.stack([t.flip(1) if d else t for d, t in enumerate(proj)])
+    w_hh_t = torch.stack([f32(p["w_hh"]).T for p in dirs])  # [n, H, 4H]
     h = x.new_zeros((n, B, H))
-    c = x.new_zeros((n, B, H))
-    out = x.new_empty((n, B, L, H))
+    c = xs.new_zeros((n, B, H))
+    hs = []
     for s in range(L):
-        t = [s, L - 1 - s][:n]  # the time step of each direction
-        xt = torch.stack([xp[d, :, t[d]] for d in range(n)])
-        gates = xt + torch.bmm(h, w_hh_t)  # [n, B, 4H]
+        gates = xs[:, :, s] + torch.bmm(h.float(), w_hh_t)  # [n, B, 4H]
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        for d in range(n):
-            out[d, :, t[d]] = h[d]
-    return torch.cat(list(out), dim=-1)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(dtype)
+        hs.append(h)
+    out = torch.stack(hs, dim=2)  # [n, B, L, H], step order
+    return torch.cat([o.flip(1) if d else o for d, o in enumerate(out)], dim=-1)
 
 
 def bilstm_apply(layers, x: torch.Tensor) -> torch.Tensor:

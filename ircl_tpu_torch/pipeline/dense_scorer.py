@@ -13,7 +13,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from ircl_tpu_torch.contrastive.state import TrainConfig
+from ircl_tpu_torch.contrastive.state import TrainConfig, TrainState
 from ircl_tpu_torch.contrastive.train import make_embed_fn
 from ircl_tpu_torch.dense.embed import embed_corpus
 
@@ -44,16 +44,14 @@ def _score_by_embed(
 
 
 class ContrastiveSentenceScorer:
-    """Embeds claims and candidate sentences on every call.
+    """Embeds claims and candidate sentences on every call, with the query
+    encoder of ``state`` (a ``TrainState`` on the featurizer's device)."""
 
-    ``params_q``: the query encoder's parameters, on the featurizer's device.
-    The reference takes its ``TrainState`` and reads ``params_q`` from it;
-    the port has no ``TrainState`` yet (ROADMAP.md queue 1 item 10)."""
-
-    def __init__(self, config: TrainConfig, featurizer, params_q, batch_size: int = 256):
+    def __init__(self, config: TrainConfig, featurizer, state: TrainState,
+                 batch_size: int = 256):
         self.config = config
         self.featurizer = featurizer
-        self.params = params_q
+        self.params = state.params_q
         self.embed_fn = make_embed_fn(config, featurizer)
         self.batch_size = batch_size
 

@@ -16,7 +16,10 @@ card (``utils/device.py``):
   transformer tree), ``head_dense`` and ``head_out``;
 - ``verdict_opt_state_from_numpy``: the reference's optax AdamW state
   (its step count and both moment trees) as the port's optimizer state, so
-  that both packages resume training from the same point.
+  that both packages resume training from the same point;
+- ``train_state_from_numpy``: the JAX package's contrastive ``TrainState``
+  (both encoders, the queue, its pointer, the step, and the optimizer's
+  count with Adam's moments or SGD's momentum trace) as the port's.
 """
 
 from __future__ import annotations
@@ -95,3 +98,27 @@ def verdict_opt_state_from_numpy(count, mu, nu, device=None):
         "mu": verdict_params_from_numpy(mu, device),
         "nu": verdict_params_from_numpy(nu, device),
     }
+
+
+def train_state_from_numpy(params_q, params_k, queue, queue_ptr, step, *, count,
+                           mu=None, nu=None, trace=None, device=None):
+    """The JAX package's contrastive ``TrainState`` after ``np.asarray`` on
+    every leaf -> the port's ``TrainState`` on ``device``. The optimizer's
+    state is given explicitly, as optax keeps it: for Adam ``count`` (the
+    step count of ``scale_by_adam``), ``mu`` and ``nu``; for SGD ``count``
+    (the step count of the cosine schedule) and ``trace`` (the momentum)."""
+    from ircl_tpu_torch.contrastive.state import TrainState
+
+    if (trace is None) == (mu is None or nu is None):
+        raise ValueError("give mu and nu (Adam) or trace (SGD)")
+    moments = ({"mu": encoder_params_from_numpy(mu, device),
+                "nu": encoder_params_from_numpy(nu, device)} if trace is None
+               else {"trace": encoder_params_from_numpy(trace, device)})
+    return TrainState(
+        params_q=encoder_params_from_numpy(params_q, device),
+        params_k=encoder_params_from_numpy(params_k, device),
+        opt_state={"count": int(count), **moments},
+        queue=torch.tensor(np.asarray(queue, np.float32), device=resolve_device(device)),
+        queue_ptr=int(queue_ptr),
+        step=int(step),
+    )

@@ -38,7 +38,7 @@ from ircl_tpu_torch.models.transformer import (
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
 from ircl_tpu_torch.utils.precision import float32_precision
-from ircl_tpu_torch.utils.tree import tree_leaves, tree_map
+from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,17 +192,6 @@ class VerdictOptimizer:
 def make_verdict_optimizer(cfg: VerdictConfig) -> VerdictOptimizer:
     """AdamW with linear warmup then linear decay; see ``VerdictOptimizer``."""
     return VerdictOptimizer(cfg)
-
-
-def value_and_grad(loss_fn, params, *args):
-    """``(loss, aux, grads)`` of ``loss_fn(params, *args) -> (loss, aux)``,
-    ``grads`` over ``params``' tree. The parameters' own ``requires_grad``
-    flags are left alone: autograd runs over detached views of them."""
-    views = tree_map(lambda t: t.detach().requires_grad_(), params)
-    with torch.enable_grad():
-        loss, aux = loss_fn(views, *args)
-        flat = iter(torch.autograd.grad(loss, tree_leaves(views)))
-    return loss.detach(), aux, tree_map(lambda _: next(flat), params)
 
 
 def make_verdict_train_step(cfg: VerdictConfig, constrain=None, ep_constrain=None,

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from ircl_tpu_torch.contrastive import cluster as t_cluster
+from ircl_tpu_torch.contrastive import state as t_state
 from ircl_tpu_torch.models import encoder as t_enc
 from ircl_tpu_torch.models import featurizer as t_feat
 from ircl_tpu_torch.models import transformer as t_tf
@@ -47,6 +49,14 @@ def _verdict_np():
 
 
 ROWS = np.zeros((2, 8), np.int32)
+TCFG = t_state.TrainConfig(encoder=ENC, queue_size=8, micro_batch=4)
+EMB = np.random.default_rng(0).normal(size=(6, 4)).astype(np.float32)
+
+
+def _train_state_np():
+    st = t_state.init_train_state(0, TCFG, device="cpu")
+    return dict(params_q=_np(st.params_q), params_k=_np(st.params_k),
+                queue=st.queue.numpy(), queue_ptr=4, step=1)
 
 # name -> a call that takes ``device`` as a keyword
 ENTRY_POINTS = {
@@ -78,6 +88,16 @@ ENTRY_POINTS = {
     "predict_in_batches": lambda **kw: torch.from_numpy(t_train.predict_in_batches(
         t_model.init_verdict_params(_gen(), VCFG, "cpu"), VCFG, ROWS,
         np.ones((2, 8), np.float32), ROWS, 2, **kw)),
+    "init_train_state": lambda **kw: (
+        lambda st: [st.params_q, st.queue])(t_state.init_train_state(0, TCFG, **kw)),
+    "train_state_from_numpy": lambda **kw: (
+        lambda st: [st.params_q, st.queue, st.opt_state["trace"]])(
+        convert.train_state_from_numpy(**_train_state_np(), count=1,
+                                       trace=_train_state_np()["params_q"], **kw)),
+    "run_kmeans": lambda **kw: t_cluster.run_kmeans(EMB, (2,), 0.05, num_iters=2,
+                                                    num_redo=1, **kw).centroids,
+    "run_hierarchical": lambda **kw: t_cluster.run_hierarchical(EMB, (2,), 0.05,
+                                                                **kw).density,
     "train_verdict": lambda **kw: t_train.train_verdict(
         VCFG, np.zeros((4, 8), np.int32), np.ones((4, 8), np.float32),
         np.zeros((4, 8), np.int32), np.zeros(4, np.int32), epochs=1, batch_size=2,

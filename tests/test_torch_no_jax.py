@@ -70,7 +70,8 @@ from ircl_tpu_torch.contrastive.state import TrainConfig
 from ircl_tpu_torch.index.build import build_count_index
 from ircl_tpu_torch.index.ranker import TfidfRanker
 from ircl_tpu_torch.index.tfidf import tfidf_transform
-from ircl_tpu_torch.models.encoder import EncoderConfig, init_encoder_params
+from ircl_tpu_torch.contrastive.state import init_train_state
+from ircl_tpu_torch.models.encoder import EncoderConfig
 from ircl_tpu_torch.models.featurizer import FeaturizerConfig, HashEmbedFeaturizer
 from ircl_tpu_torch.ops.dense_topk_cuda import cosine_topk_fused, pad_corpus_t
 from ircl_tpu_torch.pipeline.dense_scorer import (
@@ -84,9 +85,9 @@ feat = HashEmbedFeaturizer(FeaturizerConfig(dim=16, max_len=16, vocab_buckets=1 
                            device="cpu")
 cfg = TrainConfig(encoder=EncoderConfig(input_size=16, hidden_size=8, output_size=8,
                                         num_layers=1))
-params = init_encoder_params(torch.Generator().manual_seed(0), cfg.encoder, device="cpu")
+state = init_train_state(0, cfg, device="cpu")
 scorer = PrecomputedSentenceScorer.from_scorer(
-    ContrastiveSentenceScorer(cfg, feat, params, batch_size=8), wiki.sentences)
+    ContrastiveSentenceScorer(cfg, feat, state, batch_size=8), wiki.sentences)
 svc = RetrievalService(TfidfRanker(index, "cpu"), batch_size=4,
                        doc_sentences=wiki.sentences, sentence_scorer=scorer)
 out = io.StringIO()
@@ -142,6 +143,50 @@ print("JAX_MODULES", sorted(
 """
 
 
+# The trainer's MetricsLogger mirrors to TensorBoard through
+# torch.utils.tensorboard, which imports TensorFlow where it is installed,
+# and TensorFlow Lite imports JAX where that is installed. Neither comes from
+# the port, and the GPU machine has neither: the script hides TensorFlow, so
+# the writer takes tensorboard's own stub and the check sees the port's
+# imports only.
+_TRAIN_RESUME_AND_SCORE = r"""
+import sys, tempfile
+sys.modules["tensorflow"] = None
+from ircl_tpu_torch.contrastive.state import TrainConfig
+from ircl_tpu_torch.contrastive.trainer import ContrastiveTrainer
+from ircl_tpu_torch.corpus.synthetic import generate
+from ircl_tpu_torch.data import DocPairSampler
+from ircl_tpu_torch.models.encoder import EncoderConfig
+from ircl_tpu_torch.models.featurizer import FeaturizerConfig, HashEmbedFeaturizer
+from ircl_tpu_torch.pipeline.dense_scorer import ContrastiveSentenceScorer
+from ircl_tpu_torch.pipeline.intrinsic import mean_claim_evidence_cosine
+
+wiki = generate(num_docs=40, num_claims=8, seed=3)
+feat = HashEmbedFeaturizer(FeaturizerConfig(dim=16, max_len=8, vocab_buckets=1 << 10),
+                           device="cpu")
+cfg = TrainConfig(encoder=EncoderConfig(input_size=16, hidden_size=8, output_size=8,
+                                        num_layers=1),
+                  loss="ProtoNCE", queue_size=16, queue_start_steps=2, micro_batch=8,
+                  cluster_start_steps=1, cluster_update_steps=2, num_clusters=(3,),
+                  num_neg_proto=2)
+docs = list(wiki.sentences.values())
+with tempfile.TemporaryDirectory() as d:
+    kw = dict(ckptdir=d + "/c", logdir=d + "/l", device="cpu")
+    tr = ContrastiveTrainer(cfg, feat, DocPairSampler(docs, sample="augment"), **kw)
+    tr.train(total_steps=3, log_step=3)
+    again = ContrastiveTrainer(cfg, feat, DocPairSampler(docs, sample="augment", seed=1),
+                               **kw)
+    assert again.maybe_resume() == 3 and again.train(total_steps=4, log_step=4).step == 4
+    assert tr.refresh_count == 1 and again.refresh_count == 1  # on resume, at step 3
+    scorer = ContrastiveSentenceScorer(cfg, feat, again.state, batch_size=8)
+    res = mean_claim_evidence_cosine(scorer.embed, wiki.claims, wiki.sentences)
+    assert res["pairs"] > 0, res
+print("JAX_MODULES", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
+"""
+
+
 def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
@@ -169,6 +214,12 @@ def test_port_serves_a_claim_request_without_loading_jax():
     """The verdict stage with ``attention="flash"`` on a claim line through
     ``serve_stdin``."""
     _run_fresh(_SERVE_ONE_CLAIM_REQUEST)
+
+
+def test_port_trains_resumes_and_scores_without_loading_jax():
+    """A tiny ProtoNCE ``ContrastiveTrainer`` run on the CPU, its checkpoint
+    resumed by a fresh trainer, and its state behind the sentence scorer."""
+    _run_fresh(_TRAIN_RESUME_AND_SCORE)
 
 
 def _port_files():

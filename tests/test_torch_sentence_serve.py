@@ -22,6 +22,7 @@ import pytest
 from _torch_parity import one_torch_thread  # noqa: F401
 from ircl_tpu import serve as j_serve
 from ircl_tpu.contrastive.state import TrainConfig as JTrainConfig
+from ircl_tpu.contrastive.state import init_train_state as j_init_train_state
 from ircl_tpu.corpus.store import MemoryDocStore
 from ircl_tpu.corpus.synthetic import generate
 from ircl_tpu.index.build import build_count_index
@@ -166,15 +167,15 @@ def encoders():
     )
     j_cfg = JTrainConfig(encoder=j_enc.EncoderConfig(**enc))
     t_cfg = TrainConfig(encoder=t_enc.EncoderConfig(**enc))
-    j_params = j_enc.init_encoder_params(jax.random.PRNGKey(21), j_cfg.encoder)
-    t_params = convert.encoder_params_from_numpy(
-        jax.tree.map(np.asarray, j_params), device="cpu")
-
-    class _State:  # what ContrastiveSentenceScorer reads of a TrainState
-        params_q = j_params
-
-    j_sc = j_ds.ContrastiveSentenceScorer(j_cfg, j_f, _State(), batch_size=32)
-    t_sc = t_ds.ContrastiveSentenceScorer(t_cfg, t_f, t_params, batch_size=32)
+    j_state = j_init_train_state(jax.random.PRNGKey(21), j_cfg)
+    adam = j_state.opt_state[1][0]
+    t_state = convert.train_state_from_numpy(
+        *jax.tree.map(np.asarray, (j_state.params_q, j_state.params_k, j_state.queue)),
+        int(j_state.queue_ptr), int(j_state.step), count=int(adam.count),
+        mu=jax.tree.map(np.asarray, adam.mu), nu=jax.tree.map(np.asarray, adam.nu),
+        device="cpu")
+    j_sc = j_ds.ContrastiveSentenceScorer(j_cfg, j_f, j_state, batch_size=32)
+    t_sc = t_ds.ContrastiveSentenceScorer(t_cfg, t_f, t_state, batch_size=32)
     return j_sc, t_sc
 
 
