@@ -100,7 +100,29 @@ Phases, each printed as it runs:
     for bit and resumed; stage 2's claim/evidence cosine from the trained
     state; then ProtoNCE at (4096, 6144, 8192) clusters over 20,000 docs,
     refreshed twice by k-means on the card, its centroids and densities
-    checked.
+    checked;
+22. served doc search under concurrent clients (``bench_serve.py``'s
+    scenarios A and B, 3 s each): ``make_service`` at ``cli serve``'s defaults
+    over the 50K-doc index, closed-loop one-query clients at 1, 8 and 64
+    through ``RetrievalService.search``, ``BatchingService``, ``serve_http``
+    and ``serve_native_http`` (keep-alive connections, each opened by an
+    untimed request before the window); the judged ranker behind a
+    ``BatchingService`` at 64 clients, with kernel #3 held to its plain
+    version on the first served batch's inputs at ``k_max``; two-stage
+    sentence search over phase 9's table at 64 clients through the native
+    front. Every reply is held to the unbatched service's, a sample of the
+    native front's and of the judged service's to scipy; the two fronts
+    answer a fixed set of requests (400, 404 and 413 among them) alike; q/s,
+    request p50/p95/p99, queries a device dispatch, the longest time without
+    a reply and the cyclic collector's time for each scenario (the earlier
+    phases' objects frozen out of the collector's walk);
+23. the CLI chain on a 1,000-doc synthetic corpus, each command a fresh
+    ``python -m ircl_tpu_torch.cli`` process on the card with a JSON config:
+    ``prepare``, ``build-index``, ``train`` (``TrainConfig()``, 20 steps),
+    ``retrieve --dense-ckpt``, ``train-verdict``, ``eval-verdict``,
+    ``serve --stdin`` with all three stages and ``serve --native-front``
+    stopped by SIGINT; recall, replies and evidence held to the port's API
+    in this process, and each command's seconds.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -110,7 +132,10 @@ before phase 14 and read after phase 15 (the training path), inside phase
 phase 19 (the scale path); every kernel must have run on its path, and
 launches made to compare a kernel with its plain version are not counted.
 No kernel lies on the contrastive training path: every count is zeroed
-before phase 20 and must still be 0 after phase 21.
+before phase 20 and must still be 0 after phase 21. They are zeroed again
+before phase 22 (the serving path: #1, #2 and #3 must run) and phase 23's
+commands count their own launches in their processes (#1 must run in
+``retrieve`` and both ``serve`` commands).
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -121,6 +146,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import io
 import json
 import os
@@ -181,6 +207,14 @@ SCALE_RANKER = dict(mode="hybrid", df_threshold=256, width_buckets=2,
 SCALE_PARITY, SCALE_RAGGED, SCALE_SELECT, SCALE_CHUNK = 256, 32, 16, 500_000
 FUSED_DOT_RTOL, FUSED_DOT_ATOL = 2e-5, 1e-5  # the probe's own bound
 ONEPASS_RTOL = 1e-5  # against the slab GEMM: another summation order
+# the serving phase: bench_serve.py's scenarios A and B through the port's fronts
+SERVE_QUERIES, SERVE_SENT_QUERIES, SERVE_SAMPLE = 512, 64, 256
+SERVE_CLIENTS = (1, 8, 64)
+SERVE_SECONDS = 3.0  # bench_serve.py runs 8 s a scenario; cut to 3 for the time limit
+SERVE_WAIT_MS, SERVE_WORKERS = 5.0, 2
+SENT_RTOL = 1e-5  # a claim's embedding in another batch: fp32 sums in another order
+# the CLI phase: a synthetic corpus through every command, each in a fresh process
+CLI_DOCS, CLI_CLAIMS, CLI_TRAIN_STEPS, CLI_TIMEOUT = 1000, 200, 20, 600
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores; one FMA is two
@@ -236,9 +270,10 @@ def scipy_topk(mat, buckets, weights, k):
     return out
 
 
-def check_replies(replies, requests, index, label):
+def check_replies(replies, requests, index, label, max_terms=24):
     """Every doc-search reply against scipy: the same number of hits, the
-    sorted scores within rtol 1e-4, and each doc carrying its own score."""
+    sorted scores within rtol 1e-4, and each doc carrying its own score.
+    Queries keep ``max_terms`` terms, as the service's ranker does."""
     from ircl_tpu_torch.index.build import to_scipy
     from ircl_tpu_torch.index.ranker import vectorize_queries
 
@@ -254,7 +289,7 @@ def check_replies(replies, requests, index, label):
             fail(f"{label}: request failed: {rep}")
         queries, k = req
         b, w = vectorize_queries(
-            queries, HASH_SIZE, 2, index.doc_freqs, index.num_docs, max_terms=24
+            queries, HASH_SIZE, 2, index.doc_freqs, index.num_docs, max_terms=max_terms
         )
         refs = scipy_topk(mat, b, w, k)
         if len(rep["results"]) != len(queries):
@@ -2495,6 +2530,656 @@ def named_leaves(tree, prefix=""):
         yield prefix, tree
 
 
+def run_clients(call, n_clients, duration_s, queries, at_open=None):
+    """``bench_serve.py::run_clients``: closed-loop clients, each sending
+    one-query requests back to back until the deadline. Each client first
+    sends one untimed request (an HTTP client opens its keep-alive
+    connection there), and the window opens once every client has had its
+    reply; ``at_open()``, where given, is read at that moment. Returns every
+    (query, reply), the untimed ones included, and q/s with request
+    p50/p95/p99 in ms (and ``opened``, what ``at_open`` returned). Two
+    readings say where a tail comes from: ``max_gap_ms``, the longest time
+    in the window in which no reply arrived (a stall of the whole server),
+    and ``gc_ms``/``gc_max_ms``, the time Python's cyclic collector ran in
+    the window, all of it and its longest pass (every thread waits on it)."""
+    import threading
+
+    lock = threading.Lock()
+    lat, ends, replies, errors = [], [], [], []
+    window = {}
+    gc_start, gc_passes = [0.0], []
+
+    def open_window():
+        window["t0"] = time.monotonic()
+        window["opened"] = at_open() if at_open else None
+
+    def on_gc(phase, info):  # runs with the GIL held, in the collecting thread
+        if phase == "start":
+            gc_start[0] = time.monotonic()
+        else:
+            gc_passes.append((gc_start[0], time.monotonic() - gc_start[0]))
+
+    gate = threading.Barrier(n_clients + 1, action=open_window)
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        mine_l, mine_e, mine_r = [], [], []
+        try:
+            q = queries[int(rng.integers(len(queries)))]
+            mine_r.append((q, call([q])[0]))  # untimed: connects and warms
+            gate.wait(timeout=duration_s + 120)
+            stop = window["t0"] + duration_s
+            while time.monotonic() < stop:
+                q = queries[int(rng.integers(len(queries)))]
+                t0 = time.monotonic()
+                res = call([q])
+                mine_e.append(time.monotonic())
+                mine_l.append(mine_e[-1] - t0)
+                mine_r.append((q, res[0]))
+        except threading.BrokenBarrierError:
+            pass  # another client failed first, and says why
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+            gate.abort()
+        with lock:
+            lat.extend(mine_l)
+            ends.extend(mine_e)
+            replies.extend(mine_r)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(n_clients)]
+    gc.callbacks.append(on_gc)
+    try:
+        for t in threads:
+            t.start()
+        try:
+            gate.wait(timeout=duration_s + 120)
+        except threading.BrokenBarrierError:
+            pass  # a client failed or hung before the window: reported below
+        for t in threads:
+            t.join(timeout=duration_s + 120)
+    finally:
+        gc.callbacks.remove(on_gc)
+    if any(t.is_alive() for t in threads):
+        fail("phase 22: a client hung")
+    if errors:
+        fail(f"phase 22: {len(errors)} clients failed, e.g. {errors[0]}")
+    if "t0" not in window:
+        fail("phase 22: the clients' window never opened")
+    dt = time.monotonic() - window["t0"]
+    arr = np.sort(np.asarray(lat))
+    pct = lambda p: 1e3 * float(arr[min(len(arr) - 1, int(p * len(arr)))])  # noqa: E731
+    gaps = np.diff(np.sort(np.asarray([window["t0"], *ends])))
+    in_window = [d for t, d in gc_passes if t >= window["t0"]]
+    return replies, dict(clients=n_clients, requests=len(arr), qps=len(arr) / dt,
+                         p50_ms=pct(0.5), p95_ms=pct(0.95), p99_ms=pct(0.99),
+                         max_gap_ms=1e3 * float(gaps.max(initial=0.0)),
+                         gc_ms=1e3 * sum(in_window), gc_max_ms=1e3 * max(in_window, default=0.0),
+                         opened=window["opened"])
+
+
+def http_caller(port, sentences=False):
+    """A client's call over one keep-alive connection a thread."""
+    import http.client
+    import threading
+
+    tls = threading.local()
+
+    def call(qs):
+        conn = getattr(tls, "conn", None)
+        if conn is None:
+            conn = tls.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        req = {"queries": qs, "sentences": True} if sentences else {"queries": qs}
+        try:
+            conn.request("POST", "/search", body=json.dumps(req).encode(),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            body = r.read()
+        except Exception:
+            tls.conn = None
+            raise
+        if r.status != 200:
+            raise RuntimeError(f"HTTP {r.status}: {body[:200]!r}")
+        return json.loads(body)["results"]
+
+    return call
+
+
+def http_exchange(port, method, path, body):
+    """(status, body bytes) of one request on a fresh connection. A body of
+    more than ``MAX_BODY_BYTES`` is announced and not sent: the client shuts
+    its side after the headers, so each front answers 413 from the length."""
+    import socket
+
+    s = socket.create_connection(("127.0.0.1", port), timeout=60)
+    try:
+        head = f"{method} {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+        if body is None:
+            s.sendall(head.encode() + b"\r\n")
+        elif isinstance(body, int):
+            s.sendall(head.encode() + f"Content-Length: {body}\r\n\r\n".encode())
+            s.shutdown(socket.SHUT_WR)
+        else:
+            s.sendall(head.encode() + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                      + body)
+        buf = b""
+        while True:
+            got = s.recv(65536)
+            if not got:
+                break
+            buf += got
+    finally:
+        s.close()
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), rest
+
+
+def same_doc_reply(got, want):
+    """Doc results of one query: equal scores, bit for bit, and equal ids
+    except among docs of exactly equal scores (which of them a top-k keeps,
+    and in which order, may change with the batch)."""
+    if [h["score"] for h in got] != [h["score"] for h in want]:
+        return False
+    by_score = lambda hits: {(h["score"], h["doc_id"]) for h in hits}  # noqa: E731
+    last = want[-1]["score"] if want else None
+    return ({x for x in by_score(got) if x[0] != last}
+            == {x for x in by_score(want) if x[0] != last})
+
+
+def same_sentence_reply(got, want):
+    """Two-stage results of one query: equal (doc, sent) lists except across
+    scores within SENT_RTOL of each other, scores within SENT_RTOL."""
+    if len(got) != len(want):
+        return False
+    gs = np.array([h["score"] for h in got], np.float64)
+    ws = np.array([h["score"] for h in want], np.float64)
+    if not np.allclose(gs, ws, rtol=SENT_RTOL, atol=1e-7):
+        return False
+    if not len(ws):
+        return True
+    cut = ws.min() + SENT_RTOL * abs(ws.min()) + 1e-7
+    key = lambda h: (h["doc_id"], h["sent_id"], h["sentence"])  # noqa: E731
+    return ({key(h) for h in got if h["score"] > cut}
+            == {key(h) for h in want if h["score"] > cut})
+
+
+def profile_serving(service, call, clients, pool, seconds):
+    """``run_clients`` under ``torch.profiler``: (device dispatches, device
+    idle share over the window, device ms a dispatch, device ms a dispatch
+    by kernel name, top first), or None where the profiler saw no device
+    work."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = service.metrics.snapshot()["device_batches"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_clients(call, clients, seconds, pool)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    d = service.metrics.snapshot()["device_batches"] - before
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels or not d:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / d
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return d, 1.0 - busy / wall_us, busy / 1e3 / d, top
+
+
+def phase22_serving(dev, path, index, claims, judged_ranker, sent_path, doc_sentences,
+                    pre, mine, smi):
+    """Served doc search under concurrent closed-loop clients (bench_serve.py's
+    scenarios A and B) through the port's service, batcher and both HTTP fronts,
+    and served sentence search under 64 clients; every reply checked."""
+    import threading
+
+    import torch
+
+    import ircl_tpu_torch.ops.hybrid as hy
+    from ircl_tpu_torch.ops.light_add_cuda import light_add_topk_t, light_add_topk_t_ref
+    from ircl_tpu_torch.serve import BatchingService, RetrievalService, make_service, serve_http
+    from ircl_tpu_torch.serve_native import native_available, serve_native_http
+
+    if not native_available():
+        fail("phase 22: native/libircl_http.so did not build or load")
+    t0 = time.perf_counter()
+    svc = make_service(path, batch_size=256, max_terms=24, union_cap=4096, mode="auto",
+                       device=dev)  # cli serve's defaults
+    if svc.ranker.mode != "hybrid":
+        fail(f"phase 22: cli serve's defaults picked {svc.ranker.mode}, not hybrid")
+    svc.warmup()
+    queries = claims[:SERVE_QUERIES]
+    want = {q: svc.search([q])[0] for q in queries}  # the unbatched answers
+    log(f"phase 22: make_service at cli serve's defaults (hybrid, batch 256, max_terms "
+        f"24, union_cap 4096), warmed, and {len(want)} unbatched answers in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = []
+
+    def scenario(name, service, call, clients, pool, answers, same=None):
+        replies, stats = run_clients(
+            call, clients, SERVE_SECONDS, pool,
+            at_open=lambda: service.metrics.snapshot()["device_batches"])
+        d = service.metrics.snapshot()["device_batches"] - stats.pop("opened")
+        stats.update(scenario=name, device_batches=d,
+                     queries_per_dispatch=stats["requests"] / d if d else None)
+        same = same or same_doc_reply
+        bad = [(q, r) for q, r in replies if not same(r, answers[q])]
+        if bad:
+            q, r = bad[0]
+            fail(f"phase 22: {name} at {clients} clients: {len(bad)} of {len(replies)} "
+                 f"replies differ from the unbatched service's, e.g. {q!r}: {r} against "
+                 f"{answers[q]}")
+        identical = sum(r == answers[q] for q, r in replies)
+        rows.append(stats)
+        log(f"phase 22: {name:>22} c={clients:>2}: {stats['qps']:9.1f} q/s, p50 "
+            f"{stats['p50_ms']:.2f} p95 {stats['p95_ms']:.2f} p99 {stats['p99_ms']:.2f} ms, "
+            f"{stats['queries_per_dispatch'] or 0:.2f} queries a dispatch, longest time "
+            f"without a reply {stats['max_gap_ms']:.1f} ms, collector {stats['gc_ms']:.1f} "
+            f"ms (longest pass {stats['gc_max_ms']:.1f}); "
+            f"{len(replies)} replies equal the unbatched ones ({identical} identical, "
+            f"the rest {'up to exact ties' if same is same_doc_reply else 'within rtol'})")
+        return replies
+
+    for c in SERVE_CLIENTS:
+        scenario("service.search", svc, svc.search, c, queries, want)
+    batcher = BatchingService(svc, max_wait_ms=SERVE_WAIT_MS)
+    try:
+        for c in SERVE_CLIENTS:
+            scenario("BatchingService", svc, batcher.search, c, queries, want)
+        prof = profile_serving(svc, batcher.search, SERVE_CLIENTS[-1], queries, 1.0)
+    finally:
+        batcher.close()
+    if prof is None:
+        log("phase 22: torch.profiler saw no device work: the idle share is not measured")
+    else:
+        d, idle, per, top = prof
+        log(f"phase 22: BatchingService at {SERVE_CLIENTS[-1]} clients under "
+            f"torch.profiler for 1 s: {d} dispatches, device idle share {idle:.3f}, "
+            f"{per:.3f} ms of device time a dispatch; by kernel " +
+            ", ".join(f"{k[:60]} {v:.3f}" for k, v in top.items()))
+    want_json = {q: json.loads(json.dumps(r)) for q, r in want.items()}
+    server = serve_http(svc, port=0, batch_wait_ms=SERVE_WAIT_MS)
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    native = serve_native_http(svc, port=0, batch_wait_ms=SERVE_WAIT_MS,
+                               workers=SERVE_WORKERS)
+    try:
+        ports = {"serve_http": server.server_address[1], "serve_native_http": native.port}
+        sample = []
+        for name, port in ports.items():
+            for c in SERVE_CLIENTS:
+                sample = scenario(name, svc, http_caller(port), c, queries, want_json)
+        # a sample of the native front's replies at 64 clients against scipy
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(22)
+        picked = [sample[i] for i in rng.choice(len(sample), SERVE_SAMPLE, replace=False)]
+        n = check_replies([{"results": [r for _, r in picked]}],
+                          [([q for q, _ in picked], K)], index, "phase 22 sample")
+        log(f"phase 22: {n} sampled replies of the native front match scipy (rtol 1e-4; "
+            f"{time.perf_counter() - t0:.1f} s)")
+        # the two fronts on a fixed set of requests, malformed ones included
+        t0 = time.perf_counter()
+        errors_before = svc.metrics.snapshot()["errors"]
+        fixed = [
+            ("POST", "/search", json.dumps({"queries": claims[:3], "k": 2}).encode(), 200),
+            ("POST", "/search", json.dumps({"query": claims[3]}).encode(), 200),
+            ("POST", "/search", b'{"queries": []}', 200),
+            ("GET", "/healthz", None, 200),
+            ("POST", "/search", b"{not json", 400),
+            ("POST", "/search", b'{"queries": "a bare string"}', 400),
+            ("POST", "/search", b"[1, 2]", 400),
+            ("POST", "/search", json.dumps({"query": claims[4], "k": 0}).encode(), 400),
+            ("POST", "/verdict", b'{"claims": ["x"]}', 400),  # no verdict stage
+            ("POST", "/nope", b"{}", 404),
+            ("GET", "/nope", None, 404),
+            ("POST", "/search", 9 << 20, 413),
+        ]
+        malformed = 4  # the 400s that reach the shared handler (JSON decoded)
+        for method, route, body, code in fixed:
+            got = {name: http_exchange(port, method, route, body)
+                   for name, port in ports.items()}
+            (s1, b1), (s2, b2) = got.values()
+            if not s1 == s2 == code:
+                fail(f"phase 22: {method} {route}: status {s1} and {s2}, not {code}")
+            if code != 413 and b1 != b2:
+                fail(f"phase 22: {method} {route}: the fronts' bodies differ: {b1[:200]!r}"
+                     f" against {b2[:200]!r}")
+        errors = svc.metrics.snapshot()["errors"] - errors_before
+        if errors != 2 * malformed or svc.metrics.snapshot()["errors"] != errors:
+            fail(f"phase 22: ServiceMetrics.errors {svc.metrics.snapshot()['errors']}, "
+                 f"{errors} in the fixed set; {2 * malformed} malformed requests sent")
+        log(f"phase 22: the two fronts answer {len(fixed)} fixed requests with equal "
+            f"status codes (200, 400, 404, 413) and equal bodies (the 413's body is the "
+            f"C++ front's own); ServiceMetrics.errors {errors} = the malformed requests "
+            f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        native.close()
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        th.join(timeout=60)
+    del svc
+
+    # the judged configuration served: its fused light path launches kernel #3
+    t0 = time.perf_counter()
+    jsvc = RetrievalService(judged_ranker, batch_size=256)
+    jsvc.warmup()
+    jwant = {q: jsvc.search([q])[0] for q in queries}
+    log(f"phase 22: the judged ranker served, warmed and {len(jwant)} unbatched answers "
+        f"in {time.perf_counter() - t0:.1f} s")
+    served = []  # the first served batch's light-add inputs, copied
+
+    def recording(h_t, docs_t, contribs_t, **kw):
+        if not served:
+            served.append((h_t.clone(), docs_t.clone(), contribs_t.clone(), kw))
+        return light_add_topk_t(h_t, docs_t, contribs_t, **kw)
+
+    batcher = BatchingService(jsvc, max_wait_ms=SERVE_WAIT_MS)
+    hy.light_add_topk_t = recording
+    try:
+        jreplies = scenario("BatchingService, judged", jsvc, batcher.search,
+                            SERVE_CLIENTS[-1], queries, jwant)
+    finally:
+        hy.light_add_topk_t = light_add_topk_t
+        batcher.close()
+    if not served:
+        fail("phase 22: the judged service never reached light_add_topk_t")
+    # a sample of its replies against scipy, vectorized as the ranker does
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    picked = [jreplies[i] for i in rng.choice(len(jreplies), SERVE_SAMPLE, replace=False)]
+    n = check_replies([{"results": [r for _, r in picked]}],
+                      [([q for q, _ in picked], K)], index, "phase 22 judged sample",
+                      max_terms=judged_ranker.fixed_max_terms)
+    log(f"phase 22: {n} sampled replies of the judged service match scipy (rtol 1e-4; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    # kernel #3 at the served shape and k_max against its plain version; these
+    # launches are a comparison and do not count as the serving path's
+    h_t, docs_t, contribs_t, kw = served[0]
+    launched = light_add_topk_t.launches
+    s1, i1 = light_add_topk_t(h_t, docs_t, contribs_t, **kw)
+    ref_kw = {key: v for key, v in kw.items() if key != "b_tile"}
+    s2, i2 = light_add_topk_t_ref(h_t, docs_t, contribs_t, **ref_kw)
+    torch.cuda.synchronize()
+    if not torch.allclose(s1, s2, rtol=1e-6, atol=0.0):
+        fail(f"phase 22: light_add_topk_t at the served shape {tuple(h_t.shape)}, k="
+             f"{kw['k']}: scores differ from its plain version")
+    if not bool(((i1 == i2) | (s1 == s2)).all()):
+        fail(f"phase 22: light_add_topk_t at the served shape {tuple(h_t.shape)}, k="
+             f"{kw['k']}: ids differ from its plain version off a tie")
+    lt_served = dict(
+        h_t=list(h_t.shape), pool=docs_t.shape[0], k=kw["k"], d_tile=kw["d_tile"],
+        body="column" if kw["k"] > 8 else "stream",  # light_add_topk.cu's kList
+        max_abs_err=float((s1 - s2).abs().max()),
+        ms=cuda_ms(lambda: light_add_topk_t(h_t, docs_t, contribs_t, **kw)),
+        plain_ms=cuda_ms(lambda: light_add_topk_t_ref(h_t, docs_t, contribs_t, **ref_kw),
+                         reps=2),
+        **least_time((h_t, docs_t, contribs_t, s1, i1), h_t.numel() + docs_t.numel(),
+                     F32_FLOPS / 2),
+    )
+    light_add_topk_t.launches = launched
+    log(f"phase 22: light_add_topk_t at the judged service's first batch, H_T="
+        f"{tuple(h_t.shape)} P={docs_t.shape[0]} k={kw['k']} (the {lt_served['body']} "
+        f"body): within rtol 1e-6 of its plain version ({int((i1 != i2).sum())} ids "
+        f"differ, all at ties); kernel {lt_served['ms']:.3f} ms, plain "
+        f"{lt_served['plain_ms']:.3f} ms, bound {lt_served['bound_ms']:.3f} ms")
+    del served, h_t, docs_t, contribs_t, s1, i1, s2, i2
+
+    # served sentence search over phase 9's table, 64 clients through the native front
+    ssvc = make_service(sent_path, device=dev, doc_sentences=doc_sentences,
+                        sentence_scorer=pre)
+    ssvc.warmup()
+    pool = mine[:SERVE_SENT_QUERIES]
+    t0 = time.perf_counter()
+    swant = {q: json.loads(json.dumps(ssvc.search_sentences([q])[0])) for q in pool}
+    log(f"phase 22: {len(swant)} unbatched sentence answers in "
+        f"{time.perf_counter() - t0:.1f} s")
+    native = serve_native_http(ssvc, port=0, batch_wait_ms=SERVE_WAIT_MS,
+                               workers=SERVE_WORKERS)
+    try:
+        scenario("sentences, native", ssvc, http_caller(native.port, sentences=True),
+                 SERVE_CLIENTS[-1], pool, swant, same=same_sentence_reply)
+    finally:
+        native.close()
+
+    coalesced = {(r["scenario"], r["clients"]): r["queries_per_dispatch"] for r in rows}
+    for name in ("BatchingService", "serve_http", "serve_native_http"):
+        if not coalesced[(name, SERVE_CLIENTS[-1])] > 1.0:
+            fail(f"phase 22: {name} did not coalesce at {SERVE_CLIENTS[-1]} clients: "
+                 f"{coalesced[(name, SERVE_CLIENTS[-1])]} queries a dispatch")
+    log(f"phase 22: {smi}; scenarios of {SERVE_SECONDS} s (bench_serve.py runs 8 s)")
+    log("phase 22: serving " + json.dumps(rows))
+    return lt_served
+
+
+_CLI_WITH_COUNTS = r"""
+import json, runpy, sys
+from ircl_tpu_torch.ops.light_add_cuda import light_add_topk_t
+from ircl_tpu_torch.ops.membership_cuda import membership_slab, membership_slab_windowed
+from ircl_tpu_torch.ops.flash_attention_cuda import flash_attention
+
+counted = dict(membership_slab=membership_slab,
+               membership_slab_windowed=membership_slab_windowed,
+               light_add_topk_t=light_add_topk_t, flash_attention=flash_attention)
+try:
+    runpy.run_module("ircl_tpu_torch.cli", run_name="__main__", alter_sys=True)
+finally:
+    print("KERNEL_LAUNCHES " + json.dumps({n: f.launches for n, f in counted.items()}),
+          file=sys.stderr, flush=True)
+"""
+
+
+def cli_command(root, command, args, stdin=None):
+    """``python -m ircl_tpu_torch.cli ARGS`` in a fresh process (run through
+    runpy, so that the process can print its kernel launch counts after):
+    (stdout, stderr, seconds, launches). Fails unless it exits 0 and says
+    that ``command`` ran on the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_WITH_COUNTS, *args], cwd=root, input=stdin,
+        capture_output=True, text=True, timeout=CLI_TIMEOUT,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 23: cli {' '.join(args)} exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr, seconds, cli_checks(command, proc.stderr)
+
+
+def cli_checks(command, stderr):
+    """The launch counts a CLI process printed; fails unless ``command``
+    reported the device cuda."""
+    if f"ircl_tpu_torch.cli {command}: device cuda" not in stderr:
+        fail(f"phase 23: cli {command} did not report the device cuda: {stderr[-2000:]}")
+    line = next(ln for ln in stderr.splitlines() if ln.startswith("KERNEL_LAUNCHES "))
+    return json.loads(line.split(" ", 1)[1])
+
+
+def phase23_cli(dev, root, tmpdir, smi):
+    """The whole CLI chain on a synthetic corpus, each command in a fresh
+    process on the card, its outputs checked against the port's API in this
+    process."""
+    import signal
+    import threading
+
+    import torch
+
+    from ircl_tpu_torch.config import load_config
+    from ircl_tpu_torch.contrastive.state import init_train_state
+    from ircl_tpu_torch.corpus import fever
+    from ircl_tpu_torch.corpus.store import MemoryDocStore
+    from ircl_tpu_torch.index.build import CountIndex, build_count_index
+    from ircl_tpu_torch.index.ranker import TfidfRanker
+    from ircl_tpu_torch.index.tfidf import tfidf_transform
+    from ircl_tpu_torch.models.featurizer import HashEmbedFeaturizer
+    from ircl_tpu_torch.pipeline.dense_scorer import (
+        ContrastiveSentenceScorer, PrecomputedSentenceScorer,
+    )
+    from ircl_tpu_torch.pipeline.recall import doc_recall_at_k, sentence_recall_at_k
+    from ircl_tpu_torch.pipeline.retrieve import retrieve
+    from ircl_tpu_torch.serve import make_service
+    from ircl_tpu_torch.utils.checkpoint import restore_state
+
+    ws = os.path.join(tmpdir, "cli")
+    data = os.path.join(ws, "data")
+    cfg_path = os.path.join(ws, "cfg.json")
+    os.makedirs(ws)
+    with open(cfg_path, "w") as f:
+        json.dump({
+            "data": {"data_dir": data, "wiki_json": f"{data}/small_wiki.json",
+                     "dev_jsonl": f"{data}/shared_task_dev.jsonl", "synthetic": True,
+                     "synthetic_docs": CLI_DOCS, "synthetic_claims": CLI_CLAIMS},
+            "ckptdir": f"{ws}/ckpt", "logdir": f"{ws}/log",
+        }, f)
+    base = ["--config", cfg_path]
+    verdict_sets = ["--set", "verdict.epochs=1", "--set", "verdict.warmup_steps=5"]
+    seconds, launches = {}, {}
+
+    def run(name, args, stdin=None):
+        out, err, secs, counts = cli_command(root, name.split()[0], [*base, *args], stdin)
+        seconds[name], launches[name] = round(secs, 2), counts
+        log(f"phase 23: cli {name}: {secs:.1f} s, exit 0 on cuda; launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        return out, err
+
+    run("prepare", ["prepare"])
+    run("build-index", ["build-index"])
+    out, _ = run("train", ["train", "--steps", str(CLI_TRAIN_STEPS), "--log-step", "10"])
+    if f"finished at step {CLI_TRAIN_STEPS}" not in out:
+        fail(f"phase 23: train did not finish: {out[-500:]}")
+    ckpt = f"{ws}/ckpt/uniform_InfoNCE_LSTM_{CLI_TRAIN_STEPS}"
+    out, _ = run("retrieve", ["retrieve", "--dense-ckpt", ckpt, "--out", f"{ws}/res.jsonl"])
+    recall = json.loads(out.strip().splitlines()[-1])
+    out, _ = run("train-verdict", [*verdict_sets, "train-verdict"])
+    history = json.loads(out.strip().splitlines()[-1])
+    if not history or not all(np.isfinite(h["train_loss"]) for h in history):
+        fail(f"phase 23: train-verdict history {history}")
+    out, _ = run("eval-verdict", ["eval-verdict", "--retrieved", f"{ws}/res.jsonl"])
+    report = json.loads(out.strip().splitlines()[-1])
+    if not 0.0 <= report["macro_f1"] <= 1.0:
+        fail(f"phase 23: eval-verdict report {report}")
+
+    # retrieve's recall, recomputed in this process through the port's API
+    cfg = load_config(cfg_path)
+    wiki = fever.load_wiki_json(cfg.data.wiki_json)
+    store = MemoryDocStore({d: r.get("text", "") for d, r in wiki.items()})
+    index = tfidf_transform(build_count_index(store, ngram=2, hash_size=cfg.index.hash_size))
+    claims = fever.parse_claims_jsonl(cfg.data.dev_jsonl, drop_nei=True)
+    doc_sents = {d: fever.parse_lines_tab(r["lines"]) for d, r in wiki.items()}
+    state = restore_state(ckpt, init_train_state(0, cfg.train, device=dev))
+    scorer = ContrastiveSentenceScorer(cfg.train, HashEmbedFeaturizer(cfg.featurizer, dev),
+                                       state)
+    res = retrieve([c.claim for c in claims], TfidfRanker(index, dev, mode=cfg.index.mode),
+                   doc_sents, scorer, k_docs=cfg.retrieval.k_docs,
+                   k_sents=cfg.retrieval.k_sents, batch_size=cfg.retrieval.batch_size)
+    mine = {"doc_recall@k": doc_recall_at_k(claims, res.doc_ids, k=cfg.retrieval.k_docs),
+            "sentence_recall@k": sentence_recall_at_k(claims, res.sentences,
+                                                      k=cfg.retrieval.k_sents)}
+    if recall != mine:
+        fail(f"phase 23: retrieve's recall {recall} != {mine} computed in this process")
+    log(f"phase 23: retrieve's recall {recall} equals this process's; eval-verdict "
+        f"macro F1 {report['macro_f1']:.3f}; train-verdict loss "
+        f"{history[-1]['train_loss']:.4f}")
+
+    # served stage 1, 2 and 3, stdin, against scipy and this process's service
+    texts = [c.claim for c in claims]
+    serve_args = ["serve", "--dense-ckpt", ckpt, "--verdict-ckpt", cfg.ckptdir]
+    lines = [json.dumps({"queries": texts[:20]}), json.dumps({"query": texts[20], "k": 3}),
+             json.dumps({"queries": texts[21:31], "sentences": True}),
+             json.dumps({"claims": texts[31:39]}), '{"queries": 3}']
+    out, _ = run("serve --stdin", [*serve_args, "--stdin"], stdin="\n".join(lines) + "\n")
+    replies = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    tfidf = CountIndex.load(os.path.join(
+        data, "index", f"tfidf-ngram=2-hash={cfg.index.hash_size}.npz"))
+    n = check_replies(replies[:2] + [replies[4]],
+                      [(texts[:20], 5), ([texts[20]], 3), None], tfidf, "phase 23 docs")
+    embed = ContrastiveSentenceScorer(cfg.train, HashEmbedFeaturizer(cfg.featurizer, dev),
+                                      state, batch_size=256).embed
+    svc = make_service(os.path.join(data, "index",
+                                    f"tfidf-ngram=2-hash={cfg.index.hash_size}.npz"),
+                       doc_sentences=doc_sents,
+                       sentence_scorer=PrecomputedSentenceScorer(embed, doc_sents),
+                       device=dev)
+    sents = json.loads(json.dumps(svc.search_sentences(texts[21:39])))
+    got = replies[2]["results"] + [v["evidence"] for v in replies[3]["results"]]
+    if len(got) != len(sents) or not all(
+            same_sentence_reply(g, w) for g, w in zip(got, sents)):
+        fail("phase 23: served sentences or claim evidence differ from search_sentences")
+    if not all(v["label"] in ("SUPPORTS", "REFUTES") for v in replies[3]["results"]):
+        fail(f"phase 23: claim replies {replies[3]}")
+    log(f"phase 23: serve --stdin: {n} doc results match scipy (rtol 1e-4); 10 sentence "
+        f"results and 8 claims' evidence equal search_sentences in this process")
+
+    # the native front, stopped by a signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _CLI_WITH_COUNTS, *base, *serve_args, "--native-front",
+         "--batch-wait-ms", "5", "--port", "0"],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    err_lines, ready = [], threading.Event()
+
+    def pump():
+        for ln in proc.stderr:
+            err_lines.append(ln)
+            if ln.startswith("serving on http://") or "falling back" in ln:
+                ready.set()
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
+    try:
+        if not ready.wait(CLI_TIMEOUT):
+            fail(f"phase 23: serve --native-front never listened: {''.join(err_lines)[-2000:]}")
+        said = "".join(err_lines)
+        if "falling back to the stdlib transport" in said or not any(
+                ln.startswith("serving on http://") and "(native epoll front" in ln
+                for ln in err_lines):
+            fail(f"phase 23: serve --native-front did not serve through the native "
+                 f"front: {said[-2000:]}")
+        port = int(next(ln for ln in err_lines if ln.startswith("serving on"))
+                   .split(":")[2].split(" ")[0])
+        doc = http_exchange(port, "POST", "/search",
+                            json.dumps({"queries": texts[40:50]}).encode())
+        sent = http_exchange(port, "POST", "/search",
+                             json.dumps({"query": texts[50], "sentences": True}).encode())
+        verdict = http_exchange(port, "POST", "/verdict",
+                                json.dumps({"claim": texts[51]}).encode())
+        if (doc[0], sent[0], verdict[0]) != (200, 200, 200):
+            fail(f"phase 23: native front answered {doc[0]}, {sent[0]}, {verdict[0]}")
+        check_replies([json.loads(doc[1])], [(texts[40:50], 5)], tfidf, "phase 23 native")
+        want = json.loads(json.dumps(svc.search_sentences([texts[50], texts[51]])))
+        if not (same_sentence_reply(json.loads(sent[1])["results"][0], want[0]) and
+                same_sentence_reply(json.loads(verdict[1])["results"][0]["evidence"],
+                                    want[1])):
+            fail("phase 23: the native front's sentences differ from search_sentences")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    pumper.join(timeout=60)
+    if rc != 0:
+        fail(f"phase 23: serve --native-front exited {rc} on SIGINT: "
+             f"{''.join(err_lines)[-2000:]}")
+    name = "serve --native-front"
+    seconds[name] = round(time.perf_counter() - t0, 2)
+    launches[name] = cli_checks("serve", "".join(err_lines))
+    log(f"phase 23: cli {name}: answered a doc, a sentence and a claim request, stopped "
+        f"by SIGINT with exit 0 in {seconds[name]:.1f} s; launches "
+        f"{ {k: v for k, v in launches[name].items() if v} }")
+    for name in ("retrieve", "serve --stdin", "serve --native-front"):
+        if launches[name]["membership_slab"] == 0:
+            fail(f"phase 23: cli {name} did not launch membership_slab")
+    log(f"phase 23: {smi}; seconds by command {json.dumps(seconds)}")
+    del svc, state, scorer
+    torch.cuda.empty_cache()
+    return seconds, launches
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -3021,6 +3706,44 @@ def main() -> None:
         f"(phases 20-21)")
     del ct_feat
 
+    # ---- the serving path: phase 22, with fresh launch counts --------------
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    judged = TfidfRanker(
+        index, dev, mode="hybrid", df_threshold=24, width_buckets=2,
+        fixed_union_cap=4096, fixed_max_terms=64, precision="high", union_round=512,
+    )
+    # This process still holds every earlier phase's Python objects, which a
+    # served process would not; a full pass of the cyclic collector over them
+    # takes seconds and stalls every front. Frozen, the collector walks only
+    # what serving makes (each window reports its collector time).
+    gc.collect()
+    gc.freeze()
+    try:
+        lt_served = phase22_serving(dev, path, index, claims, judged, index_path,
+                                    doc_sentences, pre, mine, smi)
+    finally:
+        gc.unfreeze()
+    del judged
+    serve_launches = {name: fn.launches for name, fn in counted.items()}
+    for name in ("membership_slab", "membership_slab_windowed", "light_add_topk_t"):
+        if serve_launches[name] == 0:
+            fail(f"{name} was not launched on the serving path")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"{ {k: v for k, v in serve_launches.items() if v} }")
+    torch.cuda.empty_cache()
+
+    # ---- the CLI chain: phase 23, each command counting its own launches ---
+    t_phase = time.perf_counter()
+    _, cli_launches = phase23_cli(dev, root, tmp.name, smi)
+    cli_total = {name: sum(c.get(name, 0) for c in cli_launches.values())
+                 for name in ("membership_slab", "membership_slab_windowed",
+                              "light_add_topk_t", "flash_attention")}
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"{ {k: v for k, v in cli_total.items() if v} }")
+
     tmp.cleanup()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
@@ -3081,6 +3804,12 @@ def main() -> None:
             report[-1]["launches_training_path"] = train_launches[name]
         if name == "membership_slab_windowed":  # and on the scale path
             report[-1]["launches_scale_path"] = scale_launches[name]
+        if serve_launches.get(name):  # the serving path (phase 22)
+            report[-1]["launches_serving_path"] = serve_launches[name]
+        if name == "light_add_topk_t":  # at the judged service's shape and k_max
+            report[-1]["serving_case"] = lt_served
+        if cli_total.get(name):  # the CLI chain (phase 23)
+            report[-1]["launches_cli_path"] = cli_total[name]
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

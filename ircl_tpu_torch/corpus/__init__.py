@@ -1,9 +1,8 @@
 """Host-side text layer: tokenization, hashing, filtering, FEVER corpus parsing.
 
-Counterpart of ``ircl_tpu/corpus/``, carried over line for line apart from
-imports; ``fetch.py`` and ``prepare.py`` come with the CLI (ROADMAP.md queue 1
-item 7). The copies load the same ``native/libircl_native.so`` as the
-reference.
+Counterpart of ``ircl_tpu/corpus/``, every module carried over line for line
+apart from imports. The copies load the same ``native/libircl_native.so`` as
+the reference.
 """
 
 from ircl_tpu_torch.corpus.tokenizer import SimpleTokenizer, Tokens

@@ -1,18 +1,27 @@
 """Serving endpoint for the ported retrieval engines.
 
-Counterpart of ``ircl_tpu/serve.py``, ported as far as the three stages
-over the stdin transport:
+Counterpart of ``ircl_tpu/serve.py``:
 
 - **Pinned batch shapes.** ``RetrievalService`` pads every request up to
   ``batch_size`` with empty queries (zero terms, zero scores), splits larger
   requests into ``batch_size`` chunks and always computes at a fixed
   ``k_max``, slicing the requested ``k`` on the host, so every device batch
   has the same shapes.
-- **One request parser.** ``parse_request`` validates every request, so a
-  malformed line (wrong JSON type, bare string queries, non-int k) gets an
-  error reply instead of killing the loop.
-- **Bulk stdin.** ``serve_stdin`` drains the lines already buffered and
-  scores the plain doc searches among them together.
+- **Cross-request micro-batching.** ``BatchingService`` coalesces concurrent
+  doc-search and two-stage sentence requests into shared device batches
+  (each waits at most ``max_wait_ms`` for co-riders). Its dispatcher
+  threads, not the callers, launch the kernels; ``ServiceMetrics``
+  (``GET /metrics``) reports request, query and device-dispatch counts and
+  p50/p95 request latency.
+- **Transports.** ``serve_http`` is a ``ThreadingHTTPServer`` speaking
+  HTTP/1.1 with keep-alive (``POST /search``, ``POST /verdict``,
+  ``GET /healthz``, ``GET /metrics``); ``serve_native.py`` puts the C++ epoll
+  front over the same routing; ``serve_stdin`` is a JSONL loop that drains
+  the lines already buffered and scores the plain doc searches among them
+  together. All of them parse requests through one validator
+  (``parse_request``), so a malformed request (wrong JSON type, bare string
+  queries, non-int k) gets an error reply instead of killing a connection
+  or the loop.
 - **Two-stage sentence search.** With ``doc_sentences`` and a
   ``sentence_scorer`` (``pipeline/dense_scorer.py``), ``search_sentences``
   re-ranks every sentence of the top docs; a scorer with ``score_keys``
@@ -22,10 +31,11 @@ over the stdin transport:
   (sentences when stage 2 is set, else doc ids) and classifies the claim
   against it; a service without the stage answers claim requests with an
   error.
+- **Chunked engine.** ``make_service(chunk_docs=...)`` serves through
+  ``index/chunked.py::ChunkedHybridRanker`` for corpora past one staged pass.
 
-Not ported yet (ROADMAP.md queue 1 item 7): serving through the chunked
-engine (``chunk_docs``; ``index/chunked.py`` has the ranker), ``BatchingService`` and both HTTP fronts; ``chunk_docs``
-raises ``NotImplementedError``.
+Stage 1 runs under the service lock, so the doc and sentence dispatchers
+and the HTTP handler threads never run two ranker batches at once.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import select
 import threading
 import time
 from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,6 +53,10 @@ import numpy as np
 from ircl_tpu_torch.index.build import CountIndex
 from ircl_tpu_torch.index.ranker import TfidfRanker
 from ircl_tpu_torch.pipeline.retrieve import gather_candidates
+
+# Requests above this are rejected with 413, so that no client can make the
+# host buffer an arbitrarily large body.
+MAX_BODY_BYTES = 8 << 20
 
 _NO_SENTENCES = (
     "sentence search unavailable: service was built without a "
@@ -51,12 +66,6 @@ _NO_VERDICT = (
     "claim verification unavailable: service was built without "
     "a verdict_classifier (cli serve --verdict-ckpt)"
 )
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 7)"
-    )
 
 
 def parse_request(
@@ -343,6 +352,254 @@ class RetrievalService:
         return [dict(v, evidence=results) for v, results in zip(verdicts, per_claim)]
 
 
+class _Pending:
+    """One in-flight request inside the micro-batcher. ``k_sents`` is None
+    for doc-search requests and set for two-stage sentence requests."""
+
+    __slots__ = (
+        "queries", "k", "k_sents", "event", "result", "error", "callback"
+    )
+
+    def __init__(
+        self, queries: List[str], k: int, k_sents: Optional[int] = None,
+        callback=None,
+    ):
+        self.queries = queries
+        self.k = k
+        self.k_sents = k_sents
+        self.event = threading.Event()
+        self.result: Optional[List[List[dict]]] = None
+        self.error: Optional[BaseException] = None
+        # asynchronous completion (``submit``): called as
+        # callback(result, error) on the dispatcher thread after the event
+        self.callback = callback
+
+    def finish(self, result, error) -> None:
+        self.result, self.error = result, error
+        self.event.set()
+        if self.callback is not None:
+            try:
+                self.callback(result, error)
+            except Exception:  # noqa: BLE001
+                pass  # a callback must never kill the dispatcher
+
+
+class BatchingService:
+    """Cross-request micro-batcher over a ``RetrievalService``.
+
+    The pinned-shape engine runs ``batch_size`` query slots a device batch
+    however few are real (``RetrievalService._ranked`` pads), so N concurrent
+    one-query clients would each pay a mostly empty batch. Here requests
+    enqueue, and a dispatcher thread drains the queue into one device batch,
+    at once when ``batch_size`` queries wait and else after at most
+    ``max_wait_ms``, computes at the service's ``k_max`` and hands each
+    request its slice. Two-stage sentence requests coalesce on a queue and
+    dispatcher thread of their own (``search_sentences_multi``). The
+    engines are exact, so a top-k slice of a shared top-``k_max`` batch is
+    each request's own answer. The dispatcher threads launch the kernels,
+    each on the service's device.
+    """
+
+    def __init__(self, service: RetrievalService, max_wait_ms: float = 5.0):
+        if max_wait_ms < 0:
+            raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
+        self.service = service
+        self.max_wait_s = max_wait_ms / 1e3
+        self._cv = threading.Condition()
+        self._queue: deque[_Pending] = deque()
+        self._sent_queue: deque[_Pending] = deque()
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._loop, name="ircl-batcher", daemon=True
+        )
+        self._thread.start()
+        self._sent_thread: Optional[threading.Thread] = None
+        if service.has_sentence_stage:
+            self._sent_thread = threading.Thread(
+                target=self._sent_loop, name="ircl-batcher-sent", daemon=True
+            )
+            self._sent_thread.start()
+
+    # -- client side ------------------------------------------------------
+    def search(
+        self, queries: Sequence[str], k: Optional[int] = None
+    ) -> List[List[dict]]:
+        """``RetrievalService.search``'s contract; the device batch may be
+        shared with concurrent callers."""
+        k = self.service._validate(queries, k)
+        if len(queries) >= self.service.batch_size:
+            # fills device batches on its own: no point queueing
+            return self.service.search(queries, k=k)
+        pend = _Pending(list(queries), k)
+        self._enqueue(self._queue, pend)
+        pend.event.wait()
+        if pend.error is not None:
+            raise pend.error
+        return pend.result
+
+    def submit(
+        self, queries: Sequence[str], k: Optional[int], callback
+    ) -> None:
+        """Asynchronous ``search``: enqueue and return at once;
+        ``callback(result, error)`` fires on the dispatcher thread when the
+        shared batch completes (exactly one of the two is not None). A
+        fixed worker pool (the native front) drives the batcher this way at
+        full coalescing, since a worker pays only the enqueue. Validation
+        errors raise in the caller, as in ``search``."""
+        k = self.service._validate(queries, k)
+        if len(queries) >= self.service.batch_size:
+            # fills device batches on its own: run inline, as ``search`` does
+            try:
+                result = self.service.search(queries, k=k)
+            except BaseException as e:  # noqa: BLE001 - handed to callback
+                callback(None, e)
+                return
+            callback(result, None)
+            return
+        self._enqueue(self._queue, _Pending(list(queries), k, callback=callback))
+
+    def search_sentences(
+        self,
+        queries: Sequence[str],
+        k: Optional[int] = None,
+        k_sents: Optional[int] = None,
+    ) -> List[List[dict]]:
+        """``RetrievalService.search_sentences``' contract; the stage-1
+        batch and the stage-2 pass may be shared with concurrent callers,
+        each request keeping its own ``k`` and ``k_sents``."""
+        pend = self._make_sent_pending(queries, k, k_sents)
+        if pend.result is not None:
+            return pend.result  # oversized: ran inline
+        pend.event.wait()
+        if pend.error is not None:
+            raise pend.error
+        return pend.result
+
+    def submit_sentences(
+        self,
+        queries: Sequence[str],
+        k: Optional[int],
+        k_sents: Optional[int],
+        callback,
+    ) -> None:
+        """Asynchronous ``search_sentences`` (see ``submit``); the callback
+        fires on the sentence dispatcher thread."""
+        self._make_sent_pending(queries, k, k_sents, callback=callback)
+
+    def _make_sent_pending(
+        self, queries, k, k_sents, callback=None
+    ) -> _Pending:
+        if not self.service.has_sentence_stage:
+            raise ValueError(_NO_SENTENCES)
+        k = self.service._validate(queries, k)
+        if k_sents is None:
+            k_sents = self.service.default_k_sents
+        pend = _Pending(list(queries), k, k_sents=k_sents, callback=callback)
+        if len(queries) >= self.service.batch_size:
+            # fills device batches on its own: run inline
+            try:
+                pend.finish(
+                    self.service.search_sentences(queries, k=k, k_sents=k_sents),
+                    None,
+                )
+            except BaseException as e:  # noqa: BLE001 - handed to the waiter
+                pend.finish(None, e)
+            return pend
+        self._enqueue(self._sent_queue, pend)
+        return pend
+
+    def _enqueue(self, queue: deque, pend: _Pending) -> None:
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("BatchingService is closed")
+            queue.append(pend)
+            self._cv.notify_all()
+
+    def close(self) -> None:
+        """Stop the dispatchers after draining the queued requests."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=10)
+        if self._sent_thread is not None:
+            self._sent_thread.join(timeout=10)
+
+    # -- dispatcher side ---------------------------------------------------
+    def _take_batch(self, queue: deque) -> List[_Pending]:
+        """Block until ``queue`` holds work, linger up to ``max_wait_s`` for
+        co-riders, then pop whole requests up to ``batch_size`` slots."""
+        cap = self.service.batch_size
+        with self._cv:
+            while not queue:
+                if self._closed:
+                    return []
+                self._cv.wait()
+            deadline = time.monotonic() + self.max_wait_s
+            while sum(len(p.queries) for p in queue) < cap and not self._closed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self._cv.wait(left)
+            batch: List[_Pending] = []
+            slots = 0
+            while queue:
+                nxt = len(queue[0].queries)
+                if batch and slots + nxt > cap:
+                    break
+                p = queue.popleft()
+                batch.append(p)
+                slots += nxt
+            return batch
+
+    def _loop(self) -> None:
+        while True:
+            batch = self._take_batch(self._queue)
+            if not batch:
+                return  # closed and drained
+            allq = [q for p in batch for q in p.queries]
+            try:
+                ranked = self.service._ranked(allq, self.service.k_max)
+            except BaseException as e:  # noqa: BLE001 - to every waiter
+                for p in batch:
+                    p.finish(None, e)
+                continue
+            lo = 0
+            for p in batch:
+                rows = ranked[lo : lo + len(p.queries)]
+                lo += len(p.queries)
+                p.finish(
+                    [
+                        [
+                            {"doc_id": d, "score": float(s)}
+                            for d, s in zip(ids[: p.k], scores[: p.k])
+                        ]
+                        for ids, scores in rows
+                    ],
+                    None,
+                )
+
+    def _sent_loop(self) -> None:
+        while True:
+            batch = self._take_batch(self._sent_queue)
+            if not batch:
+                return  # closed and drained
+            allq, ks, ksents = [], [], []
+            for p in batch:
+                allq.extend(p.queries)
+                ks.extend([p.k] * len(p.queries))
+                ksents.extend([p.k_sents] * len(p.queries))
+            try:
+                rows = self.service.search_sentences_multi(allq, ks, ksents)
+            except BaseException as e:  # noqa: BLE001 - to every waiter
+                for p in batch:
+                    p.finish(None, e)
+                continue
+            lo = 0
+            for p in batch:
+                p.finish(rows[lo : lo + len(p.queries)], None)
+                lo += len(p.queries)
+
+
 def make_service(
     index_path: str,
     batch_size: int = 256,
@@ -361,31 +618,45 @@ def make_service(
     *,
     device,
 ) -> RetrievalService:
-    """Load a saved index (the tf-idf npz that ``CountIndex.save`` or the
-    reference's ``cli build-index`` writes) into a serving-configured ranker
-    on ``device``: shapes pinned (``fixed_max_terms``, ``fixed_union_cap``,
+    """Load a saved index (the tf-idf npz that ``CountIndex.save`` or
+    ``cli build-index`` writes) into a serving-configured ranker on
+    ``device``: shapes pinned (``fixed_max_terms``, ``fixed_union_cap``,
     ``union_round``, service-level ``k_max``), df-split optionally preloaded
     (``index/split.py::save_split``) to skip the cold-start rebuild. Pass
     ``doc_sentences`` + ``sentence_scorer`` to enable ``search_sentences``,
     and a ``verdict_classifier`` (``verdict/infer.py::VerdictClassifier``)
-    to enable ``verify_claims``."""
-    if chunk_docs:
-        raise _not_ported("the chunked engine (chunk_docs)")
+    to enable ``verify_claims``. ``chunk_docs`` switches to the chunked
+    engine for corpora past one staged pass (``cli serve --chunk-docs``);
+    ``split_path`` is then the directory of per-chunk split artifacts, built
+    and saved on the first boot."""
     index = CountIndex.load(index_path)
-    split = None
-    if split_path:
-        from ircl_tpu_torch.index.split import load_split
+    if chunk_docs:
+        from ircl_tpu_torch.index.chunked import ChunkedHybridRanker
 
-        split = load_split(split_path)
-    ranker = TfidfRanker(
-        index,
-        device,
-        mode=mode,
-        fixed_max_terms=max_terms,
-        fixed_union_cap=union_cap,
-        union_round=union_round,
-        split=split,
-    )
+        ranker = ChunkedHybridRanker(
+            index,
+            device,
+            chunk_docs=chunk_docs,
+            split_cache_dir=split_path or None,
+            fixed_max_terms=max_terms,
+            fixed_union_cap=union_cap,
+            union_round=union_round,
+        )
+    else:
+        split = None
+        if split_path:
+            from ircl_tpu_torch.index.split import load_split
+
+            split = load_split(split_path)
+        ranker = TfidfRanker(
+            index,
+            device,
+            mode=mode,
+            fixed_max_terms=max_terms,
+            fixed_union_cap=union_cap,
+            union_round=union_round,
+            split=split,
+        )
     return RetrievalService(
         ranker,
         batch_size=batch_size,
@@ -398,12 +669,20 @@ def make_service(
     )
 
 
-def _handle(service: RetrievalService, req) -> dict:
-    """Execute one decoded request: a reply payload, or ValueError on a
-    malformed request. A "claims"/"claim" key selects claim verification."""
+def _handle(service: RetrievalService, req, batcher=None, expect=None) -> dict:
+    """Execute one decoded request for every transport: a reply payload, or
+    ValueError on a malformed request. Doc-search and two-stage sentence
+    requests ride the micro-batcher when one is set; claim requests never
+    do (the classifier runs pinned batches of its own). ``expect="claims"``
+    (the HTTP ``/verdict`` path) forces the claim shape; otherwise a
+    "claims"/"claim" key selects it (the stdin transport)."""
     t0 = time.monotonic()
     try:
-        if isinstance(req, dict) and ("claims" in req or "claim" in req):
+        if expect == "claims" or (
+            expect is None
+            and isinstance(req, dict)
+            and ("claims" in req or "claim" in req)
+        ):
             queries, k, k_sents = parse_request(req, key="claims")
             payload = {
                 "results": service.verify_claims(queries, k=k, k_sents=k_sents)
@@ -411,9 +690,14 @@ def _handle(service: RetrievalService, req) -> dict:
         else:
             queries, k, k_sents = parse_request(req)
             if req.get("sentences") or k_sents is not None:
-                payload = {
-                    "results": service.search_sentences(queries, k=k, k_sents=k_sents)
-                }
+                two_stage = (
+                    batcher.search_sentences
+                    if batcher is not None and service.has_sentence_stage
+                    else service.search_sentences
+                )
+                payload = {"results": two_stage(queries, k=k, k_sents=k_sents)}
+            elif batcher is not None:
+                payload = {"results": batcher.search(queries, k=k)}
             else:
                 payload = {"results": service.search(queries, k=k)}
     except BaseException:
@@ -421,6 +705,88 @@ def _handle(service: RetrievalService, req) -> dict:
         raise
     service.metrics.record_request(len(queries), time.monotonic() - t0)
     return payload
+
+
+class _Handler(BaseHTTPRequestHandler):
+    service: RetrievalService = None  # set by serve_http
+    batcher: Optional[BatchingService] = None  # set by serve_http
+    # HTTP/1.1: keep-alive a connection (every reply carries Content-Length,
+    # which 1.1 requires), so one handler thread serves a whole session
+    protocol_version = "HTTP/1.1"
+
+    def _reply(self, code: int, payload: dict) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):  # noqa: N802 (http.server API)
+        if self.path == "/healthz":
+            self._reply(200, {"ok": True, "docs": self.service.num_docs})
+        elif self.path == "/metrics":
+            self._reply(200, self.service.metrics.snapshot())
+        else:
+            self._reply(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):  # noqa: N802
+        if self.path not in ("/search", "/verdict"):
+            self._reply(404, {"error": f"unknown path {self.path}"})
+            return
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+        except ValueError:
+            self._reply(400, {"error": "bad Content-Length"})
+            return
+        if n > MAX_BODY_BYTES:
+            # drain (bounded) so the client can finish writing and read the
+            # 413 instead of dying on a broken pipe mid-upload
+            left = min(n, 4 * MAX_BODY_BYTES)
+            while left > 0:
+                got = self.rfile.read(min(left, 1 << 20))
+                if not got:
+                    break
+                left -= len(got)
+            self.close_connection = True
+            self._reply(413, {"error": f"body too large ({n} > {MAX_BODY_BYTES})"})
+            return
+        try:
+            req = json.loads(self.rfile.read(n) or b"{}")
+            payload = _handle(
+                self.service, req, batcher=self.batcher,
+                expect="claims" if self.path == "/verdict" else None,
+            )
+        except (KeyError, ValueError, TypeError, json.JSONDecodeError) as e:
+            self._reply(400, {"error": str(e)})
+            return
+        self._reply(200, payload)
+
+    def log_message(self, fmt, *args):  # quiet: metrics go to the caller
+        pass
+
+
+def serve_http(
+    service: RetrievalService,
+    host: str = "127.0.0.1",
+    port: int = 8080,
+    batch_wait_ms: Optional[float] = None,
+) -> ThreadingHTTPServer:
+    """Start the HTTP endpoint and return the bound server: call
+    ``.serve_forever()`` (blocking) or drive it from a thread. With
+    ``batch_wait_ms`` (not None), concurrent doc and sentence requests
+    coalesce into shared device batches, each waiting at most that long for
+    co-riders; the batcher is ``server.batcher`` (close it after
+    ``shutdown``)."""
+    batcher = (
+        BatchingService(service, max_wait_ms=batch_wait_ms)
+        if batch_wait_ms is not None
+        else None
+    )
+    handler = type("Handler", (_Handler,), {"service": service, "batcher": batcher})
+    server = ThreadingHTTPServer((host, port), handler)
+    server.batcher = batcher
+    return server
 
 
 def _drain_lines(infile, cap: int) -> List[str]:

@@ -187,6 +187,68 @@ print("JAX_MODULES", sorted(
 """
 
 
+_FRONTS_AND_CLI = r"""
+import http.client, json, os, runpy, sys, tempfile, threading
+from ircl_tpu_torch.corpus.store import MemoryDocStore
+from ircl_tpu_torch.corpus.synthetic import generate
+from ircl_tpu_torch.index.build import build_count_index
+from ircl_tpu_torch.index.ranker import TfidfRanker
+from ircl_tpu_torch.index.tfidf import tfidf_transform
+from ircl_tpu_torch.serve import RetrievalService, serve_http
+from ircl_tpu_torch.serve_native import serve_native_http
+
+wiki = generate(num_docs=40, num_claims=3, seed=3)
+store = MemoryDocStore({d: r["text"] for d, r in wiki.docs.items()})
+index = tfidf_transform(build_count_index(store, ngram=2, hash_size=1 << 18))
+body = json.dumps({"query": wiki.claims[0].claim}).encode()
+
+def ask(port):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    c.request("POST", "/search", body=body)
+    r = c.getresponse()
+    reply = (r.status, json.loads(r.read()))
+    c.close()
+    return reply
+
+svc = RetrievalService(TfidfRanker(index, "cpu"), batch_size=4)
+server = serve_http(svc, port=0, batch_wait_ms=2.0)
+th = threading.Thread(target=server.serve_forever, daemon=True)
+th.start()
+native = serve_native_http(svc, port=0, batch_wait_ms=2.0)
+try:
+    a, b = ask(server.server_address[1]), ask(native.port)
+    assert a == b and a[0] == 200 and a[1]["results"][0], (a, b)
+finally:
+    native.close()
+    server.shutdown()
+    server.server_close()
+    server.batcher.close()
+    th.join(timeout=60)
+
+def cli(*argv):
+    sys.argv = ["ircl_tpu_torch.cli", *argv]
+    try:
+        runpy.run_module("ircl_tpu_torch.cli", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        assert e.code in (0, None), e.code
+
+cli("--help")
+with tempfile.TemporaryDirectory() as d:
+    wiki_json = os.path.join(d, "wiki.json")
+    with open(wiki_json, "w") as f:
+        json.dump(wiki.docs, f)
+    cfg = os.path.join(d, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"data": {"data_dir": d, "wiki_json": wiki_json},
+                   "index": {"hash_size": 1 << 16}}, f)
+    cli("--device", "cpu", "--config", cfg, "build-index")
+    assert os.path.exists(os.path.join(d, "index", "tfidf-ngram=2-hash=65536.npz"))
+print("JAX_MODULES", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
+"""
+
+
 def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
@@ -222,6 +284,14 @@ def test_port_trains_resumes_and_scores_without_loading_jax():
     _run_fresh(_TRAIN_RESUME_AND_SCORE)
 
 
+def test_port_fronts_and_cli_run_without_loading_jax():
+    """``serve_http`` and ``serve_native_http`` on port 0 answer the same
+    request, then ``python -m ircl_tpu_torch.cli --help`` and
+    ``--device cpu build-index`` on a tiny workspace, in one fresh
+    process."""
+    _run_fresh(_FRONTS_AND_CLI)
+
+
 def _port_files():
     for base in ("ircl_tpu_torch",):
         for dirpath, _, files in os.walk(os.path.join(ROOT, base)):
@@ -244,6 +314,9 @@ def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
         # yardstick; the package itself never calls it
         files = [p for p in files if os.path.basename(p) != "chip_smoke.py"]
     assert len(files) >= 15
+    for new in ("serve_native.py", "cli.py", "config.py", "recall.py",
+                "profiling.py", "fetch.py", "prepare.py"):
+        assert any(p.endswith(os.sep + new) for p in files), new
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders
 

@@ -132,17 +132,37 @@ def test_parse_request_rejects_like_the_reference(req):
     "kwargs",
     [
         dict(chunk_docs=1000),
-        # the sentence and verdict stages are ported; the chunked engine
-        # still raises beside them
+        # the chunked engine beside the later stages' arguments
         dict(chunk_docs=1000, doc_sentences={"a": ["b"]}),
         dict(chunk_docs=1000, verdict_classifier=object(), sentence_scorer=object()),
         dict(chunk_docs=1000, verdict_classifier=object()),
     ],
 )
 def test_unported_stages_raise(saved, kwargs):
-    path, _, _ = saved
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_serve.make_service(path, device="cpu", **kwargs)
+    """Once the item-7 assertion that ``chunk_docs`` raised; now the chunked
+    service serves, and its stdin replies equal the reference's chunked
+    service's."""
+    path, index, claims = saved
+    js = j_serve.make_service(path, batch_size=8, **kwargs)
+    ts = t_serve.make_service(path, batch_size=8, device="cpu", **kwargs)
+    assert type(ts.ranker).__name__ == type(js.ranker).__name__ == "ChunkedHybridRanker"
+    assert (ts.num_docs, ts.k_max) == (js.num_docs, js.k_max)
+    assert ts.has_sentence_stage == js.has_sentence_stage
+    assert ts.has_verdict_stage == js.has_verdict_stage
+    lines = _lines(claims)[:10]
+    j_served, j_replies = _serve(j_serve, js, lines)
+    t_served, t_replies = _serve(t_serve, ts, lines)
+    assert t_served == j_served
+    for t_rep, j_rep in zip(t_replies, j_replies):
+        assert set(t_rep) == set(j_rep)
+        if "error" in j_rep:
+            assert t_rep["error"] == j_rep["error"]
+            continue
+        k = max([len(h) for h in j_rep["results"]] + [1])
+        assert_topk_match(
+            *_as_arrays(t_rep["results"], index.doc2idx, k),
+            *_as_arrays(j_rep["results"], index.doc2idx, k),
+        )
 
 
 def test_make_service_needs_a_device(saved):
