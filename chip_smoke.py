@@ -122,7 +122,20 @@ Phases, each printed as it runs:
     ``retrieve --dense-ckpt``, ``train-verdict``, ``eval-verdict``,
     ``serve --stdin`` with all three stages and ``serve --native-front``
     stopped by SIGINT; recall, replies and evidence held to the port's API
-    in this process, and each command's seconds.
+    in this process, and each command's seconds;
+24. the verdict model of phase 11 in bfloat16 (``bench_verdict.py``'s bf16
+    cells, rounded where the reference rounds): the forward at B=32 on
+    flash and "xla" beside the f32 forward on the same weights (the bf16
+    logits must differ from the f32 ones, and within a bound; the flash
+    kernels must receive f32 q, k and v), a cut batch's gradients and one
+    step card against CPU, the freeze at B=8, and f32 and bf16 steps timed
+    in turns;
+25. the MoE verdict model (``MoEConfig()``: 8 experts, top-2, capacity
+    factor 1.25, 160 slots an expert at L=512) on the same encoder, f32,
+    flash: every layer's routes at B=8 (no expert over capacity, no pad
+    dispatched, aux near 1 at init), one cut step card against CPU with
+    the routes compared, a bf16 + MoE step, timed steps at B=8 and
+    prediction at B=64 with peak memory.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -135,7 +148,9 @@ No kernel lies on the contrastive training path: every count is zeroed
 before phase 20 and must still be 0 after phase 21. They are zeroed again
 before phase 22 (the serving path: #1, #2 and #3 must run) and phase 23's
 commands count their own launches in their processes (#1 must run in
-``retrieve`` and both ``serve`` commands).
+``retrieve`` and both ``serve`` commands). Before phase 24 and again before
+phase 25 every count is zeroed; each of those phases must launch #6a, #6b
+and #6c and nothing else.
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -215,6 +230,19 @@ SERVE_WAIT_MS, SERVE_WORKERS = 5.0, 2
 SENT_RTOL = 1e-5  # a claim's embedding in another batch: fp32 sums in another order
 # the CLI phase: a synthetic corpus through every command, each in a fresh process
 CLI_DOCS, CLI_CLAIMS, CLI_TRAIN_STEPS, CLI_TIMEOUT = 1000, 200, 20, 600
+# the bf16 and MoE verdict phases: bench_verdict.py's --dtypes bf16 and --moe-experts
+BF16_QUARTER = 0.25  # tests/test_torch_bf16.py's bound, of the bf16-against-f32 distance
+BF16_SHIFT_MIN, BF16_SHIFT_MAX = 1e-5, 0.05  # bf16 logits from the f32 ones (rel. L2):
+# above fp32 noise, and at most a few bf16 roundings (2^-9) compounded
+BF16_TIMED_STEPS, MOE_TIMED_STEPS = 10, 10
+ROUTE_MARGIN = 1e-5  # a route may move only where its top-k gap is a near-tie
+MOE_AUX_INIT = (1.0, 2.0)  # Switch's aux at init: 1 balanced, E (8) collapsed; a
+# random router over a random encoder's alike tokens is unbalanced (1.46 at B=8 on
+# a 2,000-doc vocabulary on an H100 80GB HBM3 at 700 W), far from collapse
+F32_REL_NOISE = 1e-5  # relative L2, card against CPU, of what runs in f32 alone
+BF16_LOSS_ATOL = 1e-3  # one bf16 step, card against CPU: the roundings that f32
+# noise tips compound over 12 layers (hidden states ~1e-3 apart; blocks are held
+# one by one to BF16_QUARTER)
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores; one FMA is two
@@ -3180,6 +3208,444 @@ def phase23_cli(dev, root, tmpdir, smi):
     return seconds, launches
 
 
+def rel_l2(a, b) -> float:
+    """Relative L2 distance of tensor ``a`` from ``b``, in f64."""
+    import torch
+
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def spy_on(module, name, record):
+    """Wrap ``module.name`` so that each call also runs ``record(args,
+    result)``; returns the function that undoes it."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        record(args, out)
+        return out
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def batch_tensors(batch, device):
+    """``train_batch``'s arrays as the step's tensors on ``device``."""
+    import torch
+
+    ids, mask, types, labels = batch
+    return (torch.as_tensor(ids, device=device).long(),
+            torch.as_tensor(mask, device=device),
+            torch.as_tensor(types, device=device).long(),
+            torch.as_tensor(labels, device=device).long())
+
+
+def step_on(cfg, init, batch, device, count):
+    """One train step from ``init`` (copied to ``device``) with the
+    optimizer's count set: (loss, predictions, parameters on the CPU)."""
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.utils.tree import tree_map
+    from ircl_tpu_torch.verdict.model import make_verdict_train_step
+
+    p = tree_map(lambda t: t.to(device, copy=True), init)  # updated in place
+    step, tx = make_verdict_train_step(cfg, device=device)
+    state = dict(tx.init(p), count=count)
+    _, _, loss, preds = step(p, state, count, *batch)
+    return float(loss), preds.cpu(), to_device(p, "cpu")
+
+
+def params_after_one_step_agree(names, got, want, start):
+    """Phase 14's rule for one step's parameters from two devices: (ok,
+    largest difference, largest share of a leaf over a tenth of the learning
+    rate (k/b leaves apart), largest move)."""
+    far, frac, moved = (0.0, ""), (0.0, ""), 0.0
+    for name, a, b, s in zip(names, got, want, start):
+        d = (a - b).abs()
+        far = max(far, (float(d.max()), name))
+        moved = max(moved, float((a - s).abs().max()))
+        if not name.endswith("/k/b"):
+            frac = max(frac, (float((d > 0.1 * TRAIN_LR).float().mean()), name))
+    ok = far[0] <= 2.1 * TRAIN_LR and frac[0] <= 1e-2 and moved >= 0.25 * TRAIN_LR
+    return ok, far, frac, moved
+
+
+def timed_steps(cfg, init, batch, dev, counters, n):
+    """``n`` steps past the warmup after one untimed: (steps/s, device ms a
+    step, peak GiB, launches a step of each counter)."""
+    import torch
+
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.verdict.model import make_verdict_train_step
+
+    p = to_device(init, dev)
+    step, tx = make_verdict_train_step(cfg, device=dev)
+    state = dict(tx.init(p), count=TRAIN_WARMUP)
+    step(p, state, TRAIN_WARMUP, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = [fn.launches for fn in counters]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    for s in range(n):
+        _, _, loss, _ = step(p, state, TRAIN_WARMUP + 1 + s, *batch)
+    e1.record()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not np.isfinite(float(loss)):
+        fail(f"timed steps: loss {float(loss)}")
+    return (n / dt, e0.elapsed_time(e1) / n, torch.cuda.max_memory_allocated() / 2**30,
+            [(fn.launches - b) / n for fn, b in zip(counters, before)])
+
+
+def phase24_bf16_verdict(dev, tok, pairs):
+    """The verdict model in bfloat16 at roberta-base width (``bench_verdict.py
+    --dtypes bf16``): the forward at B=32 on flash and "xla" beside the f32
+    forward on the same weights; the flash kernels fed f32 q, k and v; a cut
+    batch's gradients and one step, card against CPU; the freeze; timed
+    steps of f32 and bf16 in turns."""
+    import dataclasses
+
+    import torch
+
+    import ircl_tpu_torch.models.transformer as tf_mod
+    from ircl_tpu_torch.models.transformer import TransformerConfig
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    )
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.utils.precision import float32_precision
+    from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+    from ircl_tpu_torch.verdict.model import (
+        VerdictConfig, init_verdict_params, make_verdict_train_step, verdict_apply,
+    )
+
+    enc32 = TransformerConfig(**VERDICT_ENCODER)
+    enc16 = dataclasses.replace(enc32, dtype=torch.bfloat16)
+    kw = dict(max_length=VERDICT_L, learning_rate=TRAIN_LR,
+              warmup_steps=TRAIN_WARMUP, total_steps=200)
+    cfg16, cfg32 = VerdictConfig(encoder=enc16, **kw), VerdictConfig(encoder=enc32, **kw)
+    xla16 = dataclasses.replace(cfg16, encoder=dataclasses.replace(enc16, attention="xla"))
+    init = init_verdict_params(torch.Generator().manual_seed(VERDICT_SEED), cfg32, "cpu")
+    names = [n for n, _ in named_leaves(init)]
+    params = to_device(init, dev)
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    log(f"phase 24: verdict model {enc16.layers} x {enc16.hidden} in bfloat16 "
+        f"(the reference's roundings; f32 weights), L={VERDICT_L}")
+
+    # the forward at B=32: bf16 flash (q, k, v recorded at the kernel's
+    # wrapper), bf16 xla, f32 flash
+    batch = pairs[:VERDICT_BATCH]
+    ids, mask, types = (torch.as_tensor(x, device=dev)
+                        for x in tok.encode_batch(batch, VERDICT_L))
+    ids, types = ids.long(), types.long()
+    seen = []
+    undo = spy_on(tf_mod, "flash_attention",
+                  lambda args, _: seen.append(tuple(t.dtype for t in args[:3])))
+    try:
+        before = flash_attention.launches
+        l16 = verdict_apply(params, cfg16, ids, mask, types)
+        launched = flash_attention.launches - before
+    finally:
+        undo()
+    if seen != [(torch.float32,) * 3] * enc16.layers or launched != enc16.layers:
+        fail(f"phase 24: the bf16 model's flash calls took {seen} and launched "
+             f"{launched} kernels, not {enc16.layers} on f32 q, k and v")
+    l16x = verdict_apply(params, xla16, ids, mask, types)
+    l32 = verdict_apply(params, cfg32, ids, mask, types)
+    # the two paths round at other places (xla rounds the probabilities,
+    # flash only its output), so each is held to the f32 logits
+    shift, shift_x = rel_l2(l16, l32), rel_l2(l16x, l32)
+    if not (torch.isfinite(l16).all() and torch.isfinite(l16x).all()) or not all(
+            BF16_SHIFT_MIN < d < BF16_SHIFT_MAX for d in (shift, shift_x)):
+        fail(f"phase 24: bf16 logits {shift} (flash) and {shift_x} (xla) from the "
+             f"f32 ones; bounds {BF16_SHIFT_MIN}, {BF16_SHIFT_MAX}")
+    log(f"phase 24: {VERDICT_BATCH} pairs: {enc16.layers} flash launches on f32 q, k, "
+        f"v; bf16 logits {shift:.3g} (flash) and {shift_x:.3g} (xla) from the f32 "
+        f"ones on the same weights, relative L2 (bounds {BF16_SHIFT_MIN}, "
+        f"{BF16_SHIFT_MAX}); bf16 flash {rel_l2(l16, l16x):.3g} from bf16 xla")
+    fwd = {}
+    for label, c in (("f32", cfg32), ("bf16", cfg16), ("bf16", cfg16), ("f32", cfg32)):
+        fwd.setdefault(label, []).append(
+            cuda_ms(lambda: verdict_apply(params, c, ids, mask, types), reps=5))
+    log(f"phase 24: the forward at B={VERDICT_BATCH}, L={VERDICT_L}, in turns: "
+        + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)} ms"
+                    for k, vs in fwd.items()))
+
+    # each block, and the embedding, from the CPU's own input: forward and
+    # backward (a seeded cotangent) on the card against the CPU, within a
+    # quarter of the same block's bf16-against-f32 distance on the card. A
+    # block is compared alone because the whole model is not: f32 noise tips
+    # a few bf16 roundings in every layer, and the tips compound with depth
+    # (after 12 layers the hidden states of card and CPU are ~0.3 of the
+    # bf16-against-f32 distance apart on an H100 80GB HBM3 at 700 W)
+    t0 = time.perf_counter()
+    small = train_batch(tok, pairs, (5, 16), 15)
+    s_ids, s_mask, s_types, _ = batch_tensors(small, "cpu")
+    with torch.no_grad(), float32_precision():
+        x = tf_mod.transformer_embed(init["body"], enc16, s_ids, s_types)
+    g = torch.from_numpy(np.random.default_rng(24).standard_normal(
+        x.shape).astype(np.float32))
+
+    def vjp(fn, tree, x_in, device):
+        """The output of ``fn(x, tree)`` and its gradients for ``x`` (if
+        given) and every leaf of ``tree``, by the seeded cotangent."""
+        leaves = [t.to(device).detach().requires_grad_() for t in tree_leaves(tree)]
+        x_v = None if x_in is None else x_in.to(device).detach().requires_grad_()
+        with torch.enable_grad(), float32_precision():
+            y = fn(x_v, tree_unflatten(tree, leaves))
+            grads = torch.autograd.grad(
+                y, leaves if x_v is None else [x_v, *leaves], g.to(device))
+        return [y.detach().cpu(), *(t.cpu() for t in grads)]
+
+    emb = {k: init["body"][k] for k in ("tok_emb", "pos_emb", "type_emb", "emb_ln")}
+    cases = [("embedding", emb, None)] + [
+        (f"block {i}", lp, [n for n, _ in named_leaves(lp)])
+        for i, lp in enumerate(init["body"]["layers"])]
+    worst = (0.0, "")
+    for label, tree, lp_names in cases:
+        def fn(x_v, t, enc):
+            if x_v is None:
+                return tf_mod.transformer_embed(t, enc, s_ids.to(t["tok_emb"].device),
+                                                s_types.to(t["tok_emb"].device))
+            seg = tf_mod.attention_mask_inputs(enc, s_mask.to(x_v.device))
+            return tf_mod.transformer_block(x_v, t, enc, seg)
+
+        x_in = None if lp_names is None else x
+        outs = {tag: vjp(lambda x_v, t: fn(x_v, t, enc), tree, x_in, device)
+                for tag, enc, device in (("d", enc16, dev), ("c", enc16, "cpu"),
+                                         ("f", enc32, dev))}
+        names_j = ["output"] + (["x"] + lp_names if lp_names else
+                                [n for n, _ in named_leaves(tree)])
+        for name, a, b, f in zip(names_j, outs["d"], outs["c"], outs["f"]):
+            if not torch.isfinite(a).all():
+                fail(f"phase 24: {label}: {name} is not finite")
+            if name == "/k/b":  # zero in exact arithmetic: noise on both
+                continue
+            # a gradient that no bf16 rounding reaches (ff_ln's bias is the
+            # cotangent's sum) is held to f32 noise alone
+            allowed = BF16_QUARTER * rel_l2(a, f) + F32_REL_NOISE
+            worst = max(worst, (rel_l2(a, b) / allowed, f"{label} {name}"))
+        x = outs["c"][0]  # the next block's input: the CPU's bf16 output
+    if worst[0] > 1.0:
+        fail(f"phase 24: a bf16 block on the card and the CPU differ by {worst} of "
+             f"{BF16_QUARTER} of its bf16-against-f32 distance + {F32_REL_NOISE}")
+    log(f"phase 24: the embedding and {enc16.layers} blocks, each from the CPU's "
+        f"input, bf16 on the card against the CPU at B=2: outputs and every "
+        f"gradient within {worst[0]:.3g} of their bound ({worst[1]}; bound "
+        f"{BF16_QUARTER} of the bf16-against-f32 distance + {F32_REL_NOISE}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # one step of the cut batch from a count past the warmup
+    t0 = time.perf_counter()
+    (l_d, p_d, w_d), (l_c, p_c, w_c) = (
+        step_on(cfg16, init, small, device, TRAIN_WARMUP) for device in (dev, "cpu"))
+    ok, far, frac, moved = params_after_one_step_agree(
+        names, tree_leaves(w_d), tree_leaves(w_c), tree_leaves(init))
+    if abs(l_d - l_c) > BF16_LOSS_ATOL or not torch.equal(p_d, p_c) or not ok:
+        fail(f"phase 24: one bf16 step on the card and the CPU differ: loss {l_d} "
+             f"against {l_c}, parameters by {far}, share over lr/10 {frac}, "
+             f"moved {moved}")
+    log(f"phase 24: one bf16 step of 2 pairs, flash, card against CPU: loss {l_d:.6f} "
+        f"against {l_c:.6f}, predictions equal, parameters apart by at most "
+        f"{far[0]:.3g} ({far[1]}), share over lr/10 at most {frac[0]:.3g} "
+        f"({frac[1]}; phase 14's bounds); {time.perf_counter() - t0:.1f} s")
+    del w_d, w_c
+
+    # the freeze, at B=8
+    step, tx = make_verdict_train_step(cfg16, device=dev)
+    state = tx.init(params)
+    start = tree_map(torch.clone, params)
+    rows = lambda s: [(7 * s + i) % len(pairs) for i in range(TRAIN_BATCH)]  # noqa: E731
+    losses = []
+    for s in range(TRAIN_WARMUP + 2):
+        before = [fn.launches for fn in counters]
+        _, _, loss, _ = step(params, state, s, *train_batch(tok, pairs, rows(s), s))
+        per_step = [fn.launches - b for fn, b in zip(counters, before)]
+        body_same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params["body"]), tree_leaves(start["body"])))
+        if per_step != [enc16.layers] * 3 or body_same != (s < TRAIN_WARMUP):
+            fail(f"phase 24: step {s}: launches {per_step}, body unchanged {body_same}")
+        losses.append(float(loss))
+    if not np.isfinite(losses).all():
+        fail(f"phase 24: losses {losses}")
+    log(f"phase 24: bf16 steps 0-{TRAIN_WARMUP + 1} at B={TRAIN_BATCH}: the body "
+        f"frozen until step {TRAIN_WARMUP}, {enc16.layers} forward, dK/dV and dQ "
+        f"launches a step; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    del params, state, start
+
+    # timed steps, f32 and bf16 in turns
+    fixed = train_batch(tok, pairs, rows(1), 1)
+    runs = {}
+    for label, c in (("f32", cfg32), ("bf16", cfg16), ("bf16", cfg16), ("f32", cfg32)):
+        runs.setdefault(label, []).append(
+            timed_steps(c, init, fixed, dev, counters, BF16_TIMED_STEPS))
+    for label, rs in runs.items():
+        if any(r[3] != [enc16.layers] * 3 for r in rs):
+            fail(f"phase 24: {label}: launches a step {[r[3] for r in rs]}")
+        log(f"phase 24: {label} train step, B={TRAIN_BATCH}, {BF16_TIMED_STEPS} "
+            "steps, two runs in turns: " + "; ".join(
+                f"{sps:.2f} steps/s, {ms:.2f} ms of device time a step, peak "
+                f"{gib:.2f} GiB" for sps, ms, gib, _ in rs))
+
+
+def route_margins(probs, top_k):
+    """Each token's gap between its k-th and (k+1)-th router probability,
+    relative to the k-th."""
+    import torch
+
+    top = torch.sort(probs.double(), dim=-1, descending=True).values
+    return (top[..., top_k - 1] - top[..., top_k]) / top[..., top_k - 1]
+
+
+def phase25_moe_verdict(dev, tok, pairs):
+    """The MoE verdict model (``bench_verdict.py --moe-experts 8``:
+    ``MoEConfig()``, 8 experts, top-2, capacity factor 1.25) on phase 11's
+    encoder, f32, flash: its routes at B=8, one cut step card against CPU,
+    a bf16 + MoE step, timed steps and prediction at B=64."""
+    import dataclasses
+
+    import torch
+
+    import ircl_tpu_torch.models.moe as moe_mod
+    from ircl_tpu_torch.models.moe import MoEConfig, moe_capacity
+    from ircl_tpu_torch.models.transformer import TransformerConfig
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    )
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.utils.tree import tree_leaves
+    from ircl_tpu_torch.verdict.model import (
+        VerdictConfig, init_verdict_params, verdict_apply_with_aux, verdict_predict,
+    )
+
+    t0 = time.perf_counter()
+    enc = TransformerConfig(**VERDICT_ENCODER, moe=MoEConfig())
+    cfg = VerdictConfig(encoder=enc, max_length=VERDICT_L, learning_rate=TRAIN_LR,
+                        warmup_steps=TRAIN_WARMUP, total_steps=200)
+    init = init_verdict_params(torch.Generator().manual_seed(VERDICT_SEED), cfg, "cpu")
+    names = [n for n, _ in named_leaves(init)]
+    params = to_device(init, dev)
+    C, k = moe_capacity(VERDICT_L, enc.moe), enc.moe.top_k
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    log(f"phase 25: MoE verdict model {enc.layers} x {enc.hidden}, "
+        f"{enc.moe.num_experts} experts of {enc.intermediate}, top-{k}, capacity "
+        f"factor {enc.moe.capacity_factor}: C = {C} slots an expert at L={VERDICT_L} "
+        f"({sum(t.numel() for t in tree_leaves(init)) / 1e6:.1f}M params); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if C != 160:
+        fail(f"phase 25: capacity {C}, not 160")
+
+    def record_routes(calls):
+        return spy_on(moe_mod, "moe_route", lambda args, out: calls.append((
+            torch.softmax(args[0].detach(), dim=-1).cpu(), out[0].detach().cpu())))
+
+    # the routes of a B=8 batch on the card
+    batch8 = train_batch(tok, pairs, range(3, 3 + TRAIN_BATCH), 14)
+    calls = []
+    undo = record_routes(calls)
+    try:
+        with torch.no_grad():
+            logits, aux = verdict_apply_with_aux(params, cfg, *batch_tensors(batch8, dev)[:3])
+    finally:
+        undo()
+    real = torch.as_tensor(batch8[1]) > 0
+    kept = []
+    for layer, (_, d) in enumerate(calls):
+        per_expert, per_slot = d.sum(dim=(1, 3)), d.sum(dim=1)
+        picks = d.sum(dim=(2, 3))
+        if per_expert.max() > C or per_slot.max() > 1 or picks.max() > k or (
+                d[~real].sum() != 0):
+            fail(f"phase 25: layer {layer}: an expert takes {float(per_expert.max())} "
+                 f"tokens (C = {C}), a slot {float(per_slot.max())}, a token "
+                 f"{float(picks.max())} picks, pads {float(d[~real].sum())}")
+        kept.append(float(picks[real].sum()) / (k * int(real.sum())))
+    aux = float(aux)
+    if len(calls) != enc.layers or not torch.isfinite(logits).all() or not (
+            MOE_AUX_INIT[0] <= aux <= MOE_AUX_INIT[1]):
+        fail(f"phase 25: {len(calls)} routed layers, aux {aux} (bounds {MOE_AUX_INIT})")
+    log(f"phase 25: B={TRAIN_BATCH}, {int(real.sum())} real tokens: no expert over "
+        f"its {C} slots, no slot taken twice, no pad dispatched; share of the top-{k} "
+        f"picks kept by layer {min(kept):.4f}-{max(kept):.4f}; aux {aux:.4f} "
+        f"(bounds {MOE_AUX_INIT}: 1 balanced, {enc.moe.num_experts} collapsed)")
+    del calls
+
+    # one step of a cut batch, card against CPU, routes compared
+    t0 = time.perf_counter()
+    small = train_batch(tok, pairs, (5, 16), 15)
+    outs = {}
+    for device in (dev, "cpu"):
+        calls = []
+        undo = record_routes(calls)
+        try:
+            outs[str(device)] = (*step_on(cfg, init, small, device, TRAIN_WARMUP), calls)
+        finally:
+            undo()
+    (l_d, p_d, w_d, r_d), (l_c, p_c, w_c, r_c) = outs[str(dev)], outs["cpu"]
+    real = torch.as_tensor(small[1]) > 0
+    first = next((i for i, ((_, a), (_, b)) in enumerate(zip(r_d, r_c))
+                  if not torch.equal(a, b)), None)
+    if first is None:
+        ok, far, frac, moved = params_after_one_step_agree(
+            names, tree_leaves(w_d), tree_leaves(w_c), tree_leaves(init))
+        if abs(l_d - l_c) > 1e-5 or not torch.equal(p_d, p_c) or not ok:
+            fail(f"phase 25: one MoE step on the card and the CPU differ with equal "
+                 f"routes: loss {l_d} against {l_c}, parameters by {far}, share "
+                 f"over lr/10 {frac}, moved {moved}")
+        routes = (f"routes equal in all {enc.layers} layers (smallest margin "
+                  f"{min(float(route_margins(p, k)[real].min()) for p, _ in r_c):.3g}"
+                  f"); parameters apart by at most {far[0]:.3g} ({far[1]}), share "
+                  f"over lr/10 {frac[0]:.3g} ({frac[1]}; phase 14's bounds)")
+    else:
+        probs, (_, d_d), (_, d_c) = r_c[first][0], r_d[first], r_c[first]
+        moved_tok = (d_d != d_c).flatten(2).any(-1)
+        margin = float(route_margins(probs, k)[moved_tok].max())
+        if margin >= ROUTE_MARGIN or d_d[~real].sum() or abs(l_d - l_c) > 1e-3 or (
+                not torch.equal(p_d, p_c)):
+            fail(f"phase 25: layer {first} routes {int(moved_tok.sum())} tokens "
+                 f"elsewhere on the card, at a margin up to {margin}; loss {l_d} "
+                 f"against {l_c}")
+        routes = (f"layer {first} routes {int(moved_tok.sum())} tokens elsewhere, "
+                  f"each at a near-tie (margin <= {margin:.3g}); later layers not "
+                  f"compared")
+    log(f"phase 25: one MoE step of 2 pairs, card against CPU: loss {l_d:.6f} "
+        f"against {l_c:.6f}, predictions equal; {routes}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del outs, w_d, w_c, r_d, r_c, params
+
+    # one bf16 + MoE step on the card
+    cfg16 = dataclasses.replace(cfg, encoder=dataclasses.replace(enc, dtype=torch.bfloat16))
+    before = [fn.launches for fn in counters]
+    l16, _, _ = step_on(cfg16, init, batch8, dev, TRAIN_WARMUP)
+    per_step = [fn.launches - b for fn, b in zip(counters, before)]
+    if not np.isfinite(l16) or per_step != [enc.layers] * 3:
+        fail(f"phase 25: the bf16 MoE step: loss {l16}, launches {per_step}")
+    log(f"phase 25: one bf16 + MoE step at B={TRAIN_BATCH}: loss {l16:.6f}, "
+        f"{enc.layers} forward, dK/dV and dQ launches")
+
+    # timed steps at B=8, prediction at B=64
+    torch.cuda.empty_cache()
+    sps, ms, gib, per_step = timed_steps(cfg, init, batch8, dev, counters,
+                                         MOE_TIMED_STEPS)
+    if per_step != [enc.layers] * 3:
+        fail(f"phase 25: launches a timed step {per_step}")
+    log(f"phase 25: MoE train step, B={TRAIN_BATCH}, {MOE_TIMED_STEPS} steps: "
+        f"{sps:.2f} steps/s, {ms:.2f} ms of device time a step, peak {gib:.2f} GiB")
+    params = to_device(init, dev)
+    big = train_batch(tok, pairs, [i % len(pairs) for i in range(PREDICT_BATCH)], 25)
+    ids, mask, types, _ = batch_tensors(big, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    preds = verdict_predict(params, cfg, ids, mask, types)
+    pred_ms = cuda_ms(lambda: verdict_predict(params, cfg, ids, mask, types), reps=3)
+    if preds.shape != (PREDICT_BATCH,) or not bool(((preds == 0) | (preds == 1)).all()):
+        fail(f"phase 25: predictions {preds}")
+    log(f"phase 25: MoE prediction at B={PREDICT_BATCH}, L={VERDICT_L}: {pred_ms:.2f} "
+        f"ms a batch ({1e3 * PREDICT_BATCH / pred_ms:.1f} pairs/s of device time), "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -3744,6 +4210,27 @@ def main() -> None:
     log(f"phase 23: {time.perf_counter() - t_phase:.1f} s; kernel launches "
         f"{ {k: v for k, v in cli_total.items() if v} }")
 
+    # ---- the bf16 and MoE verdict paths: phases 24-25, each with fresh counts
+    flash_names = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    path_launches = {}
+    for label, phase in (("bf16", phase24_bf16_verdict), ("moe", phase25_moe_verdict)):
+        for fn in counted.values():
+            fn.launches = 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_phase = time.perf_counter()
+        phase(dev, vtok, pairs)
+        path_launches[label] = {name: kernels[name].launches for name in flash_names}
+        others = {name: fn.launches for name, fn in counted.items()
+                  if fn.launches and name not in flash_names}
+        if 0 in path_launches[label].values() or others:
+            fail(f"the {label} verdict path launched {path_launches[label]}, and "
+                 f"{others} off it")
+        log(f"phase {24 if label == 'bf16' else 25}: {time.perf_counter() - t_phase:.1f} s; "
+            f"kernel launches {path_launches[label]}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+
     tmp.cleanup()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
@@ -3802,6 +4289,9 @@ def main() -> None:
             report[-1]["launches_by_route"] = dense_routes
         if name == "flash_attention":  # it also runs on the training path
             report[-1]["launches_training_path"] = train_launches[name]
+        if name in flash_names:  # and on the bf16 and MoE verdict paths
+            report[-1]["launches_bf16_path"] = path_launches["bf16"][name]
+            report[-1]["launches_moe_path"] = path_launches["moe"][name]
         if name == "membership_slab_windowed":  # and on the scale path
             report[-1]["launches_scale_path"] = scale_launches[name]
         if serve_launches.get(name):  # the serving path (phase 22)

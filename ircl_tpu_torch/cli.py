@@ -18,7 +18,8 @@ builds its stage on that device and says which on standard error.
 Not ported yet, each raising ``NotImplementedError``: ``bench`` (the port
 has no benchmark, ROADMAP.md queue 1 item 4); ``train --dp`` with more than
 one visible device and ``train-verdict --dp/--tp/--ep/--pp`` above 1 (item
-12); ``train-verdict --moe-experts`` (item 9).
+12). ``train-verdict --moe-experts N --moe-topk K`` trains the MoE encoder
+on one device.
 
 Where the JAX package writes orbax checkpoints, the port writes its own
 (``utils/checkpoint.py``, ``verdict/infer.py``) under the same names.
@@ -289,13 +290,12 @@ def cmd_train_verdict(args):
         )
     if pp > 1 and args.layers % pp:
         raise SystemExit(f"--layers {args.layers} not divisible by --pp {pp}")
-    if args.moe_experts:
-        raise _not_ported("the MoE FFN (--moe-experts)", 9)
-    if ep > 1:
+    if ep > 1 and not args.moe_experts:
         raise SystemExit("--ep requires --moe-experts")
-    if dp > 1 or tp > 1 or pp > 1:
+    if dp > 1 or tp > 1 or pp > 1 or ep > 1:
         raise _not_ported(
-            f"multi-device verdict training (--dp {dp} --tp {tp} --pp {pp})", 12
+            f"multi-device verdict training (--dp {dp} --tp {tp} --ep {ep} "
+            f"--pp {pp})", 12
         )
 
     from ircl_tpu_torch.corpus import fever
@@ -314,6 +314,14 @@ def cmd_train_verdict(args):
         [e.claim for e in examples] + [e.evidence_text for e in examples],
         vocab_size=args.vocab_size,
     )
+    moe = None
+    if args.moe_experts:
+        from ircl_tpu_torch.models.moe import MoEConfig
+
+        moe = MoEConfig(
+            num_experts=args.moe_experts,
+            top_k=min(args.moe_topk, args.moe_experts),
+        )
     vcfg = VerdictConfig(
         encoder=TransformerConfig(
             vocab_size=tok.vocab_size,
@@ -322,6 +330,7 @@ def cmd_train_verdict(args):
             heads=args.heads,
             intermediate=4 * args.hidden,
             max_positions=cfg.verdict.max_length,
+            moe=moe,
         ),
         learning_rate=cfg.verdict.learning_rate,
         warmup_steps=cfg.verdict.warmup_steps,

@@ -1,8 +1,8 @@
 """Featurizers and the contrastive encoder head.
 
 Counterpart of ``ircl_tpu/models/``: the BiLSTM head (``encoder``), the
-transformer (``transformer``, both attention paths), WordPiece and the
-featurizers. The MoE FFN is not ported yet (ROADMAP.md queue 1 item 9); the
+transformer (``transformer``, both attention paths, float32 and bfloat16),
+the Mixture-of-Experts FFN (``moe``), WordPiece and the featurizers. The
 verdict model lives in ``ircl_tpu_torch/verdict/``.
 """
 
@@ -13,6 +13,14 @@ from ircl_tpu_torch.models.featurizer import (
     TransformerFeaturizer,
     make_featurizer,
 )
+from ircl_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_ffn_params,
+    moe_aux_from_stats,
+    moe_capacity,
+    moe_ffn,
+    moe_route,
+)
 
 __all__ = [
     "EncoderConfig",
@@ -22,4 +30,10 @@ __all__ = [
     "TransformerFeaturizer",
     "make_featurizer",
     "FeaturizerConfig",
+    "MoEConfig",
+    "init_moe_ffn_params",
+    "moe_aux_from_stats",
+    "moe_capacity",
+    "moe_ffn",
+    "moe_route",
 ]

@@ -8,23 +8,35 @@ GELU FFN -> Add&LN). Parameters are a plain dict of tensors with the JAX
 package's layout (dense weights ``[in, out]``), so ``utils/convert.py``
 carries them across unchanged.
 
-Ported: the dense model on both attention paths. ``"xla"`` adds a -1e9
-pad bias and takes a plain softmax; ``"flash"`` (the verdict model's)
-gives pads segment 0 and real tokens segment 1 and calls
-``ops/flash_attention_cuda.py::flash_attention``, which launches CUDA
-kernels on the card, forward and backward. Every function here runs under
-autograd: verdict training differentiates the whole body, the matrix
-products and LayerNorms through autograd and the flash attention through
-its own backward kernels. LayerNorm is the population variance with
+Ported: the dense model and the MoE FFN (``models/moe.py``, in place of
+``ff1``/``ff2`` in every block) on both attention paths, in float32 and in
+bfloat16. ``"xla"`` adds a -1e9 pad bias and takes a plain softmax;
+``"flash"`` (the verdict model's) gives pads segment 0 and real tokens
+segment 1 and calls ``ops/flash_attention_cuda.py::flash_attention``, which
+launches CUDA kernels on the card, forward and backward. Every function here
+runs under autograd: verdict training differentiates the whole body, the
+matrix products and LayerNorms through autograd and the flash attention
+through its own backward kernels. LayerNorm is the population variance with
 ``layernorm_eps`` (1e-12), as ``_ln`` computes it. The embedding gathers
 clamp their indices into range, as JAX's gather does: the verdict model has
 one token type while the pair encoder writes type 1 after the first
 ``[SEP]``, and the reference then reads row 0. Like the transpose of JAX's
 gather, the gradient of a clamped read is dropped, not added to the row it
-read. Not ported yet, and refused with ``NotImplementedError``: the MoE FFN
-(ROADMAP.md queue 1 item 9), the explicit-collective axes
-``model_axis``/``expert_axis``/``seq_axis`` and the sharding hooks (item
-12), and ``from_huggingface``.
+read.
+
+``dtype=torch.bfloat16`` rounds where the reference rounds, and nowhere
+else. The reference's LayerNorm multiplies by an f32 scale, so every
+LayerNorm returns f32 and every projection of q, k, v, the FFN and the head
+run in f32; the flash kernels always receive f32 q, k and v. The roundings
+to bf16 are: the embedding sum; the embedding LayerNorm's normalize step
+(mean and variance in f32 rounded to bf16, then the subtraction, ``+ eps``,
+``rsqrt`` and their product in bf16); the pad bias (-1e9 becomes
+-998244352); the softmax's probabilities; the attention context (``probs @
+v`` or the flash output, taken in f32); and the o-projection, whose bf16
+operands are multiplied in f32 before the result is rounded. Not ported
+yet, and refused with ``NotImplementedError``: the explicit-collective axes
+``model_axis``/``expert_axis``/``seq_axis`` and the sharding hooks
+(ROADMAP.md queue 1 item 12), and ``from_huggingface``.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ircl_tpu_torch.models.moe import MoEConfig, init_moe_ffn_params, moe_ffn
 from ircl_tpu_torch.ops.flash_attention_cuda import SegmentIds, flash_attention
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
@@ -63,13 +76,14 @@ class TransformerConfig:
     # "xla" (a plain softmax) or "flash" (the CUDA flash-attention kernel;
     # pads are kept apart by segment ids)
     attention: str = "xla"
-    moe: Optional[Any] = None  # a MoE FFN is not ported (item 9)
+    # Mixture-of-Experts FFN in every block (models/moe.py); None = dense.
+    # When set, transformer_block returns (x, aux) and training uses
+    # transformer_apply_with_aux for the load-balance loss.
+    moe: Optional[MoEConfig] = None
 
     def __post_init__(self):
         if self.attention not in ("xla", "flash"):
             raise ValueError(f"unknown attention {self.attention!r}")
-        if self.moe is not None:
-            raise _not_ported("the MoE FFN (TransformerConfig.moe)", 9)
 
 
 def _dense_init(gen, shape, scale=0.02):
@@ -102,18 +116,74 @@ def init_transformer_params(
         }
         lp["attn_ln"] = ln()
         lp["ff_ln"] = ln()
-        lp["ff1"] = {"w": _dense_init(gen, (h, i)), "b": torch.zeros(i)}
-        lp["ff2"] = {"w": _dense_init(gen, (i, h)), "b": torch.zeros(h)}
+        if cfg.moe is not None:
+            lp["moe"] = init_moe_ffn_params(gen, h, i, cfg.moe.num_experts, "cpu")
+        else:
+            lp["ff1"] = {"w": _dense_init(gen, (h, i)), "b": torch.zeros(i)}
+            lp["ff2"] = {"w": _dense_init(gen, (i, h)), "b": torch.zeros(h)}
         p["layers"].append(lp)
     return to_device(p, device)
 
 
+class _LowPrecisionLayerNorm(torch.autograd.Function):
+    """LayerNorm of a bf16 (or other low-precision) ``x`` with the
+    reference's roundings, forward and backward. Forward: mean and
+    population variance in f32, each rounded to ``x``'s dtype; ``x - mu``,
+    ``+ eps``, ``rsqrt`` and the product at that dtype; the f32 scale and
+    bias make the result f32. Backward: the steps of ``jax.vjp`` through the
+    reference's ``_ln``, rounding where it rounds: the cotangent reaches
+    ``x``'s dtype before the normalize step, the products and row sums there
+    stay at that dtype, the variance's and the mean's branches run in f32 and
+    are rounded before they are added in."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        dt, n = x.dtype, x.shape[-1]
+        xf = x.float()
+        mu = xf.sum(dim=-1, keepdim=True) / n
+        t = xf - mu
+        var = t.square().sum(dim=-1, keepdim=True) / n
+        d = x - mu.to(dt)
+        e = var.to(dt) + torch.tensor(eps, dtype=dt, device=x.device)
+        r = torch.rsqrt(e.float()).to(dt)  # f32 rsqrt, rounded once
+        y = (d * r).float()
+        ctx.save_for_backward(d, e, r, t, y, scale)
+        return y * scale + bias
+
+    @staticmethod
+    def backward(ctx, g):
+        d, e, r, t, y, scale = ctx.saved_tensors
+        dt, n = d.dtype, d.shape[-1]
+        gy = (g * scale).to(dt)
+        g_d = gy * r
+        g_e = (d * gy).sum(dim=-1, keepdim=True) * ((r.float() / e.float()).to(dt) * -0.5)
+        g_t = (g_e.float() / n) * (2.0 * t)  # the variance's branch, in f32
+        g_t = g_t + (-g_t).sum(dim=-1, keepdim=True) / n
+        g_mu = (-g_d).sum(dim=-1, keepdim=True)
+        g_x = (g_d + g_t.to(dt)) + (g_mu.float() / n).to(dt)
+        lead = tuple(range(g.dim() - 1))
+        return g_x, (y * g).sum(dim=lead), g.sum(dim=lead), None
+
+
 def _ln(x, p, eps):
-    return F.layer_norm(x, (x.shape[-1],), p["scale"], p["bias"], eps)
+    """LayerNorm, population variance. A float32 ``x`` takes
+    ``F.layer_norm``; any other dtype is normalized as the reference's
+    ``jnp`` code rounds it (``_LowPrecisionLayerNorm``), and the f32 scale
+    and bias make the result f32."""
+    if x.dtype == torch.float32:
+        return F.layer_norm(x, (x.shape[-1],), p["scale"], p["bias"], eps)
+    return _LowPrecisionLayerNorm.apply(x, p["scale"], p["bias"], eps)
+
+
+def _matmul(a, b, dtype):
+    """``a @ b`` with the operands at their dtype multiplied and summed in
+    f32, rounded to ``dtype``: the reference's ``preferred_element_type=f32``
+    (exact products of bf16 operands; the identity in float32)."""
+    return (a.float() @ b.float()).to(dtype)
 
 
 def _dense(x, p):
-    return (x @ p["w"].to(x.dtype)).to(x.dtype) + p["b"]
+    return _matmul(x, p["w"].to(x.dtype), x.dtype) + p["b"]
 
 
 def transformer_embed(
@@ -188,11 +258,11 @@ def attention_sublayer(
             causal=False, sm_scale=1.0 / math.sqrt(hd),
         ).to(cfg.dtype)
     else:
-        logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd) + attn_ctx
+        logits = _matmul(q, k.transpose(-1, -2), torch.float32) / math.sqrt(hd) + attn_ctx
         probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
-        ctx = (probs @ v).to(cfg.dtype)
+        ctx = _matmul(probs, v, cfg.dtype)
     ctx = ctx.transpose(1, 2).reshape(B, L, nh * hd)
-    proj = (ctx @ lp["o"]["w"].to(cfg.dtype)).to(cfg.dtype)
+    proj = _matmul(ctx, lp["o"]["w"].to(cfg.dtype), cfg.dtype)
     return _ln(x + (proj + lp["o"]["b"]), lp["attn_ln"], cfg.layernorm_eps)
 
 
@@ -201,16 +271,26 @@ def transformer_block(
     lp: Dict,
     cfg: TransformerConfig,
     attn_ctx,
+    ep_constrain=None,
+    moe_mask: Optional[torch.Tensor] = None,  # [B, L] 1 = real token
+    moe_stats: bool = False,
     model_axis: Optional[str] = None,
     expert_axis: Optional[str] = None,
     seq_axis: Optional[str] = None,
-) -> torch.Tensor:
-    """One post-LN encoder block (MHA -> Add&LN -> FFN -> Add&LN)."""
+):
+    """One post-LN encoder block (MHA -> Add&LN -> FFN -> Add&LN). With
+    ``cfg.moe`` the FFN is the MoE layer and the block returns ``(x, aux)``;
+    ``moe_mask`` keeps pads out of the routing, and ``moe_stats`` returns
+    the routing sums (``models.moe.moe_aux_from_stats``) in place of aux."""
     if model_axis is not None or expert_axis is not None or seq_axis is not None:
         raise _not_ported("model_axis/expert_axis/seq_axis blocks", 12)
     x = attention_sublayer(x, lp, cfg, attn_ctx)
+    if cfg.moe is not None:
+        y, aux = moe_ffn(x, lp["moe"], cfg.moe, ep_constrain, moe_mask,
+                         return_stats=moe_stats)
+        return _ln(x + y, lp["ff_ln"], cfg.layernorm_eps), aux
     h1 = F.gelu(_dense(x, lp["ff1"]))  # exact (erf) GELU
-    ff = (h1 @ lp["ff2"]["w"].to(h1.dtype)).to(h1.dtype) + lp["ff2"]["b"]
+    ff = _matmul(h1, lp["ff2"]["w"].to(h1.dtype), h1.dtype) + lp["ff2"]["b"]
     return _ln(x + ff, lp["ff_ln"], cfg.layernorm_eps)
 
 
@@ -223,17 +303,22 @@ def transformer_apply_with_aux(
     constrain=None,
     ep_constrain=None,
 ):
-    """(last hidden state [B, L, hidden], mean MoE aux loss: 0 for the dense
-    model, the only one ported). The reference's sharding hooks
+    """(last hidden state [B, L, hidden], the MoE aux loss averaged over the
+    layers: 0 for the dense model). The reference's sharding hooks
     (``constrain``, ``ep_constrain``) and ``pos_start`` (context
     parallelism) wait for ROADMAP.md queue 1 item 12."""
     if constrain is not None or ep_constrain is not None:
         raise _not_ported("the constrain/ep_constrain sharding hooks", 12)
     x = transformer_embed(params, cfg, ids, type_ids)
     attn_ctx = attention_mask_inputs(cfg, mask)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x = transformer_block(x, lp, cfg, attn_ctx)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.moe is not None:
+            x, aux = transformer_block(x, lp, cfg, attn_ctx, moe_mask=mask)
+            aux_total = aux_total + aux
+        else:
+            x = transformer_block(x, lp, cfg, attn_ctx)
+    return x, aux_total / max(len(params["layers"]), 1)
 
 
 def transformer_apply(

@@ -43,8 +43,10 @@ count the kernel launches. On CUDA tensors every path launches its kernel or
 raises; none gives way to a plain version.
 
 Not ported, and refused with ``NotImplementedError``: ``causal=True``, a
-bias ``ab`` (the reference passes neither) and bf16 inputs (bf16 training,
-ROADMAP.md queue 1 item 11).
+bias ``ab`` and bf16 q, k or v. The reference passes none of them: its
+transformer's LayerNorm multiplies by an f32 scale, so under
+``dtype=bfloat16`` too every projection of q, k and v is f32, and the
+kernel only ever receives f32 (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -135,8 +137,9 @@ def _check_args(q, k, v, ab, segment_ids, causal):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype == torch.bfloat16:
             raise NotImplementedError(
-                f"bf16 {name} is not ported: serving and training run in float32; "
-                "bf16 training is what is left of ROADMAP.md queue 1 item 11"
+                f"bf16 {name} is not ported: the reference hands flash attention "
+                "f32 q, k and v under every dtype (its LayerNorm returns f32), "
+                "so no caller passes bf16"
             )
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")

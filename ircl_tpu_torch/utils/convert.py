@@ -9,7 +9,9 @@ card (``utils/device.py``):
 
 - ``encoder_params_from_numpy``: the BiLSTM layers, ``proj_w``, ``proj_b``;
 - ``transformer_params_from_numpy``: embeddings, LayerNorms, the dense
-  layers (``[in, out]`` weights);
+  layers (``[in, out]`` weights), and in a MoE model each layer's ``moe``
+  subtree in place of ``ff1``/``ff2`` (``router.w`` ``[h, E]``, ``ff1`` and
+  ``ff2`` with ``[E, ...]`` weights and biases);
 - ``hash_featurizer_params_from_numpy``: the hash featurizer's ``table``
   and ``pos``;
 - ``verdict_params_from_numpy``: the verdict model's ``body`` (a
@@ -60,12 +62,20 @@ def encoder_params_from_numpy(params, device=None):
 
 
 def transformer_params_from_numpy(params, device=None):
-    """``init_transformer_params``' tree of numpy arrays -> f32 tensors."""
+    """``init_transformer_params``' tree of numpy arrays -> f32 tensors. A
+    layer holds ``ff1`` and ``ff2``, or a MoE layer's ``moe`` subtree
+    (``{"router": {"w"}, "ff1": {"w", "b"}, "ff2": {"w", "b"}}``)."""
     _require(params, ("tok_emb", "pos_emb", "type_emb", "emb_ln", "layers"),
              "transformer params")
     for lp in params["layers"]:
-        _require(lp, ("q", "k", "v", "o", "attn_ln", "ff_ln", "ff1", "ff2"),
-                 "a transformer layer")
+        _require(lp, ("q", "k", "v", "o", "attn_ln", "ff_ln"), "a transformer layer")
+        if "moe" in lp:
+            _require(lp["moe"], ("router", "ff1", "ff2"), "a MoE layer")
+            _require(lp["moe"]["router"], ("w",), "a MoE router")
+            for name in ("ff1", "ff2"):
+                _require(lp["moe"][name], ("w", "b"), f"the MoE {name}")
+        else:
+            _require(lp, ("ff1", "ff2"), "a transformer layer")
     return _from_numpy(params, device)
 
 

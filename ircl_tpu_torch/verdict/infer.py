@@ -28,6 +28,7 @@ from typing import List, Sequence
 
 import torch
 
+from ircl_tpu_torch.models.moe import MoEConfig
 from ircl_tpu_torch.models.transformer import TransformerConfig
 from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
 from ircl_tpu_torch.utils.convert import to_device, verdict_params_from_numpy
@@ -43,8 +44,9 @@ PARAMS_FILE = "verdict_params.pt"
 
 def save_verdict_checkpoint(ckptdir: str, cfg: VerdictConfig, params, tokenizer):
     """Write the reference's ``verdict_config.json`` and
-    ``verdict_vocab.txt`` (as ``cli train-verdict`` writes them) and the
-    params, on the CPU, to ``verdict_params.pt``."""
+    ``verdict_vocab.txt`` (as ``cli train-verdict`` writes them: a MoE
+    encoder's ``MoEConfig`` as a dict under ``"moe"``) and the params, on
+    the CPU, to ``verdict_params.pt``."""
     os.makedirs(ckptdir, exist_ok=True)
     tokenizer.save_vocab(os.path.join(ckptdir, VOCAB_FILE))
     with open(os.path.join(ckptdir, CONFIG_FILE), "w") as f:
@@ -62,10 +64,13 @@ def save_verdict_checkpoint(ckptdir: str, cfg: VerdictConfig, params, tokenizer)
 def load_verdict_checkpoint(ckptdir: str, device):
     """(cfg, params on ``device``, tokenizer) from a directory that
     ``save_verdict_checkpoint`` wrote. The encoder's ``dtype`` is dropped,
-    as the reference drops it: the served model runs in float32."""
+    as the reference drops it: the served model runs in float32. A MoE
+    encoder's ``MoEConfig`` is rebuilt from its dict."""
     with open(os.path.join(ckptdir, CONFIG_FILE)) as f:
         meta = json.load(f)
     enc_kwargs = {k: v for k, v in meta["encoder"].items() if k != "dtype"}
+    if enc_kwargs.get("moe"):  # dataclasses.asdict flattened MoEConfig
+        enc_kwargs["moe"] = MoEConfig(**enc_kwargs["moe"])
     cfg = VerdictConfig(
         encoder=TransformerConfig(**enc_kwargs),
         num_labels=meta["num_labels"],

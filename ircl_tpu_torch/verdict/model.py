@@ -9,16 +9,21 @@ head over the [CLS] position. Parameters are the JAX package's tree
 across unchanged.
 
 Ported: the forward that serving runs (``verdict_apply``, without
-autograd) and the training half in float32: ``verdict_apply_with_aux``
-under autograd, ``make_verdict_optimizer`` (AdamW with linear warmup and
-linear decay, optax's arithmetic written out over the parameter tree) and
-``make_verdict_train_step``. The reference freezes the transformer body
-until ``warmup_steps`` (``model.py:24-28``) with a 0/1 multiplier on the
-body's gradients and on its updates; the step here does the same, so a
-frozen body stays bit for bit what it was. With ``attention="flash"`` the
-gradient of every layer's attention comes from the backward kernels of
-``ops/flash_attention_cuda.py``. Left of ROADMAP.md queue 1 item 11: bf16
-training. The MoE aux loss waits for item 9.
+autograd) and the training half: ``verdict_apply_with_aux`` under autograd,
+``make_verdict_optimizer`` (AdamW with linear warmup and linear decay,
+optax's arithmetic written out over the parameter tree) and
+``make_verdict_train_step``, for every encoder the reference builds:
+float32 or bfloat16 (``TransformerConfig.dtype``, rounded where the
+reference rounds; ``models/transformer.py``), dense or MoE
+(``TransformerConfig.moe``, whose load-balance aux enters the loss with
+``moe_aux_weight``). The reference freezes the transformer body until
+``warmup_steps`` (``model.py:24-28``) with a 0/1 multiplier on the body's
+gradients and on its updates; the step here does the same, so a frozen
+body stays bit for bit what it was. With ``attention="flash"`` the gradient
+of every layer's attention comes from the backward kernels of
+``ops/flash_attention_cuda.py``, which receive f32 q, k and v under either
+dtype. The sharding hooks (``constrain``, ``ep_constrain``) wait for
+ROADMAP.md queue 1 item 12.
 """
 
 from __future__ import annotations

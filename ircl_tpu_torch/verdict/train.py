@@ -8,7 +8,8 @@ are the reference's, drawn in its order, so one seed gives the same split
 and the same batches in both packages; the initial weights differ (a
 ``torch.Generator`` here) unless ``init_params`` carries them across.
 
-Ported: the single-device loop in float32. ``mesh`` (data, tensor, expert
+Ported: the single-device loop, for every encoder ``verdict/model.py``
+trains (float32 or bfloat16, dense or MoE). ``mesh`` (data, tensor, expert
 and pipeline parallelism) waits for ROADMAP.md queue 1 item 12.
 ``save_path`` writes the port's checkpoint directory
 (``verdict/infer.py::save_verdict_checkpoint``), not an orbax tree, and

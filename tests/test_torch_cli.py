@@ -421,13 +421,50 @@ def test_cli_train_dp_on_one_device_trains_single_device(workspaces, capsys):
     (["--pp", "2", "--dp", "2", "--layers", "2"], "item 12"),
     (["--dp", "2"], "item 12"),
     (["--tp", "2"], "item 12"),
-    (["--moe-experts", "4"], "item 9"),
-    (["--moe-experts", "4", "--ep", "2"], "item 9"),
+    (["--moe-experts", "4"], None),  # runs: the MoE FFN is ported
+    (["--moe-experts", "4", "--ep", "2"], "item 12"),
+], ids=[  # the cases' names from when --moe-experts raised item 9
+    "flags0-item 12", "flags1-item 12", "flags2-item 12", "flags3-item 9",
+    "flags4-item 9",
 ])
-def test_train_verdict_mesh_and_moe_raise(workspaces, flags, match):
-    _, cfg = workspaces["t"]
-    with pytest.raises(NotImplementedError, match=match):
-        run_t(["--config", cfg, "train-verdict", *VERDICT_FLAGS[:2], *flags])
+def test_train_verdict_mesh_and_moe_raise(workspaces, flags, match, tmp_path, capsys):
+    """The mesh flags raise item 12. ``--moe-experts 4`` trains in both
+    packages, into checkpoints of their own: equal ``verdict_config.json``
+    files, the port's checkpoint evaluates, and with the reference's trained
+    MoE weights carried into it both packages report alike."""
+    if match is not None:
+        _, cfg = workspaces["t"]
+        with pytest.raises(NotImplementedError, match=match):
+            run_t(["--config", cfg, "train-verdict", *VERDICT_FLAGS[:2], *flags])
+        return
+    metas, configs = {}, {}
+    for name, run in (("j", j_cli.main), ("t", run_t)):
+        own = json.load(open(workspaces[name][1]))
+        own["ckptdir"], own["logdir"] = f"{tmp_path}/{name}ckpt", f"{tmp_path}/{name}log"
+        configs[name] = f"{tmp_path}/{name}cfg.json"
+        json.dump(own, open(configs[name], "w"))
+        run(["--config", configs[name], "train-verdict", *VERDICT_FLAGS, *flags])
+        history = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert all(np.isfinite(h["train_loss"]) for h in history)
+        metas[name] = json.load(open(f"{tmp_path}/{name}ckpt/verdict_config.json"))
+    assert metas["t"] == metas["j"]
+    assert metas["t"]["encoder"]["moe"] == {"num_experts": 4, "top_k": 2,
+                                            "capacity_factor": 1.25, "group_size": None}
+    run_t(["--config", configs["t"], "eval-verdict"])
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert 0.0 <= rep["macro_f1"] <= 1.0 and rep["per_class"]
+
+    t_cfg, _, t_tok = t_infer.load_verdict_checkpoint(f"{tmp_path}/tckpt", "cpu")
+    _, j_params, _ = j_infer.load_verdict_checkpoint(f"{tmp_path}/jckpt")
+    t_infer.save_verdict_checkpoint(
+        f"{tmp_path}/tckpt", t_cfg,
+        convert.verdict_params_from_numpy(jax.tree.map(np.asarray, j_params), "cpu"),
+        t_tok)
+    reports = {}
+    for name, run in (("j", j_cli.main), ("t", run_t)):
+        run(["--config", configs[name], "eval-verdict"])
+        reports[name] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert reports["t"] == reports["j"]
 
 
 @pytest.mark.parametrize("flags", [["--pp", "2", "--tp", "2"],

@@ -175,7 +175,7 @@ def test_what_the_served_path_never_passes_is_refused(case):
         with pytest.raises(NotImplementedError, match="bias"):
             fa.flash_attention(x, x, x, ab=torch.zeros(1, 1, 128, 128))
     elif case == "bf16":
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError, match="f32 q, k and v"):
             fa.flash_attention(*(x.to(torch.bfloat16),) * 3)
     else:
         with pytest.raises(TypeError, match="float32"):

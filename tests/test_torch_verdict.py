@@ -29,10 +29,12 @@ import torch
 from jax.experimental.pallas.tpu import force_tpu_interpret_mode
 
 from _torch_parity import one_torch_thread  # noqa: F401
+from ircl_tpu.models import moe as j_moe
 from ircl_tpu.models import transformer as j_tf
 from ircl_tpu.models.wordpiece import WordPieceTokenizer as JWordPiece
 from ircl_tpu.verdict import infer as j_infer
 from ircl_tpu.verdict import model as j_model
+from ircl_tpu_torch.models import moe as t_moe
 from ircl_tpu_torch.models import transformer as t_tf
 from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
 from ircl_tpu_torch.ops import flash_attention_cuda as fa
@@ -226,15 +228,32 @@ def test_checkpoint_files_are_the_references(tok, tmp_path):
 
 
 def test_checkpoint_with_moe_is_refused(tok, tmp_path):
-    _, t_cfg, _, t_params = _pair(tok, "xla")
+    """A MoE checkpoint, once refused, now loads: the reference's MoE
+    weights saved by the port come back with the same ``MoEConfig`` the
+    reference rebuilds from the JSON, and classify as the reference does on
+    the same weights."""
+    kw = dict(TF_KW, vocab_size=tok.vocab_size, attention="xla")
+    moe = dict(num_experts=4, top_k=2, capacity_factor=2.0)
+    j_cfg = j_model.VerdictConfig(
+        encoder=j_tf.TransformerConfig(**kw, moe=j_moe.MoEConfig(**moe)), max_length=L)
+    t_cfg = t_model.VerdictConfig(
+        encoder=t_tf.TransformerConfig(**kw, moe=t_moe.MoEConfig(**moe)), max_length=L)
+    j_params = j_model.init_verdict_params(jax.random.PRNGKey(4), j_cfg)
     ckpt = str(tmp_path / "ckpt")
-    t_infer.save_verdict_checkpoint(ckpt, t_cfg, t_params, _port_tok(tok, tmp_path))
-    path = os.path.join(ckpt, "verdict_config.json")
-    meta = json.load(open(path))
-    meta["encoder"]["moe"] = {"num_experts": 4}
-    json.dump(meta, open(path, "w"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_infer.load_verdict_checkpoint(ckpt, "cpu")
+    t_infer.save_verdict_checkpoint(
+        ckpt, t_cfg,
+        convert.verdict_params_from_numpy(jax.tree.map(np.asarray, j_params), "cpu"),
+        _port_tok(tok, tmp_path))
+    meta = json.load(open(os.path.join(ckpt, "verdict_config.json")))
+    assert meta["encoder"]["moe"] == dataclasses.asdict(j_cfg.encoder.moe)
+    cfg, params, port_tok = t_infer.load_verdict_checkpoint(ckpt, "cpu")
+    assert cfg == t_cfg and isinstance(cfg.encoder.moe, t_moe.MoEConfig)
+    ids, mask, types = tok.encode_batch(PAIRS, L)
+    want = np.asarray(j_verdict_apply(
+        j_params, j_cfg, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(types)))
+    got = t_model.verdict_apply(params, cfg, _t(ids).long(), _t(mask),
+                                _t(types).long()).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("attention", ["xla", "flash"])
