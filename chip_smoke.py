@@ -135,7 +135,25 @@ Phases, each printed as it runs:
     flash: every layer's routes at B=8 (no expert over capacity, no pad
     dispatched, aux near 1 at init), one cut step card against CPU with
     the routes compared, a bf16 + MoE step, timed steps at B=8 and
-    prediction at B=64 with peak memory.
+    prediction at B=64 with peak memory;
+26. data and corpus parallelism (``ircl_tpu_torch/parallel/``): (a) one
+    NCCL rank in this process, at full size: ``ShardedEllIndex`` on phase
+    4's 20,000 docs (1,024 claims) against the one-device ELL engine,
+    ``ShardedHybridIndex`` on phase 5's 50K docs (4,096 claims, k=5)
+    against the one-device ``hybrid_topk`` on the same split and against
+    phase 5's scipy top-5 of every claim, ``sharded_cosine_topk`` on phase
+    7's 1M x 128 corpus at B=1024 against its numpy gate, and
+    ``make_dp_train_step`` at ``TrainConfig()`` bit for bit against
+    ``make_train_step`` over 3 steps; (b) gloo ranks sharing the card (NCCL
+    takes one rank a GPU; gloo takes the collectives on CUDA tensors, so
+    every shard's kernels run on the card): the three sharded scorers on
+    4 ranks, each holding a quarter, against the same gates and (a); then
+    ``ContrastiveTrainer(mesh=)`` on 2 ranks, 20 steps over phase 21's
+    corpus, against the one-device trainer (parameters 1e-5, logged losses
+    rtol 1e-4, every rank's state bit-equal to rank 0's). Every rank
+    reports its launches of #1 and #2 and fails if it loaded JAX; wall ms
+    a batch of each engine at 1 and 4 ranks beside the one-device engine,
+    and of the DP step at 1 and 2 ranks beside ``make_train_step``.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -150,7 +168,9 @@ before phase 22 (the serving path: #1, #2 and #3 must run) and phase 23's
 commands count their own launches in their processes (#1 must run in
 ``retrieve`` and both ``serve`` commands). Before phase 24 and again before
 phase 25 every count is zeroed; each of those phases must launch #6a, #6b
-and #6c and nothing else.
+and #6c and nothing else. Before phase 26 every count is zeroed again: the
+sharded scorers must launch #1 and #2 in this process and in every rank
+(each rank counts its own and reports it), and nothing else.
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -3646,6 +3666,379 @@ def phase25_moe_verdict(dev, tok, pairs):
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+# ---- phase 26: data and corpus parallelism --------------------------------------
+
+PAR_RANKS = 4  # corpus shards on the one card (gloo ranks)
+DP_RANKS = 2  # data-parallel trainer ranks on the one card
+PAR_ELL_CLAIMS = 1024  # the ELL engine's batch
+PAR_DP_STEPS = 3  # make_dp_train_step against make_train_step, bit for bit
+PAR_TRAIN_STEPS, PAR_TRAIN_LOG = 20, 10  # ContrastiveTrainer(mesh=), phase 21's corpus
+# the trainer's two losses: TrainConfig() (InfoNCE), and ProtoNCE refreshed at
+# steps 0 and 10 at phase 21's granularities cut by ten with its corpus
+PAR_TRAINERS = {"InfoNCE": CT_TRAIN,
+                "ProtoNCE": dict(CT_TRAIN, loss="ProtoNCE", cluster_start_steps=0,
+                                 cluster_update_steps=PAR_TRAIN_LOG,
+                                 num_clusters=(400, 600, 800))}
+PAR_TIMED = 3  # timed calls of each engine; the median is reported
+PAR_PARAM_ATOL, PAR_LOSS_RTOL = 1e-5, 1e-4  # tests/test_dp.py's tolerances
+PAR_SCORE_RTOL = 1e-5  # a sharded engine against the one-device engine: another
+#                        summation order (other GEMM shapes)
+
+
+def jax_modules():
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
+
+
+def wall_ms(fn, reps=PAR_TIMED):
+    """Median wall time of ``fn()`` in ms, synchronized (host work, the
+    device's and, across ranks, the collectives' included)."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    out = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(out))
+
+
+def sharded_engines(inp):
+    """The three corpus-sharded scorers on a ``corpus`` mesh of every rank of
+    this process's group, at phase 4's, phase 5's and phase 7's sizes: their
+    results, median wall ms a batch, and the launches of #1 and #2."""
+    from ircl_tpu_torch.dense.scorer import sharded_cosine_topk
+    from ircl_tpu_torch.ops.membership_cuda import membership_slab, membership_slab_windowed
+    from ircl_tpu_torch.parallel.mesh import make_mesh
+    from ircl_tpu_torch.parallel.sharded_hybrid import ShardedHybridIndex
+    from ircl_tpu_torch.parallel.sharded_index import ShardedEllIndex
+
+    mesh = make_mesh(("corpus",), device=inp["device"])
+    for fn in (membership_slab, membership_slab_windowed):
+        fn.launches = 0
+    ell = ShardedEllIndex(inp["ell"], mesh)
+    hyb = ShardedHybridIndex(inp["split"], mesh)
+    calls = {
+        "ell": lambda: ell.topk(*inp["ell_q"], k=K),
+        "hybrid": lambda: hyb.topk(*inp["hyb_q"], k=K),
+        "dense": lambda: sharded_cosine_topk(inp["dense_q"], inp["dense_c"], K, mesh),
+    }
+    out = {name: fn() for name, fn in calls.items()}
+    launches = {"membership_slab": membership_slab.launches,
+                "membership_slab_windowed": membership_slab_windowed.launches}
+    ms = {name: wall_ms(fn) for name, fn in calls.items()}
+    return out, ms, launches
+
+
+def rank_sharded(inp):
+    """A rank of phase 26's corpus-sharded run: its launches of #1 and #2 and
+    the JAX modules it loaded go to rank 0, which returns them with the
+    results."""
+    import torch.distributed as dist
+
+    out, ms, launches = sharded_engines(inp)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (launches, ms, jax_modules()))
+    return out, every
+
+
+def logged(trainer, name):
+    """The values of ``name`` in a trainer's metrics log, in step order."""
+    with open(trainer.metrics.path) as f:
+        return [r[name] for r in map(json.loads, f) if name in r]
+
+
+def rank_trainer(spec):
+    """A rank of phase 26's data-parallel run: ``ContrastiveTrainer(mesh=)``
+    over phase 21's corpus with each of ``spec["trainers"]``' losses, then timed
+    DP steps on phase 20's batch. Returns, by loss, the final state and rank
+    0's logged losses and gradient norms; the step's median wall ms; and
+    every rank's loaded JAX modules and state bits."""
+    import hashlib
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from ircl_tpu_torch.contrastive.state import TrainConfig
+    from ircl_tpu_torch.contrastive.trainer import ContrastiveTrainer
+    from ircl_tpu_torch.data.pairs import DocPairSampler
+    from ircl_tpu_torch.models.featurizer import FeaturizerConfig, HashEmbedFeaturizer
+    from ircl_tpu_torch.parallel.mesh import make_mesh
+
+    dev = spec["device"]
+    mesh = make_mesh(("data",), device=dev)
+    feat = HashEmbedFeaturizer(FeaturizerConfig(**spec["feat"]), device=dev)
+    batch = tuple(torch.as_tensor(x) for x in spec["batch"])
+    out = {}
+    for loss, over in spec["trainers"].items():
+        tr = ContrastiveTrainer(TrainConfig(**over), feat,
+                                DocPairSampler(spec["docs"], sample="augment", seed=7),
+                                ckptdir=f"{spec['dir']}/{loss}/ckpt",
+                                logdir=f"{spec['dir']}/{loss}/log", mesh=mesh, device=dev)
+        state = tr.train(total_steps=spec["steps"], log_step=spec["log_step"])
+        tree = {k: [t.cpu().numpy() for t in _leaves(getattr(state, k))]
+                for k in ("params_q", "params_k")}
+        tree.update(queue=state.queue.cpu().numpy(), ptr=state.queue_ptr, step=state.step,
+                    refreshes=tr.refresh_count)
+        out[loss] = dict(tree=tree, losses=None, grad_norms=None)
+        if dist.get_rank() == 0:
+            out[loss].update(losses=logged(tr, "train_loss"),
+                             grad_norms=logged(tr, "grad_norm"))
+        if loss == "InfoNCE":  # the step at TrainConfig()
+            ms = wall_ms(lambda: tr.step_fn(state, *batch))
+    digest = hashlib.sha256(pickle.dumps([o["tree"] for o in out.values()])).hexdigest()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (digest, ms, jax_modules()))
+    return out, every
+
+
+def same_or_tied(s, i, want_s, want_i, rtol):
+    """Row-wise top-k parity of numpy arrays, ``tests/_torch_parity.py``'s
+    rule: scores within ``rtol``; the ids whose score lies above the row's
+    last one (by more than ``rtol``) equal as sets, so near-ties may swap."""
+    if not np.allclose(s, want_s, rtol=rtol, atol=0.0):
+        return False
+    for row, gi, wi in zip(want_s, i, want_i):
+        live = wi >= 0
+        if ((gi >= 0) != live).any():
+            return False
+        if live.any():
+            last = row[live].min()
+            above = live & (row > last + rtol * abs(last))
+            if set(gi[above].tolist()) != set(wi[above].tolist()):
+                return False
+    return True
+
+
+def phase26_parallel(dev, index, index_ell, claims, scipy_top, dense_queries,
+                     dense_corpus, dense_ref, tmpdir, smi):
+    """Data and corpus parallelism on the card: (a) one NCCL rank in this
+    process at full size, against the one-device engines and the scipy and
+    numpy gates, and the DP step bit for bit against ``make_train_step``;
+    (b) four gloo ranks sharing the card for the sharded scorers and two
+    for ``ContrastiveTrainer(mesh=)``, against (a) and the one-device
+    trainer. Returns the launches of #1 and #2 in (a) and in every rank."""
+    import tempfile as _tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ircl_tpu_torch.contrastive.state import TrainConfig, init_train_state
+    from ircl_tpu_torch.contrastive.train import make_train_step
+    from ircl_tpu_torch.contrastive.trainer import ContrastiveTrainer
+    from ircl_tpu_torch.corpus.synthetic import generate
+    from ircl_tpu_torch.data.pairs import DocPairSampler
+    from ircl_tpu_torch.dense.scorer import cosine_topk_twophase
+    from ircl_tpu_torch.index.build import to_scipy
+    from ircl_tpu_torch.index.ell import to_ell
+    from ircl_tpu_torch.index.ranker import TfidfRanker, vectorize_queries
+    from ircl_tpu_torch.models.featurizer import FeaturizerConfig, HashEmbedFeaturizer
+    from ircl_tpu_torch.ops import hybrid as hy
+    from ircl_tpu_torch.ops.membership_cuda import membership_topk_fused, pad_for_slab
+    from ircl_tpu_torch.parallel.dp import make_dp_train_step
+    from ircl_tpu_torch.parallel.launch import launch
+    from ircl_tpu_torch.parallel.mesh import make_mesh
+
+    put = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)  # noqa: E731
+    t_phase = time.perf_counter()
+    # the inputs: phase 4's ELL engine on 1,024 claims, a one-bucket hybrid
+    # ranker over phase 5's index (phase 3's engine, at the judged ranker's
+    # union and term caps) on all 4,096 claims, phase 7's corpus and queries
+    ell_r = TfidfRanker(index_ell, dev, mode="ell", fixed_max_terms=24,
+                        fixed_union_cap=4096, union_round=512)
+    eb, ew = ell_r._vectorize(claims[:PAR_ELL_CLAIMS])
+    eq_t, ew_t = pad_for_slab(np.ascontiguousarray(eb.T.astype(np.int32)),
+                              np.ascontiguousarray(ew.T), d_tile=128)
+    ell_q = (ell_r._union_slots(eb, ew, floor=4096), eq_t, ew_t)
+    hyb_r = TfidfRanker(index, dev, mode="hybrid", df_threshold=24,
+                        fixed_union_cap=4096, fixed_max_terms=64, union_round=512)
+    if hyb_r._bucketed is not None:
+        fail("phase 26: the hybrid ranker is not the one-bucket engine")
+    hyb_q = hyb_r.hybrid_host_inputs(*hyb_r._vectorize(claims))
+    # scipy's top-K of the ELL engine's claims: a gate that shares no kernel
+    # with the sharded engine (phase 4's, on the shards' padded shapes)
+    ell_scipy = scipy_topk(to_scipy(index_ell), *vectorize_queries(
+        claims[:PAR_ELL_CLAIMS], HASH_SIZE, 2, index_ell.doc_freqs, index_ell.num_docs,
+        max_terms=24), K)
+    inp = dict(ell=to_ell(index_ell), ell_q=ell_q, split=hyb_r._split, hyb_q=hyb_q,
+               dense_q=dense_queries, dense_c=dense_corpus, device=dev)
+    # the one-device engines on the same inputs
+    one = {
+        "ell": lambda: membership_topk_fused(
+            ell_r._ell_terms_t, ell_r._ell_vals_t, *map(put, ell_q), k=K,
+            num_real_docs=index_ell.num_docs),
+        "hybrid": lambda: hy.hybrid_topk(
+            hyb_r._heavy_terms_t, hyb_r._heavy_vals_t, *map(put, hyb_q), k=K,
+            num_real_docs=index.num_docs, queries_sorted=True),
+        "dense": lambda: cosine_topk_twophase(put(dense_queries), put(dense_corpus), K),
+    }
+    single = {name: tuple(x.cpu().numpy() for x in fn()) for name, fn in one.items()}
+    single_ms = {name: wall_ms(fn) for name, fn in one.items()}
+    log(f"phase 26: inputs and one-device engines in {time.perf_counter() - t_phase:.1f} s")
+
+    def check(label, got):
+        for name, (s, i) in got.items():
+            want_s, want_i = single[name]
+            if not same_or_tied(s[: want_s.shape[0]], i[: want_s.shape[0]], want_s, want_i,
+                                PAR_SCORE_RTOL):
+                fail(f"phase 26: {label}: the sharded {name} engine differs from the "
+                     f"one-device engine")
+        s, i = got["ell"]  # phase 4's gate on every claim: scores and own scores
+        bad_e = 0
+        for b, (top, dense) in enumerate(ell_scipy):
+            hit = (i[b] >= 0) & (s[b] > 0)
+            bad_e += not (hit.sum() == len(top)
+                          and np.allclose(np.sort(s[b][hit])[::-1], top, rtol=1e-4)
+                          and np.allclose(dense[i[b][hit]], s[b][hit], rtol=1e-4))
+        s, i = got["hybrid"]  # bench.py's gate on every claim
+        bad = sum(
+            not np.allclose(np.sort(ref[: min(len(ref), int((i[b] >= 0).sum()))]),
+                            np.sort(s[b][i[b] >= 0][: len(ref)]), rtol=1e-4)
+            for b, ref in enumerate(scipy_top))
+        s, i = got["dense"]  # bench_dense.py's gate on every query
+        bad_d = sum(not np.allclose(s[b], dense_ref[0][b], rtol=1e-5)
+                    for b in range(s.shape[0]))
+        if bad_e or bad or bad_d:
+            fail(f"phase 26: {label}: {bad_e} ELL and {bad} hybrid claims fail the scipy "
+                 f"gate, {bad_d} queries the numpy gate")
+        return (f"{len(ell_scipy)}/{len(ell_scipy)} ELL and {len(scipy_top)}/"
+                f"{len(scipy_top)} hybrid claims match scipy (rtol 1e-4), "
+                f"{s.shape[0]}/{s.shape[0]} queries numpy (rtol 1e-5)")
+
+    # ---- (a) one NCCL rank in this process ----
+    t0 = time.perf_counter()
+    # phase 20's featurizer, drawn again from its seed
+    ct_feat = HashEmbedFeaturizer(FeaturizerConfig(**CT_FEAT), device=dev)
+    rdv = _tempfile.mkdtemp(prefix="ircl_nccl_", dir=tmpdir)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}/rendezvous", rank=0, world_size=1)
+    try:
+        got1, ms1, launches1 = sharded_engines(inp)
+        gates = check("1 NCCL rank", got1)
+        # the DP step at TrainConfig() against make_train_step, bit for bit
+        cfg = TrainConfig(**CT_TRAIN)
+        rng = np.random.default_rng(0)  # phase 20's batch
+        shape = (cfg.accum_steps, cfg.micro_batch, CT_FEAT["max_len"])
+        ids = rng.integers(0, ct_feat.config.vocab_buckets, size=shape).astype(np.int32)
+        ids_k = rng.integers(0, ct_feat.config.vocab_buckets, size=shape).astype(np.int32)
+        mask = (rng.random(shape) < 0.8).astype(np.float32)
+        batch = tuple(put(x) for x in (ids, mask, ids_k, mask))
+        dp_step, place_state, place_batch, _ = make_dp_train_step(
+            cfg, ct_feat, make_mesh(("data",), device=dev))
+        ref_step = make_train_step(cfg, ct_feat)
+        s_dp = place_state(state_to(init_train_state(0, cfg, device="cpu"), dev))
+        s_one = state_to(init_train_state(0, cfg, device="cpu"), dev)
+        for n in range(PAR_DP_STEPS):
+            s_dp, l_dp, g_dp = dp_step(s_dp, *place_batch(*batch))
+            s_one, l_one, g_one = ref_step(s_one, *batch)
+            same = (torch.equal(l_dp, l_one) and torch.equal(g_dp, g_one)
+                    and torch.equal(s_dp.queue, s_one.queue)
+                    and s_dp.queue_ptr == s_one.queue_ptr
+                    and all(torch.equal(a, b) for t in ("params_q", "params_k")
+                            for a, b in zip(_leaves(getattr(s_dp, t)),
+                                            _leaves(getattr(s_one, t))))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        _leaves(s_dp.opt_state), _leaves(s_one.opt_state))
+                            if isinstance(a, torch.Tensor)))
+            if not same:
+                fail(f"phase 26: DP step {n} on 1 NCCL rank is not bit-equal to "
+                     f"make_train_step (loss {float(l_dp)} against {float(l_one)})")
+        dp_ms = wall_ms(lambda: dp_step(s_dp, *place_batch(*batch)))
+        one_ms = wall_ms(lambda: ref_step(s_one, *batch))
+    finally:
+        dist.destroy_process_group()
+    del s_dp, s_one
+    log(f"phase 26: (a) 1 NCCL rank: the sharded ELL ({PAR_ELL_CLAIMS} claims, "
+        f"{index_ell.num_docs} docs), hybrid ({len(claims)} claims, {index.num_docs} "
+        f"docs) and dense ({dense_queries.shape[0]} x {dense_corpus.shape[0]}) engines "
+        f"equal the one-device engines (rtol {PAR_SCORE_RTOL}, ids up to ties); {gates}; "
+        f"{PAR_DP_STEPS} DP steps at TrainConfig() bit-equal to make_train_step; "
+        f"launches {launches1}; {time.perf_counter() - t0:.1f} s")
+
+    # ---- (b) several gloo ranks on the one card ----
+    t0 = time.perf_counter()
+    try:
+        got4, every4 = launch(rank_sharded, PAR_RANKS, inp, device=dev, backend="gloo",
+                              timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 26: the {PAR_RANKS}-rank sharded run failed: {e}")
+    gates4 = check(f"{PAR_RANKS} gloo ranks", got4)
+    for name in got1:
+        if not same_or_tied(*got4[name], *got1[name], PAR_SCORE_RTOL):
+            fail(f"phase 26: the {name} engine on {PAR_RANKS} ranks differs from 1 rank")
+    launches4 = [lc for lc, _, _ in every4]
+    loaded = [m for _, _, m in every4 if m]
+    if loaded or any(0 in lc.values() for lc in launches4):
+        fail(f"phase 26: ranks launched {launches4}, loaded {loaded}")
+    ms4 = every4[0][1]
+    log(f"phase 26: (b) {PAR_RANKS} gloo ranks on the card: {gates4}; equal to 1 rank "
+        f"(rtol {PAR_SCORE_RTOL}); launches by rank {launches4}; no rank loaded JAX; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    wiki = generate(num_docs=CT_E2E_DOCS, num_claims=CT_E2E_CLAIMS, seed=11)
+    docs = list(wiki.sentences.values())
+    want = {}
+    for loss, over in PAR_TRAINERS.items():
+        tr = ContrastiveTrainer(TrainConfig(**over), ct_feat,
+                                DocPairSampler(docs, sample="augment", seed=7),
+                                ckptdir=f"{tmpdir}/par_one/{loss}/ckpt",
+                                logdir=f"{tmpdir}/par_one/{loss}/log", device=dev)
+        st = tr.train(total_steps=PAR_TRAIN_STEPS, log_step=PAR_TRAIN_LOG)
+        want[loss] = dict(state=st, refreshes=tr.refresh_count,
+                          losses=logged(tr, "train_loss"),
+                          grad_norms=logged(tr, "grad_norm"))
+    del tr, st, ct_feat
+    try:
+        got2, every2 = launch(rank_trainer, DP_RANKS, dict(
+            docs=docs, dir=f"{tmpdir}/par_dp", batch=(ids, mask, ids_k, mask), device=dev,
+            feat=CT_FEAT, trainers=PAR_TRAINERS, steps=PAR_TRAIN_STEPS, log_step=PAR_TRAIN_LOG), device=dev,
+            backend="gloo", timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 26: the {DP_RANKS}-rank trainer failed: {e}")
+    if len(set(d for d, _, _ in every2)) != 1 or any(m for _, _, m in every2):
+        fail(f"phase 26: the {DP_RANKS}-rank trainers' ranks differ or loaded JAX: "
+             f"{every2}")
+    trained = []
+    for loss, w in want.items():
+        g = got2[loss]
+        far = max(float(np.abs(a - b.cpu().numpy()).max())
+                  for t in ("params_q", "params_k")
+                  for a, b in zip(g["tree"][t], _leaves(getattr(w["state"], t))))
+        if (far > PAR_PARAM_ATOL or g["tree"]["step"] != w["state"].step
+                or g["tree"]["refreshes"] != w["refreshes"]
+                or len(g["losses"]) != PAR_TRAIN_STEPS // PAR_TRAIN_LOG
+                or not np.allclose(g["losses"], w["losses"], rtol=PAR_LOSS_RTOL, atol=0)
+                or not np.allclose(g["grad_norms"], w["grad_norms"], rtol=PAR_LOSS_RTOL,
+                                   atol=0)):
+            fail(f"phase 26: the {DP_RANKS}-rank {loss} trainer: params {far} apart, "
+                 f"refreshes {g['tree']['refreshes']} against {w['refreshes']}, losses "
+                 f"{g['losses']} against {w['losses']}, grad norms {g['grad_norms']} "
+                 f"against {w['grad_norms']}")
+        trained.append(f"{loss} ({w['refreshes']} refreshes): params within {far:.3g} "
+                       f"(atol {PAR_PARAM_ATOL}), losses {g['losses']} against "
+                       f"{w['losses']}, grad norms {g['grad_norms']} against "
+                       f"{w['grad_norms']} (rtol {PAR_LOSS_RTOL})")
+    log(f"phase 26: (b) {DP_RANKS} gloo ranks: ContrastiveTrainer(mesh=) over "
+        f"{len(docs)} docs, {PAR_TRAIN_STEPS} steps, against the one-device trainer: "
+        f"{'; '.join(trained)}; every rank's state bit-equal to rank 0's; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 26: wall ms a batch ({smi}; {PAR_RANKS} ranks share one card, so "
+        f"these times check overhead, not scaling):")
+    for name in ("ell", "hybrid", "dense"):
+        log(f"  {name}: one device {single_ms[name]:.2f}, sharded 1 rank {ms1[name]:.2f}, "
+            f"{PAR_RANKS} ranks {ms4[name]:.2f}")
+    log(f"  DP step at TrainConfig(): make_train_step {one_ms:.2f}, DP 1 rank "
+        f"{dp_ms:.2f}, {DP_RANKS} ranks {every2[0][1]:.2f}")
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+    return launches1, launches4
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -3892,6 +4285,7 @@ def main() -> None:
 
     doc2idx = index.doc2idx
     mismatches = 0
+    scipy_top = []  # per claim, scipy's top-K scores (phase 26 gates on them too)
     for b in range(NUM_CLAIMS):  # bench.py's full-batch gate
         nz = w_ref[b] != 0
         spvec = sp.csr_matrix(
@@ -3905,6 +4299,7 @@ def main() -> None:
             o = np.argpartition(-res.data, K)[:K]
             o = o[np.argsort(-res.data[o])]
         ref_scores = res.data[o]
+        scipy_top.append(ref_scores)
         got_ids = np.array([doc2idx[d] for d in results5[b][0]])
         got_scores = results5[b][1]
         n = min(len(o), len(got_ids))
@@ -4110,7 +4505,6 @@ def main() -> None:
     for name in ("fused_dot_light_topk", "chunk_max_presplit"):
         if launches[name] == 0:
             fail(f"{name} was not launched on its path")
-    del dense_corpus, dense_ref
     torch.cuda.empty_cache()
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
 
@@ -4231,9 +4625,21 @@ def main() -> None:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.empty_cache()
 
+    # ---- the parallel path: phase 26, with fresh launch counts -------------
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    par_launches, par_rank_launches = phase26_parallel(
+        dev, index, index_ell, claims, scipy_top, dense_queries, dense_corpus,
+        dense_ref, tmp.name, smi)
+    others = {name: fn.launches for name, fn in counted.items()
+              if fn.launches and name not in par_launches}
+    if 0 in par_launches.values() or others:
+        fail(f"the parallel path launched {par_launches}, and {others} off it")
+    del dense_corpus, dense_ref
+
     tmp.cleanup()
-    loaded = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
+    loaded = jax_modules()
     if loaded:
         fail(f"JAX or the JAX package was imported: {loaded}")
 
@@ -4300,6 +4706,9 @@ def main() -> None:
             report[-1]["serving_case"] = lt_served
         if cli_total.get(name):  # the CLI chain (phase 23)
             report[-1]["launches_cli_path"] = cli_total[name]
+        if name in par_launches:  # the parallel path (phase 26): 1 rank, then by rank
+            report[-1]["launches_parallel_path"] = par_launches[name]
+            report[-1]["launches_parallel_ranks"] = [lc[name] for lc in par_rank_launches]
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

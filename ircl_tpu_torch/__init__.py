@@ -28,6 +28,9 @@ verification and verdict training.
                    device, full-fp32 matmuls, parameter trees, the metrics
                    log, and the weights and optimizer state carried across
                    from the JAX package.
+- ``parallel``     the device mesh over a ``torch.distributed`` group, the
+                   rank launcher, the corpus-sharded sparse scorers and the
+                   data-parallel contrastive step.
 - ``tools``        one-off measurement scripts for the card.
 
 The package imports torch, never JAX, and nothing of ``ircl_tpu``: what it

@@ -15,11 +15,16 @@ plus one top-level ``--device`` (by default the card, ``utils/device.py``;
 ``--device cpu`` runs the plain PyTorch versions on the host). Every command
 builds its stage on that device and says which on standard error.
 
+``train --dp`` trains data-parallel over every rank: under ``torchrun``
+(or in a rank of ``parallel/launch.py``) it joins that group, on the CPU
+too (``torchrun --nproc-per-node 8 -m ircl_tpu_torch.cli --device cpu ...
+train --dp``); otherwise it starts one rank per visible CUDA device, and
+with one device it trains on that one.
+
 Not ported yet, each raising ``NotImplementedError``: ``bench`` (the port
-has no benchmark, ROADMAP.md queue 1 item 4); ``train --dp`` with more than
-one visible device and ``train-verdict --dp/--tp/--ep/--pp`` above 1 (item
-12). ``train-verdict --moe-experts N --moe-topk K`` trains the MoE encoder
-on one device.
+has no benchmark, ROADMAP.md queue 1 item 4); ``train-verdict
+--dp/--tp/--ep/--pp`` above 1 (item 12). ``train-verdict --moe-experts N
+--moe-topk K`` trains the MoE encoder on one device.
 
 Where the JAX package writes orbax checkpoints, the port writes its own
 (``utils/checkpoint.py``, ``verdict/infer.py``) under the same names.
@@ -174,15 +179,30 @@ def cmd_train(args):
         train_cfg = dataclasses.replace(train_cfg, loss=args.loss)
     if args.opt:
         train_cfg = dataclasses.replace(train_cfg, optimizer=args.opt)
+    mesh = None
     if args.dp:
         import torch
+        import torch.distributed as dist
 
-        n = torch.cuda.device_count()
+        from ircl_tpu_torch.parallel.mesh import in_process_group, join_env_group, make_mesh
+
+        in_group = in_process_group()
+        if in_group:  # a rank of launch() or of torchrun
+            join_env_group(args.device.type)
+            n = dist.get_world_size()
+        else:
+            n = torch.cuda.device_count() if args.device.type == "cuda" else 1
+        if n > 1 and not in_group:
+            from ircl_tpu_torch.parallel.launch import launch
+
+            return launch(cmd_train, n, args, device=args.device)
         if n > 1:
-            raise _not_ported(
-                f"data-parallel training over {n} devices (--dp)", 12
-            )
-        print("--dp requested but only 1 device visible; single-device")
+            mesh = make_mesh(("data",), device=args.device)
+            if mesh.get_rank() == 0:
+                print(f"data-parallel training over {n} devices")
+        else:
+            print("--dp requested but only 1 device visible; single-device")
+    rank0 = mesh is None or mesh.get_rank() == 0
 
     from ircl_tpu_torch.contrastive.trainer import ContrastiveTrainer
     from ircl_tpu_torch.corpus import fever
@@ -208,12 +228,16 @@ def cmd_train(args):
         logdir=cfg.logdir,
         tag=f"{args.sample}_{train_cfg.loss}_LSTM",
         seed=args.seed,
+        mesh=mesh,
         device=args.device,
     )
     if args.resume:
-        print(f"resumed at step {trainer.maybe_resume()}")
+        step = trainer.maybe_resume()
+        if rank0:
+            print(f"resumed at step {step}")
     state = trainer.train(total_steps=args.steps, log_step=args.log_step)
-    print(f"finished at step {int(state.step)}")
+    if rank0:
+        print(f"finished at step {int(state.step)}")
 
 
 def cmd_retrieve(args):

@@ -69,6 +69,17 @@ def make_train_step(config: TrainConfig, featurizer):
     micro]`` ids, ``[K, D]`` centroids, ``[K]`` densities, ``[R]`` sampled
     negatives. The loss sum and the gradients' global norm are 0-dim
     tensors left on the device; the given state is not changed."""
+    return build_train_step(config, featurizer)
+
+
+def build_train_step(config: TrainConfig, featurizer, gather_rows=None,
+                     reduce_grads=None):
+    """``make_train_step``'s step with the data-parallel hooks of
+    ``parallel/dp.py``: ``gather_rows`` maps this rank's ``[b, D]``
+    embeddings to the global micro-batch's ``[B, D]`` (the losses and the
+    queue see the global batch), and ``reduce_grads`` sums the ranks'
+    gradient trees before the global norm and the update. ``None``: one
+    device."""
     tx = make_optimizer(config)
     enc_cfg = config.encoder
     eff_batch = config.micro_batch * config.accum_steps
@@ -102,6 +113,8 @@ def make_train_step(config: TrainConfig, featurizer):
                 k = seq2vec(params_k, enc_cfg, feats_k, mask_k)
         else:
             k = seq2vec(params_q, enc_cfg, feats_k, mask_k)
+        if gather_rows is not None:
+            q, k = gather_rows(q), gather_rows(k)
         loss = nt_xent_loss(
             q, k, config.temperature,
             queue=queue if config.use_queue else None,
@@ -140,6 +153,8 @@ def make_train_step(config: TrainConfig, featurizer):
                 else:
                     torch._foreach_add_(tree_leaves(grads), tree_leaves_like(grads, g))
                     loss_sum = loss_sum + loss
+            if reduce_grads is not None:
+                grads = reduce_grads(grads)
             grad_norm = global_norm(tree_leaves(grads))
             params_q, opt_state = tx.update(state.params_q, grads, state.opt_state,
                                             grad_norm)

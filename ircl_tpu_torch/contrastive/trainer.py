@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ircl_tpu_torch.contrastive.cluster import ClusterResult, run_hierarchical, run_kmeans
 from ircl_tpu_torch.contrastive.losses import sample_negative_prototypes
@@ -29,6 +30,9 @@ from ircl_tpu_torch.contrastive.state import TrainConfig, init_train_state
 from ircl_tpu_torch.contrastive.train import make_embed_fn, make_train_step
 from ircl_tpu_torch.data.pairs import DocPairSampler
 from ircl_tpu_torch.dense.embed import embed_corpus
+from ircl_tpu_torch.parallel.common import replicate
+from ircl_tpu_torch.parallel.dp import make_dp_train_step
+from ircl_tpu_torch.parallel.mesh import check_mesh
 from ircl_tpu_torch.utils.checkpoint import latest_checkpoint, restore_state, save_state
 from ircl_tpu_torch.utils.device import resolve_device
 from ircl_tpu_torch.utils.metrics import MetricsLogger
@@ -37,7 +41,15 @@ from ircl_tpu_torch.utils.metrics import MetricsLogger
 class ContrastiveTrainer:
     """Trains on ``device`` (by default the card), where the featurizer must
     lie. ``seed`` draws the initial state; ``seed + 1`` seeds the generator
-    of negative prototypes. ``mesh`` (data parallelism) is not ported yet."""
+    of negative prototypes.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``data`` axis, ``parallel/mesh.py``):
+    every rank runs this loop through the data-parallel step
+    (``parallel/dp.py``). Each rank draws the same global batch from a
+    sampler of the same seed and keeps its rows; the draws of the initial
+    state and of the negative prototypes are seeded per trainer, never per
+    rank; a cluster refresh runs on every rank, and every rank keeps rank
+    0's result. Only rank 0 writes checkpoints and metrics; every rank resumes."""
 
     def __init__(
         self,
@@ -51,11 +63,6 @@ class ContrastiveTrainer:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContrastiveTrainer(mesh=...) is not ported yet (ROADMAP.md queue 1 "
-                "item 12)"
-            )
         self.device = resolve_device(device)
         if featurizer.device.type != self.device.type:
             raise ValueError(f"the featurizer lies on {featurizer.device}, the "
@@ -65,10 +72,25 @@ class ContrastiveTrainer:
         self.sampler = sampler
         self.ckptdir = ckptdir
         self.tag = tag or f"{sampler.sample}_{config.loss}_LSTM"
-        self.metrics = MetricsLogger(logdir, self.tag)
-        self.step_fn = make_train_step(config, featurizer)
+        self.mesh = mesh
+        self._place_state = lambda s: s
+        if mesh is not None:
+            check_mesh(mesh, "data")
+            dp_step, self._place_state, place_batch, place_proto = (
+                make_dp_train_step(config, featurizer, mesh)
+            )
+
+            def step_fn(state, ids_a, mask_a, ids_k, mask_k, proto=None):
+                return dp_step(state, *place_batch(ids_a, mask_a, ids_k, mask_k),
+                               place_proto(proto))
+
+            self.step_fn = step_fn
+        else:
+            self.step_fn = make_train_step(config, featurizer)
+        self.writer = mesh is None or mesh.get_rank() == 0
+        self.metrics = MetricsLogger(logdir, self.tag) if self.writer else None
         self.embed_fn = make_embed_fn(config, featurizer)
-        self.state = init_train_state(seed, config, device=self.device)
+        self.state = self._place_state(init_train_state(seed, config, device=self.device))
         self._proto_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.cluster_result: Optional[ClusterResult] = None
         # cumulative cluster-refresh cost (full-corpus embed + clustering,
@@ -82,7 +104,7 @@ class ContrastiveTrainer:
     def maybe_resume(self) -> int:
         path = latest_checkpoint(self.ckptdir, self.tag)
         if path:
-            self.state = restore_state(path, self.state)
+            self.state = self._place_state(restore_state(path, self.state))
         return self.state.step
 
     # -- clustering ---------------------------------------------------------
@@ -108,6 +130,14 @@ class ContrastiveTrainer:
             self.cluster_result = run_kmeans(
                 emb, cfg.num_clusters, cfg.temperature, device=self.device
             )
+        if self.mesh is not None:
+            # On the card the k-means sums with float atomics (index_add_),
+            # so the ranks' refreshes may differ in their last bits: every
+            # rank takes rank 0's.
+            cr = self.cluster_result
+            self.cluster_result = ClusterResult(*(
+                [replicate(t, self.mesh, "data") for t in ts]
+                for ts in (cr.emb2cluster, cr.centroids, cr.density)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # the clustering's device time counts
         self.refresh_seconds += time.time() - t0
@@ -188,8 +218,12 @@ class ContrastiveTrainer:
                 losses = []
                 sps = log_step / max(time.time() - t0, 1e-9)
                 t0 = time.time()
-                self.metrics.scalar("train_loss", avg, new_step)
-                self.metrics.scalar("grad_norm", float(grad_norm), new_step)
-                self.metrics.scalar("steps_per_sec", sps, new_step)
-                save_state(self.ckptdir, self.tag, self.state)
+                if self.writer:
+                    self.metrics.scalar("train_loss", avg, new_step)
+                    self.metrics.scalar("grad_norm", float(grad_norm), new_step)
+                    self.metrics.scalar("steps_per_sec", sps, new_step)
+                    save_state(self.ckptdir, self.tag, self.state)
+                if self.mesh is not None:  # no rank resumes from a half-written step
+                    dist.barrier(group=self.mesh.get_group("data"))
         return self.state
+

@@ -10,14 +10,18 @@ scoring GEMM does (``ops/membership_cuda.py::scores_matmul``).
 
 Equal scores may come back in another order than ``lax.top_k``'s (lowest
 index first). The corpus-sharded scorer (``shard_corpus``,
-``make_sharded_topk``, ``sharded_cosine_topk``) waits for ROADMAP.md
-queue 1 item 12.
+``make_sharded_topk``, ``sharded_cosine_topk``) keeps one block of rows on
+each rank of a mesh (``parallel/``), scores it with the two-phase top-k, as
+the reference's sharded path does, and merges the ranks' top-k.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ircl_tpu_torch.parallel.common import gather_topk_merge
+from ircl_tpu_torch.parallel.mesh import axis_rank, axis_size, check_mesh, mesh_device
 from ircl_tpu_torch.utils.precision import float32_precision
 
 _DENSE_PREC = {"highest", "high", "default"}  # all fp32 on CUDA
@@ -134,20 +138,52 @@ def cosine_topk_scan(
     return s, torch.gather(flat, 1, si).to(torch.int32)
 
 
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} (the corpus-sharded scorer) is not ported yet "
-        "(ROADMAP.md queue 1 item 12)"
-    )
-
-
 def shard_corpus(corpus, mesh, axis: str = "corpus"):
-    raise _not_ported("shard_corpus")
+    """This rank's block of ``corpus`` rows, padded to a multiple of the
+    axis size with zero rows, on its device; and the real row count.
+    Padding rows score cosine 0, which CAN outrank real negative-cosine
+    docs, so the scorer masks pad positions to -inf by row id (``true_m``)
+    before the merge."""
+    check_mesh(mesh, axis)
+    n_shards = axis_size(mesh, axis)
+    m = corpus.shape[0]
+    rows = -(-m // n_shards)
+    lo = min(axis_rank(mesh, axis) * rows, m)
+    block = torch.as_tensor(corpus[lo : lo + rows])
+    if block.shape[0] < rows:
+        pad = block.new_zeros((rows - block.shape[0], block.shape[1]))
+        block = torch.cat([block, pad])
+    return block.to(mesh_device(mesh)).contiguous(), m
 
 
 def make_sharded_topk(mesh, k: int, axis: str = "corpus", true_m: int = None):
-    raise _not_ported("make_sharded_topk")
+    """The sharded scorer ``fn(queries, corpus_shard) -> (scores [B, k],
+    global ids [B, k])``, replicated on every rank: the local two-phase
+    top-k (exact), offset to global ids, merged over the axis's group.
+    ``true_m``: the real (unpadded) corpus rows; pad rows are masked to
+    -inf before the merge, since their cosine 0 would displace real
+    negative-cosine docs."""
+    check_mesh(mesh, axis)
+
+    def fn(queries, corpus_shard):
+        q = torch.as_tensor(queries, device=corpus_shard.device)
+        rows = corpus_shard.shape[0]
+        s, i = cosine_topk_twophase(q, corpus_shard, min(k, rows))
+        gids = i + axis_rank(mesh, axis) * rows
+        if true_m is not None:
+            s = torch.where(gids < true_m, s, float("-inf"))
+        return gather_topk_merge(s, gids, k, mesh, axis)
+
+    return fn
 
 
 def sharded_cosine_topk(queries, corpus, k: int, mesh, axis: str = "corpus"):
-    raise _not_ported("sharded_cosine_topk")
+    """Shard, score, merge: ``(scores, indices into corpus rows)`` as numpy
+    arrays on every rank."""
+    corpus_shard, true_m = shard_corpus(corpus, mesh, axis)
+    s, i = make_sharded_topk(mesh, k, axis, true_m=true_m)(queries, corpus_shard)
+    s, i = s.cpu().numpy(), i.cpu().numpy()
+    # Pad rows were masked to -inf pre-merge; they can only surface when a
+    # shard holds fewer than k real rows. Normalize them to (-inf, -1).
+    valid = i < true_m
+    return np.where(valid, s, -np.inf), np.where(valid, i, -1)

@@ -13,9 +13,9 @@ from the same verdict weights. Where the packages draw their initial weights
 from different generators (``TrainState``, the hash featurizer's table, the
 verdict model), the port's stage is given the JAX package's weights,
 carried across with ``utils/convert.py``, before the outputs are compared.
-The reference's mesh cases (``test_cli_train_dp``,
-``test_train_verdict_cli_pp_dp_mesh``) become the port's raises naming
-ROADMAP.md queue 1 item 12.
+The reference's ``test_cli_train_dp`` runs the port's ``train --dp`` over
+8 gloo ranks on the CPU; ``test_train_verdict_cli_pp_dp_mesh`` becomes the
+port's raises naming ROADMAP.md queue 1 item 12.
 """
 
 import dataclasses
@@ -398,14 +398,59 @@ def test_bench_raises_item_4():
         run_t(["bench"])
 
 
-def test_cli_train_dp_raises_item_12_over_several_devices(workspaces, monkeypatch):
-    """The reference trains over its 8-device mesh here
-    (``test_cli_train_dp``); the port raises where several devices are
-    visible."""
+def test_cli_train_dp_raises_item_12_over_several_devices(workspaces, capsys, tmp_path):
+    """Once a raise naming ROADMAP.md queue 1 item 12, now the reference's
+    ``test_cli_train_dp``: the reference trains over its 8-device mesh, the
+    port's ``train --dp`` over 8 gloo ranks on the CPU (each running
+    ``cli.main`` as ``torchrun`` would start it). Both print the same lines;
+    only rank 0 writes, and its checkpoint equals the port's single-device
+    run of the same seed (``tests/test_dp.py``'s 1e-5)."""
+    from _torch_ranks import cli_main
+    from ircl_tpu_torch.parallel.launch import launch
+
+    argv = [*TINY, "train", "--steps", "2", "--log-step", "2", "--seed", "11"]
+    configs = {}
+    for name in ("j", "dp", "single"):
+        own = json.load(open(workspaces["t" if name != "j" else "j"][1]))
+        own["ckptdir"], own["logdir"] = f"{tmp_path}/{name}ckpt", f"{tmp_path}/{name}log"
+        configs[name] = f"{tmp_path}/{name}cfg.json"
+        json.dump(own, open(configs[name], "w"))
+    j_cli.main(["--config", configs["j"], *argv, "--dp"])
+    want = capsys.readouterr().out
+    got = launch(cli_main, 8, ["--device", "cpu", "--config", configs["dp"], *argv,
+                               "--dp"], device="cpu")
+    for out in (want, got):
+        assert "data-parallel training over 8 devices" in out
+        assert "finished at step 2" in out
+    assert got.count("finished at step 2") == 1
+    run_t(["--config", configs["single"], *argv])
+    assert "finished at step 2" in capsys.readouterr().out
+    (dp_file,), (single_file,) = (os.listdir(f"{tmp_path}/{n}ckpt") for n in ("dp", "single"))
+    assert dp_file == single_file and dp_file.endswith("_2")
+    dp, single = (torch.load(f"{tmp_path}/{n}ckpt/{dp_file}", weights_only=True)
+                  for n in ("dp", "single"))
+    assert dp["step"] == single["step"] == 2 and dp["queue_ptr"] == single["queue_ptr"]
+    for a, b in zip(jax.tree.leaves(dp["params_q"]), jax.tree.leaves(single["params_q"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dp["queue"].numpy(), single["queue"].numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_cli_train_dp_starts_a_rank_per_card(workspaces, monkeypatch):
+    """Outside a process group, ``train --dp`` with several CUDA devices
+    starts one rank per device through ``parallel/launch.py``, each
+    running ``cmd_train`` with the same arguments."""
+    from ircl_tpu_torch.parallel import launch as t_launch
+
     _, cfg = workspaces["t"]
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_t(["--config", cfg, *TINY, "train", "--steps", "2", "--dp"])
+    calls = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(t_launch, "launch",
+                        lambda fn, n, *a, **kw: calls.append((fn, n, a, kw)))
+    t_cli.main(["--device", "cuda", "--config", cfg, *TINY, "train", "--dp"])
+    ((fn, n, (args,), kw),) = calls
+    assert fn is t_cli.cmd_train and n == 4 and args.dp and args.command == "train"
+    assert kw == {"device": torch.device("cuda")}
 
 
 def test_cli_train_dp_on_one_device_trains_single_device(workspaces, capsys):

@@ -262,7 +262,7 @@ def test_proto_trainers_run_and_checkpoint(tmp_path, wiki, feats, loss):
 def test_trainer_refusals(tmp_path, wiki, feats):
     _, cfg = _configs()
     kw = dict(ckptdir=str(tmp_path / "c"), logdir=str(tmp_path / "l"))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh=: a DeviceMesh
         t_trainer.ContrastiveTrainer(cfg, feats[1], _samplers(wiki)[1], mesh=object(),
                                      device="cpu", **kw)
     if not torch.cuda.is_available():  # no device named: the card, or an error

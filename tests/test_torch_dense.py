@@ -118,13 +118,47 @@ def test_scorer_argument_errors_match_jax(data):
         t_sc.cosine_topk_scan(_t(Q), _t(C), k=5, block=64)
 
 
+@pytest.fixture(scope="module")
+def sharded():
+    """13 docs whose cosines with query 0 are all strongly negative, on 8
+    ranks (3 zero pad rows, which must not outrank them): the port's three
+    sharded functions in one launch of an 8-rank gloo group
+    (``tests/_torch_ranks.py``), the reference's on its 8-device mesh."""
+    from _torch_ranks import dense_functions
+    from ircl_tpu.parallel.mesh import make_mesh
+    from ircl_tpu_torch.parallel.launch import launch
+
+    rng = np.random.default_rng(4)
+    q = _norm(rng.normal(size=(6, 16))).astype(np.float32)
+    c = _norm(-q[:1] + 0.01 * rng.normal(size=(13, 16))).astype(np.float32)
+    mesh = make_mesh(("corpus",))
+    shard, m = j_sc.shard_corpus(c, mesh)
+    want = dict(
+        shard_corpus=(np.asarray(shard), m),
+        make_sharded_topk=j_sc.make_sharded_topk(mesh, 5, true_m=m)(jnp.asarray(q), shard),
+        sharded_cosine_topk=j_sc.sharded_cosine_topk(q, c, k=5, mesh=mesh),
+    )
+    return q, c, want, launch(dense_functions, 8, q, c, 5, device="cpu")
+
+
 @pytest.mark.parametrize(
     "fn,nargs", [("shard_corpus", 2), ("make_sharded_topk", 2),
                  ("sharded_cosine_topk", 4)]
 )
-def test_sharded_scorer_waits_for_item_12(fn, nargs):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        getattr(t_sc, fn)(*([None] * nargs))
+def test_sharded_scorer_waits_for_item_12(sharded, fn, nargs):
+    """Once a raise naming ROADMAP.md queue 1 item 12, now each sharded
+    function (``nargs`` positional arguments) against the reference's: the
+    ranks' row blocks, the merged top-k of the shards, the wrapper's
+    normalized result (scores rtol 1e-5, ids up to exact ties)."""
+    q, c, want, got = sharded
+    if fn == "shard_corpus":
+        (blocks, m), (want_rows, want_m) = got[fn], want[fn]
+        assert m == want_m == 13 and blocks.shape == want_rows.shape == (16, 16)
+        np.testing.assert_array_equal(blocks, want_rows)
+        return
+    s, i = got[fn]
+    assert_topk_match(s, i, *map(np.asarray, want[fn]), rtol=1e-5)
+    assert (i >= 0).all() and (i < c.shape[0]).all()
 
 
 @pytest.mark.parametrize("m_tile", [64, 100, 128, 256])

@@ -464,5 +464,5 @@ def test_embed_corpus_edges():
                                        device="cpu")
     fn = make_embed_fn(cfg, t)
     assert embed_corpus(fn, params, t, []).shape == (0, 0)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh=: a DeviceMesh
         embed_corpus(fn, params, t, TEXTS, mesh=object())

@@ -249,6 +249,21 @@ print("JAX_MODULES", sorted(
 """
 
 
+# Two gloo ranks on the CPU, spawned by the port's launcher from a fresh
+# process; each rank reports the JAX modules it loaded.
+_SHARDED_RANKS = r"""
+import sys
+sys.path.insert(0, "tests")
+from _torch_ranks import loaded_jax_modules
+from ircl_tpu_torch.parallel.launch import launch
+
+every = launch(loaded_jax_modules, 2, device="cpu")
+assert len(every) == 2, every
+print("JAX_MODULES", sorted(set(sum(every, [])) | {
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")}))
+"""
+
+
 def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
@@ -292,6 +307,12 @@ def test_port_fronts_and_cli_run_without_loading_jax():
     _run_fresh(_FRONTS_AND_CLI)
 
 
+def test_port_runs_sharded_ranks_without_loading_jax():
+    """``sharded_cosine_topk`` on a fresh 2-rank gloo group: neither the
+    launching process nor either rank loads JAX or the JAX package."""
+    _run_fresh(_SHARDED_RANKS)
+
+
 def _port_files():
     for base in ("ircl_tpu_torch",):
         for dirpath, _, files in os.walk(os.path.join(ROOT, base)):
@@ -315,7 +336,8 @@ def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
         files = [p for p in files if os.path.basename(p) != "chip_smoke.py"]
     assert len(files) >= 15
     for new in ("serve_native.py", "cli.py", "config.py", "recall.py",
-                "profiling.py", "fetch.py", "prepare.py"):
+                "profiling.py", "fetch.py", "prepare.py", "mesh.py", "launch.py",
+                "common.py", "sharded_index.py", "sharded_hybrid.py", "dp.py"):
         assert any(p.endswith(os.sep + new) for p in files), new
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders
