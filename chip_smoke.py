@@ -153,7 +153,23 @@ Phases, each printed as it runs:
     rtol 1e-4, every rank's state bit-equal to rank 0's). Every rank
     reports its launches of #1 and #2 and fails if it loaded JAX; wall ms
     a batch of each engine at 1 and 4 ranks beside the one-device engine,
-    and of the DP step at 1 and 2 ranks beside ``make_train_step``.
+    and of the DP step at 1 and 2 ranks beside ``make_train_step``;
+27. tensor and expert parallelism of the verdict model (phase 14's model,
+    B=8, L=512, no freeze and no warmup, so every sharded body leaf moves):
+    (a) one NCCL rank in this process on a (1, 1) ``("data", "model")``
+    mesh, 3 steps of ``make_verdict_train_step(mesh=)`` bit-equal to the
+    step without a mesh; (b) TP(2) on two gloo ranks sharing the card, each
+    running the flash kernels on its 6 heads: 3 steps and one
+    sequence-parallel step against the single-device step (losses rtol
+    2e-5, each rank's shards rtol 5e-4 / atol 5e-6, ``tests/test_tp.py``'s
+    gates), step 0's gradient slices within 1e-4 of each leaf's largest
+    element, every rank's replicated leaves bit-equal; (c) EP(2) on phase
+    25's MoE model (4 experts a rank), 2 steps and the aux held alike; (d)
+    TP(2) x DP(2) on four ranks at 2 layers, 2 steps, then ``save_sharded``
+    after step 1, ``restore_sharded`` onto a (4, 1) DP-only layout and
+    step 2 from there, held to the uninterrupted run. Each rank counts its
+    launches of #6a-#6c and fails if it loaded JAX; wall ms a step of each
+    beside the single-device step, with the card's name and power limit.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -170,7 +186,9 @@ commands count their own launches in their processes (#1 must run in
 phase 25 every count is zeroed; each of those phases must launch #6a, #6b
 and #6c and nothing else. Before phase 26 every count is zeroed again: the
 sharded scorers must launch #1 and #2 in this process and in every rank
-(each rank counts its own and reports it), and nothing else.
+(each rank counts its own and reports it), and nothing else. Before phase
+27 every count is zeroed once more: #6a-#6c must run in (a)'s sharded steps
+and in every rank of (b)-(d), and no other kernel anywhere in the phase.
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -4039,6 +4057,406 @@ def phase26_parallel(dev, index, index_ell, claims, scipy_top, dense_queries,
     return launches1, launches4
 
 
+# ---- phase 27: tensor and expert parallelism of the verdict model ----------------
+
+MP_STEPS, MP_EP_STEPS, MP_TPDP_STEPS = 3, 2, 2  # sharded steps against one device
+MP_TPDP_LAYERS = 2  # (d)'s model: phase 14's width, 2 layers
+MP_LOSS_RTOL = 2e-5  # tests/test_tp.py's gates: losses,
+MP_PARAM_RTOL, MP_PARAM_ATOL = 5e-4, 5e-6  # and parameters
+MP_GRAD_RTOL = 1e-4  # step 0's gradient slices: of each leaf's largest element
+MP_NOISE_ATOL = 1e-6  # the k/b leaves: zero in exact arithmetic, noise on both sides
+
+
+MP_MODEL = dict(encoder=VERDICT_ENCODER, max_length=VERDICT_L, learning_rate=TRAIN_LR,
+                seed=VERDICT_SEED)  # phase 14's model; the ranks get it in their spec
+
+
+def mp_config(model, layers=None, moe=False):
+    """Phase 14's verdict model (``VERDICT_ENCODER``: roberta-base width, f32,
+    flash) by default, with every body leaf updated from the first step: no
+    freeze and no warmup. ``moe``: phase 25's ``MoEConfig()``."""
+    from ircl_tpu_torch.models.moe import MoEConfig
+    from ircl_tpu_torch.models.transformer import TransformerConfig
+    from ircl_tpu_torch.verdict.model import VerdictConfig
+
+    enc = dict(model["encoder"], **({"layers": layers} if layers else {}))
+    return VerdictConfig(encoder=TransformerConfig(**enc, moe=MoEConfig() if moe else None),
+                         max_length=model["max_length"],
+                         learning_rate=model["learning_rate"], warmup_steps=0,
+                         total_steps=200, freeze_body_until_warmup=False)
+
+
+def mp_init(cfg, seed):
+    """The initial parameters on the CPU, drawn from ``seed`` (every rank
+    draws the same bits)."""
+    import torch
+
+    from ircl_tpu_torch.verdict.model import init_verdict_params
+
+    return init_verdict_params(torch.Generator().manual_seed(seed), cfg, "cpu")
+
+
+def timed_step(step, p, o, i, batch):
+    """One step, synchronized: (params, state, loss, wall ms)."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    p, o, loss, _ = step(p, o, i, *batch)
+    sync()
+    return p, o, float(loss), 1e3 * (time.perf_counter() - t0)
+
+
+def mp_reference(cfg, seed, batch, dev, steps, path, grads=False, aux=False, keep=()):
+    """The single-device step on the card from ``mp_init(cfg)``: written to
+    ``path`` for the ranks (losses, the parameters after the last step and
+    after each step in ``keep``, step 0's gradients, the aux at the start),
+    with the median wall ms a step."""
+    import torch
+
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.utils.tree import tree_map
+    from ircl_tpu_torch.verdict.model import (
+        make_verdict_grad_fn, make_verdict_train_step, verdict_apply_with_aux,
+    )
+
+    p = to_device(mp_init(cfg, seed), dev)
+    ref = {}
+    if grads:
+        loss, _, g = make_verdict_grad_fn(cfg, device=dev)(p, *batch)
+        ref["grads"], ref["grad_loss"] = to_device(g, "cpu"), float(loss)
+        del g
+    if aux:
+        with torch.no_grad():
+            ref["aux"] = float(verdict_apply_with_aux(p, cfg, *batch[:3])[1])
+    step, tx = make_verdict_train_step(cfg, device=dev)
+    o = tx.init(p)
+    losses, ms = [], []
+    for i in range(steps):
+        p, o, loss, t = timed_step(step, p, o, i, batch)
+        losses.append(loss)
+        ms.append(t)
+        if i + 1 in keep:  # a copy: the step updates p in place
+            ref[f"params{i + 1}"] = tree_map(lambda t: t.to("cpu", copy=True), p)
+    ref.update(losses=losses, params=to_device(p, "cpu"))
+    del p, o
+    torch.save(ref, path)
+    torch.cuda.empty_cache()
+    return losses, float(np.median(ms[1:] if len(ms) > 1 else ms))
+
+
+def mp_param_gap(local, whole, specs, mesh, kb_atol):
+    """This rank's shards against the same slices of the single-device
+    parameters: (every element within MP_PARAM_RTOL/ATOL, largest
+    difference). The k/b leaves apart, as phase 14 holds them: their
+    gradient is zero in exact arithmetic, so each Adam step moves them by
+    up to the learning rate in the direction of noise, and they are held
+    to ``kb_atol`` (twice the learning rate a step)."""
+    import torch
+
+    from ircl_tpu_torch.parallel.tp import shard_tree
+
+    want = shard_tree(whole, specs, mesh)
+    ok, far = True, 0.0
+    for (name, a), (_, b) in zip(named_leaves(local), named_leaves(want)):
+        d = float((a - b).abs().max())
+        if name.endswith("/k/b"):
+            ok &= d <= kb_atol
+            continue
+        ok &= bool(torch.allclose(a, b, rtol=MP_PARAM_RTOL, atol=MP_PARAM_ATOL))
+        far = max(far, d)
+    return ok, far
+
+
+def mp_grad_gap(local, whole, specs, mesh):
+    """This rank's gradient slices against the single-device gradient's:
+    the largest difference as a share of its leaf's largest element (the
+    k/b leaves, zero in exact arithmetic, held to MP_NOISE_ATOL instead)."""
+    from ircl_tpu_torch.parallel.tp import shard_tree
+
+    want = shard_tree(whole, specs, mesh)
+    worst, noise = (0.0, ""), 0.0
+    for (name, a), (_, b) in zip(named_leaves(local), named_leaves(want)):
+        d = float((a - b).abs().max())
+        if name.endswith("/k/b"):
+            noise = max(noise, d)
+        else:
+            worst = max(worst, (d / max(float(b.abs().max()), 1e-30), name))
+    return worst, noise
+
+
+def mp_rank_case(case, model, batch, dev):
+    """One case of phase 27 on this rank: its losses, wall ms a step, the
+    gaps of its shards (and gradient slices) from the single-device run's,
+    and the digest of its replicated leaves."""
+    import hashlib
+
+    import torch
+
+    from ircl_tpu_torch.parallel import ep, tp
+    from ircl_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
+    from ircl_tpu_torch.utils.tree import tree_leaves, tree_leaves_like
+    from ircl_tpu_torch.verdict.model import (
+        make_verdict_grad_fn, make_verdict_train_step, verdict_apply_with_aux,
+    )
+
+    cfg = mp_config(model, **case["cfg"])
+    init = mp_init(cfg, model["seed"])
+    ref = torch.load(case["ref"], mmap=True, weights_only=True)
+    kind, hook = case["kind"], None
+    if kind == "ep":
+        mesh = ep.make_ep_mesh(expert=2, data=1, device=dev)
+        specs, hook = ep.moe_verdict_param_specs(init), ep.make_ep_constrainer(mesh)
+    else:
+        mesh = tp.make_tp_mesh(model=2, data=case.get("data", 1), device=dev)
+        specs = tp.verdict_param_specs(init)
+    placed = tp.shard_batch(mesh, *batch)
+    out = {}
+    if "grads" in ref:
+        fn = make_verdict_grad_fn(cfg, ep_constrain=hook, mesh=mesh)
+        loss, _, g = fn(tp.shard_tree(init, specs, mesh), *placed)
+        out["grads"], out["grad_loss"] = mp_grad_gap(g, ref["grads"], specs, mesh), float(loss)
+        del g
+    if "aux" in ref:
+        with torch.no_grad():
+            out["aux"] = float(verdict_apply_with_aux(
+                tp.shard_tree(init, specs, mesh), cfg, *placed[:3], ep_constrain=hook,
+                mesh=mesh)[1])
+    step, tx = make_verdict_train_step(cfg, ep_constrain=hook, mesh=mesh)
+    p = tp.shard_tree(init, specs, mesh)
+    o = tp.init_sharded_opt_state(tx, p, mesh, specs)
+    losses, ms = [], []
+    for i in range(case["steps"]):
+        p, o, loss, t = timed_step(step, p, o, i, placed)
+        losses.append(loss)
+        ms.append(t)
+        if case.get("save_after") == i + 1:
+            save_sharded(case["ckpt"], {"params": p, "opt": o}, mesh=mesh,
+                         specs={"params": specs, "opt": tp.state_specs(o, p, specs)})
+    kb = 2 * cfg.learning_rate  # a step's bound on the k/b leaves
+    out.update(losses=losses, ms=float(np.median(ms[1:])),
+               params=mp_param_gap(p, ref["params"], specs, mesh, kb * case["steps"]))
+    rep = [t for t, s in zip(tree_leaves(p), tree_leaves_like(p, specs))
+           if not any(s.axes)]
+    out["replicated"] = hashlib.sha256(b"".join(
+        t.cpu().numpy().tobytes() for t in rep)).hexdigest()
+    del p, o
+    if case.get("sp"):  # one step under sequence parallelism
+        sp_step, _ = make_verdict_train_step(cfg, tp.make_sp_constrainer(mesh), mesh=mesh)
+        p = tp.shard_tree(init, specs, mesh)
+        p, o, loss, t = timed_step(sp_step, p, tp.init_sharded_opt_state(tx, p, mesh, specs),
+                                   0, placed)
+        out["sp"] = dict(loss=loss, ms=t,
+                         params=mp_param_gap(p, ref["params1"], specs, mesh, kb))
+        del p, o
+    if case.get("restore"):  # onto replicated parameters over 4 data ranks
+        mesh2 = tp.make_tp_mesh(model=1, data=4, device=dev)
+        specs2 = tp.replicated_specs(init)
+        step2, tx2 = make_verdict_train_step(cfg, mesh=mesh2)
+        p = tp.shard_tree(init, specs2, mesh2)
+        o = tp.init_sharded_opt_state(tx2, p, mesh2, specs2)
+        back = restore_sharded(case["ckpt"], {"params": p, "opt": o}, mesh=mesh2,
+                               specs={"params": specs2, "opt": tp.state_specs(o, p, specs2)})
+        del p, o
+        start = case["save_after"]
+        p, o = back["params"], back["opt"]
+        losses2 = []
+        for i in range(start, case["steps"]):
+            p, o, loss, _ = timed_step(step2, p, o, i, tp.shard_batch(mesh2, *batch))
+            losses2.append(loss)
+        out["restored"] = dict(count=start, losses=losses2, params=mp_param_gap(
+            p, ref["params"], specs2, mesh2, kb * case["steps"]))
+        del p, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_model_parallel(spec):
+    """A rank of phase 27: its cases, and every rank's results, launches of
+    #6a-#6c over its cases and loaded JAX modules, gathered to rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    )
+
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    for fn in counters:
+        fn.launches = 0
+    dev = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
+           else torch.device("cpu"))
+    batch = tuple(torch.as_tensor(x) for x in spec["batch"])
+    out = {case["name"]: mp_rank_case(case, spec["model"], batch, dev)
+           for case in spec["cases"]}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, ([fn.launches for fn in counters], out, jax_modules()))
+    return every
+
+
+def mp_check(label, got, want_losses, rtol=MP_LOSS_RTOL):
+    """Fail unless ``got``'s losses meet ``want_losses`` and its parameter
+    gap is within the gates."""
+    ok, far = got["params"]
+    if not np.allclose(got["losses"], want_losses, rtol=rtol, atol=0) or not ok:
+        fail(f"phase 27: {label}: losses {got['losses']} against {want_losses} (rtol "
+             f"{rtol}), parameters within the gates {ok} (largest difference {far})")
+    return far
+
+
+def phase27_model_parallel(dev, tok, pairs, tmpdir, smi, model=None):
+    """Tensor and expert parallelism of the verdict model on the card: (a)
+    one NCCL rank in this process on a (1, 1) ``("data", "model")`` mesh, 3
+    steps bit-equal to the step without a mesh; (b) TP(2) on two gloo ranks
+    sharing the card, 3 steps and one sequence-parallel step against the
+    single-device step, step 0's gradient slices too; (c) EP(2) on phase
+    25's MoE model, 2 steps; (d) TP(2) x DP(2) on four ranks at 2 layers, 2
+    steps, then a sharded checkpoint after step 1 restored onto a (4, 1)
+    DP-only layout and stepped once more. Returns the launches of #6a-#6c by
+    rank: (b) and (c)'s ranks, then (d)'s."""
+    import tempfile as _tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    )
+    from ircl_tpu_torch.parallel import tp
+    from ircl_tpu_torch.parallel.launch import launch
+    from ircl_tpu_torch.utils.tree import tree_map
+    from ircl_tpu_torch.verdict.model import make_verdict_train_step
+
+    model = model or MP_MODEL
+    t_phase = time.perf_counter()
+    np_batch = train_batch(tok, pairs, range(3, 3 + TRAIN_BATCH), 14)  # phase 14's
+    batch = batch_tensors(np_batch, dev)
+    cfg = mp_config(model)
+    enc = cfg.encoder
+    log(f"phase 27: verdict model {enc.layers} x {enc.hidden}, {enc.heads} heads, "
+        f"{enc.attention}, B={TRAIN_BATCH}, L={np_batch[0].shape[1]}; no freeze, no warmup")
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+
+    # ---- (a) one NCCL rank in this process, a (1, 1) mesh ----
+    rdv = _tempfile.mkdtemp(prefix="ircl_nccl_", dir=tmpdir)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}/rendezvous", rank=0, world_size=1)
+    try:
+        mesh = tp.make_tp_mesh(model=1, data=1, device=dev)
+        init = mp_init(cfg, model["seed"])
+        runs = {}
+        for label, kw in (("one device", {"device": dev}), ("mesh", {"mesh": mesh})):
+            step, tx = make_verdict_train_step(cfg, **kw)
+            p = tree_map(lambda t: t.to(dev, copy=True), init)  # the step updates in place
+            o = tx.init(p)
+            before = [fn.launches for fn in counters]
+            losses, ms = [], []
+            for i in range(MP_STEPS):
+                p, o, loss, t = timed_step(step, p, o, i, batch)
+                losses.append(loss)
+                ms.append(t)
+            runs[label] = (losses, p, float(np.median(ms[1:])),
+                           [fn.launches - b for fn, b in zip(counters, before)])
+        (l1, p1, ms_one, _), (lm, pm, ms_a, launches_a) = runs["one device"], runs["mesh"]
+        same = l1 == lm and all(torch.equal(a, b) for a, b in zip(_leaves(p1), _leaves(pm)))
+        if not same or 0 in launches_a:
+            fail(f"phase 27: (a) {MP_STEPS} steps on a (1, 1) mesh: losses {lm} against "
+                 f"{l1}, bit-equal {same}; launches {launches_a}")
+        del runs, p1, pm, init
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"phase 27: (a) 1 NCCL rank, (1, 1) mesh: {MP_STEPS} steps bit-equal to the step "
+        f"without a mesh (losses {lm}); launches of #6a-#6c {launches_a}")
+
+    # ---- the single-device references, written for the ranks ----
+    ref_tp, ref_ep, ref_d = (f"{tmpdir}/mp_{n}.pt" for n in ("tp", "ep", "tpdp"))
+    ref_losses = {"tp": mp_reference(cfg, model["seed"], batch, dev, MP_STEPS, ref_tp,
+                                     grads=True, keep=(1,))}
+    moe_cfg = mp_config(model, moe=True)
+    ref_losses["ep"] = mp_reference(moe_cfg, model["seed"], batch, dev, MP_EP_STEPS,
+                                    ref_ep, aux=True)
+    ref_aux = torch.load(ref_ep, mmap=True, weights_only=True)["aux"]
+    ref_losses["tpdp"] = mp_reference(mp_config(model, layers=MP_TPDP_LAYERS),
+                                      model["seed"], batch, dev, MP_TPDP_STEPS, ref_d)
+    log(f"phase 27: single-device references in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b) TP(2) and (c) EP(2): two gloo ranks on the card ----
+    t0 = time.perf_counter()
+    spec = dict(device=dev.type, model=model, batch=np_batch, cases=[
+        dict(name="tp", kind="tp", cfg={}, ref=ref_tp, steps=MP_STEPS, sp=True),
+        dict(name="ep", kind="ep", cfg={"moe": True}, ref=ref_ep, steps=MP_EP_STEPS)])
+    try:
+        every2 = launch(rank_model_parallel, 2, spec, device=dev, backend="gloo",
+                        timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 27: the 2-rank TP and EP run failed: {e}")
+    for r, (launches, out, loaded) in enumerate(every2):
+        if loaded or 0 in launches:
+            fail(f"phase 27: rank {r} of 2 launched {launches} and loaded {loaded}")
+        want_l, _ = ref_losses["tp"]
+        far_b = mp_check(f"(b) TP(2) rank {r}", out["tp"], want_l)
+        (gap, leaf), noise = out["tp"]["grads"]
+        if gap > MP_GRAD_RTOL or noise > MP_NOISE_ATOL:
+            fail(f"phase 27: (b) rank {r}: step 0's gradient slices {gap} of {leaf}'s "
+                 f"largest element (bound {MP_GRAD_RTOL}), k/b noise {noise}")
+        sp = out["tp"]["sp"]
+        far_sp = mp_check(f"(b) SP rank {r}", dict(sp, losses=[sp["loss"]]), want_l[:1])
+        far_c = mp_check(f"(c) EP(2) rank {r}", out["ep"], ref_losses["ep"][0])
+        if not np.isclose(out["ep"]["aux"], ref_aux, rtol=MP_LOSS_RTOL, atol=0):
+            fail(f"phase 27: (c) rank {r}: aux {out['ep']['aux']} against {ref_aux}")
+    for name in ("tp", "ep"):
+        if len({out[name]["replicated"] for _, out, _ in every2}) != 1:
+            fail(f"phase 27: the ranks' replicated leaves differ in ({name})")
+    out2 = every2[0][1]
+    log(f"phase 27: (b) TP(2), {enc.heads // 2} heads a rank: {MP_STEPS} steps' losses "
+        f"{out2['tp']['losses']} against {ref_losses['tp'][0]} (rtol {MP_LOSS_RTOL}); "
+        f"shards within rtol {MP_PARAM_RTOL}, atol {MP_PARAM_ATOL} (largest difference "
+        f"{far_b:.3g}); step 0's gradient slices within {gap:.3g} of each leaf's largest "
+        f"element ({leaf}; bound {MP_GRAD_RTOL}); one SP step within the same gates "
+        f"({far_sp:.3g}); replicated leaves bit-equal on both ranks")
+    log(f"phase 27: (c) EP(2), {moe_cfg.encoder.moe.num_experts // 2} experts a rank: "
+        f"{MP_EP_STEPS} steps' losses "
+        f"{out2['ep']['losses']} against {ref_losses['ep'][0]}, aux {out2['ep']['aux']:.6f} "
+        f"against {ref_aux:.6f}; shards within the gates ({far_c:.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- (d) TP(2) x DP(2) on four ranks, and the sharded checkpoint ----
+    t0 = time.perf_counter()
+    spec = dict(device=dev.type, model=model, batch=np_batch, cases=[dict(
+        name="tpdp", kind="tp", data=2, cfg={"layers": MP_TPDP_LAYERS}, ref=ref_d,
+        steps=MP_TPDP_STEPS, save_after=1, restore=True, ckpt=f"{tmpdir}/mp_ckpt")])
+    try:
+        every4 = launch(rank_model_parallel, 4, spec, device=dev, backend="gloo",
+                        timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 27: the 4-rank TP x DP run failed: {e}")
+    want_l, _ = ref_losses["tpdp"]
+    for r, (launches, out, loaded) in enumerate(every4):
+        if loaded or 0 in launches:
+            fail(f"phase 27: rank {r} of 4 launched {launches} and loaded {loaded}")
+        far_d = mp_check(f"(d) TP(2) x DP(2) rank {r}", out["tpdp"], want_l)
+        far_r = mp_check(f"(d) restored onto DP(4) rank {r}", out["tpdp"]["restored"],
+                         want_l[1:])
+    if len({out["tpdp"]["replicated"] for _, out, _ in every4}) != 1:
+        fail("phase 27: the ranks' replicated leaves differ in (d)")
+    out4 = every4[0][1]["tpdp"]
+    log(f"phase 27: (d) TP(2) x DP(2), {MP_TPDP_LAYERS} layers: {MP_TPDP_STEPS} steps' "
+        f"losses {out4['losses']} against {want_l} ({far_d:.3g}); saved sharded after "
+        f"step 1, restored onto a (4, 1) DP-only layout, step 2's loss "
+        f"{out4['restored']['losses']} and parameters within the gates ({far_r:.3g}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 27: wall ms a step ({smi}; the ranks share one card and reduce through "
+        f"gloo on the host, so these times check overhead, not scaling): one device "
+        f"{ms_one:.1f}, (a) 1 NCCL rank {ms_a:.1f}, (b) TP(2) {out2['tp']['ms']:.1f} (one "
+        f"SP step {out2['tp']['sp']['ms']:.1f}); MoE one device {ref_losses['ep'][1]:.1f}, "
+        f"(c) EP(2) {out2['ep']['ms']:.1f}; {MP_TPDP_LAYERS} layers one device "
+        f"{ref_losses['tpdp'][1]:.1f}, (d) TP(2) x DP(2) {out4['ms']:.1f}")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return launches_a, [lc for lc, _, _ in every2] + [lc for lc, _, _ in every4]
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -4638,6 +5056,16 @@ def main() -> None:
         fail(f"the parallel path launched {par_launches}, and {others} off it")
     del dense_corpus, dense_ref
 
+    # ---- tensor and expert parallelism: phase 27, with fresh launch counts ---
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    mp_launches, mp_rank_launches = phase27_model_parallel(dev, vtok, pairs, tmp.name, smi)
+    others = {name: fn.launches for name, fn in counted.items()
+              if fn.launches and name not in flash_names}
+    if others:
+        fail(f"phase 27 launched {others}, off the verdict model's kernels")
+
     tmp.cleanup()
     loaded = jax_modules()
     if loaded:
@@ -4709,6 +5137,10 @@ def main() -> None:
         if name in par_launches:  # the parallel path (phase 26): 1 rank, then by rank
             report[-1]["launches_parallel_path"] = par_launches[name]
             report[-1]["launches_parallel_ranks"] = [lc[name] for lc in par_rank_launches]
+        if name in flash_names:  # phase 27: (a)'s rank, then by rank, (b)-(c), (d)
+            k = flash_names.index(name)
+            report[-1]["launches_tp_path"] = [mp_launches[k]] + [
+                lc[k] for lc in mp_rank_launches]
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

@@ -33,10 +33,21 @@ to bf16 are: the embedding sum; the embedding LayerNorm's normalize step
 ``rsqrt`` and their product in bf16); the pad bias (-1e9 becomes
 -998244352); the softmax's probabilities; the attention context (``probs @
 v`` or the flash output, taken in f32); and the o-projection, whose bf16
-operands are multiplied in f32 before the result is rounded. Not ported
-yet, and refused with ``NotImplementedError``: the explicit-collective axes
-``model_axis``/``expert_axis``/``seq_axis`` and the sharding hooks
-(ROADMAP.md queue 1 item 12), and ``from_huggingface``.
+operands are multiplied in f32 before the result is rounded.
+
+Tensor and expert parallelism (``parallel/tp.py``, ``parallel/ep.py``) run
+the reference's explicit ``model_axis``/``expert_axis`` path on the process
+groups of ``mesh=``: each rank holds its slices of the weights, the local
+head count comes from the local q width, Megatron's f goes before q/k/v
+and ff1, g after o and ff2 (the o-projection rounded to ``dtype`` before
+its sum, as the reference rounds it), and ``o.b`` and ``ff2.b`` are added
+after the sum. With ``attention="flash"`` every rank calls the flash
+kernels on its own heads, as the reference's GSPMD path runs flash on its
+sharded heads (its explicit path alone refuses flash). The ``constrain``
+hook of ``parallel.tp.make_sp_constrainer`` turns on sequence parallelism;
+any other callable is applied to the activations as the reference applies
+it. Not ported yet, and refused with ``NotImplementedError``: ``seq_axis``
+(context parallelism, ROADMAP.md queue 1 item 12) and ``from_huggingface``.
 """
 
 from __future__ import annotations
@@ -48,8 +59,24 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ircl_tpu_torch.models.moe import MoEConfig, init_moe_ffn_params, moe_ffn
+from ircl_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_ffn_params,
+    moe_aux_from_stats,
+    moe_ffn,
+)
 from ircl_tpu_torch.ops.flash_attention_cuda import SegmentIds, flash_attention
+from ircl_tpu_torch.parallel.common import (
+    copy_to_group,
+    gather_data_rows,
+    gather_seq,
+    reduce_from_group,
+    reduce_scatter_seq,
+    scatter_seq,
+)
+from ircl_tpu_torch.parallel.ep import ExpertParallel
+from ircl_tpu_torch.parallel.mesh import axis_groups, axis_size, check_mesh
+from ircl_tpu_torch.parallel.tp import SequenceParallel
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
 
@@ -233,23 +260,55 @@ def attention_mask_inputs(cfg: TransformerConfig, mask: torch.Tensor):
     return (1.0 - mask[:, None, None, :].to(cfg.dtype)) * neg
 
 
+def _column_input(x, groups, sp_group):
+    """The replicated input of a column-parallel product: the whole
+    sequence gathered under sequence parallelism, else ``x`` under f."""
+    return gather_seq(x, sp_group) if sp_group is not None else copy_to_group(x, groups)
+
+
+def _row_output(partial, groups, sp_group):
+    """A row-parallel product's partial sums, summed: reduce-scattered along
+    the sequence under sequence parallelism, else all-reduced (g)."""
+    if sp_group is not None:
+        return reduce_scatter_seq(partial, sp_group)
+    return reduce_from_group(partial, groups)
+
+
+def _on_rows(tree, groups, sp_group):
+    """Replicated parameters used on a rank's rows of the sequence: their
+    gradients are partial and are summed over the axis (f)."""
+    if sp_group is None:
+        return tree
+    return {k: copy_to_group(v, groups) for k, v in tree.items()}
+
+
 def attention_sublayer(
-    x: torch.Tensor,  # [B, L, hidden]
+    x: torch.Tensor,  # [B, L, hidden] ([B, L / m, hidden] under SP)
     lp: Dict,  # one entry of params["layers"]
     cfg: TransformerConfig,
     attn_ctx,  # attention_mask_inputs(cfg, mask)
     model_axis: Optional[str] = None,
     seq_axis: Optional[str] = None,
+    *,
+    mesh=None,
+    sequence_parallel: bool = False,
 ) -> torch.Tensor:
-    """MHA -> Add&LN (the first half of a post-LN block)."""
-    if model_axis is not None or seq_axis is not None:
-        raise _not_ported("model_axis/seq_axis attention", 12)
-    B, L, _ = x.shape
+    """MHA -> Add&LN (the first half of a post-LN block). ``model_axis``:
+    the q/k/v/o weights arrive column/row-sharded over that axis of
+    ``mesh``, the head count is the local q width's, and the o-projection's
+    partial sums are summed over the axis; ``sequence_parallel``: ``x``
+    holds this rank's rows of the sequence (``make_sp_constrainer``)."""
+    if seq_axis is not None:
+        raise _not_ported("seq_axis (context parallelism)", 12)
+    groups = axis_groups(mesh, model_axis)
+    sp_group = groups[0] if sequence_parallel and groups else None
+    xin = _column_input(x, groups, sp_group)
+    B, L, _ = xin.shape
     hd = cfg.hidden // cfg.heads
-    nh = lp["q"]["w"].shape[-1] // hd
+    nh = lp["q"]["w"].shape[-1] // hd  # local heads (cfg.heads unsharded)
 
     def heads(p):
-        return _dense(x, p).reshape(B, L, nh, hd).transpose(1, 2)
+        return _dense(xin, p).reshape(B, L, nh, hd).transpose(1, 2)
 
     q, k, v = heads(lp["q"]), heads(lp["k"]), heads(lp["v"])
     if cfg.attention == "flash":
@@ -262,12 +321,13 @@ def attention_sublayer(
         probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
         ctx = _matmul(probs, v, cfg.dtype)
     ctx = ctx.transpose(1, 2).reshape(B, L, nh * hd)
-    proj = _matmul(ctx, lp["o"]["w"].to(cfg.dtype), cfg.dtype)
-    return _ln(x + (proj + lp["o"]["b"]), lp["attn_ln"], cfg.layernorm_eps)
+    proj = _row_output(_matmul(ctx, lp["o"]["w"].to(cfg.dtype), cfg.dtype), groups, sp_group)
+    rows = _on_rows({"b": lp["o"]["b"], **lp["attn_ln"]}, groups, sp_group)
+    return _ln(x + (proj + rows.pop("b")), rows, cfg.layernorm_eps)
 
 
 def transformer_block(
-    x: torch.Tensor,  # [B, L, hidden]
+    x: torch.Tensor,  # [B, L, hidden] ([B, L / m, hidden] under SP)
     lp: Dict,
     cfg: TransformerConfig,
     attn_ctx,
@@ -277,21 +337,98 @@ def transformer_block(
     model_axis: Optional[str] = None,
     expert_axis: Optional[str] = None,
     seq_axis: Optional[str] = None,
+    *,
+    mesh=None,
+    sequence_parallel: bool = False,
 ):
     """One post-LN encoder block (MHA -> Add&LN -> FFN -> Add&LN). With
     ``cfg.moe`` the FFN is the MoE layer and the block returns ``(x, aux)``;
     ``moe_mask`` keeps pads out of the routing, and ``moe_stats`` returns
-    the routing sums (``models.moe.moe_aux_from_stats``) in place of aux."""
-    if model_axis is not None or expert_axis is not None or seq_axis is not None:
-        raise _not_ported("model_axis/expert_axis/seq_axis blocks", 12)
-    x = attention_sublayer(x, lp, cfg, attn_ctx)
+    the routing sums (``models.moe.moe_aux_from_stats``) in place of aux.
+    ``model_axis``/``expert_axis``: the explicit TP/EP path over those axes
+    of ``mesh`` (the sums the reference's ``lax.psum`` takes, each with its
+    backward); ``sequence_parallel`` as in ``attention_sublayer``."""
+    if seq_axis is not None:
+        raise _not_ported("seq_axis (context parallelism)", 12)
+    x = attention_sublayer(x, lp, cfg, attn_ctx, model_axis, mesh=mesh,
+                           sequence_parallel=sequence_parallel)
+    groups = axis_groups(mesh, model_axis)
+    sp_group = groups[0] if sequence_parallel and groups else None
+    ln = _on_rows(lp["ff_ln"], groups, sp_group)
     if cfg.moe is not None:
-        y, aux = moe_ffn(x, lp["moe"], cfg.moe, ep_constrain, moe_mask,
-                         return_stats=moe_stats)
-        return _ln(x + y, lp["ff_ln"], cfg.layernorm_eps), aux
-    h1 = F.gelu(_dense(x, lp["ff1"]))  # exact (erf) GELU
-    ff = _matmul(h1, lp["ff2"]["w"].to(h1.dtype), h1.dtype) + lp["ff2"]["b"]
-    return _ln(x + ff, lp["ff_ln"], cfg.layernorm_eps)
+        # the MoE layer routes every token on every rank and sums its own
+        # gradients over the axes: under SP it takes the whole sequence,
+        # whose gradient is then whole on every rank
+        xm = x if sp_group is None else gather_seq(x, sp_group, reduce_grad=False)
+        y, aux = moe_ffn(xm, lp["moe"], cfg.moe, ep_constrain, moe_mask,
+                         return_stats=moe_stats, model_axis=model_axis,
+                         expert_axis=expert_axis, mesh=mesh)
+        if sp_group is not None:
+            y = scatter_seq(y, sp_group)
+        return _ln(x + y, ln, cfg.layernorm_eps), aux
+    h1 = F.gelu(_dense(_column_input(x, groups, sp_group), lp["ff1"]))  # exact GELU
+    ff = _row_output(_matmul(h1, lp["ff2"]["w"].to(h1.dtype), h1.dtype), groups, sp_group)
+    b = lp["ff2"]["b"] if sp_group is None else copy_to_group(lp["ff2"]["b"], groups)
+    return _ln(x + (ff + b), ln, cfg.layernorm_eps)
+
+
+def _sharded_axis(mesh, axis, local: int, whole: int, what: str) -> Optional[str]:
+    """``axis`` if ``mesh`` has it and the local width is the whole one
+    divided over it; ``None`` if the width is whole; ``ValueError`` for any
+    other width."""
+    if local == whole:
+        return None
+    names = () if mesh is None else (mesh.mesh_dim_names or ())
+    if axis not in names or local * axis_size(mesh, axis) != whole:
+        raise ValueError(f"{what} is {local} wide of {whole}: not a shard over "
+                         f"the mesh's {axis!r} axis {names}")
+    return axis
+
+
+def _parallel_layout(params: Dict, cfg: TransformerConfig, mesh=None, constrain=None,
+                    ep_constrain=None):
+    """Which axes of the mesh shard ``params``, read from the local shapes as
+    the reference's explicit path reads its head count: ``(mesh,
+    model_axis, expert_axis, data_groups, sequence_parallel)``. The mesh
+    may come from ``mesh=`` or from a hook that carries one."""
+    for hook in (constrain, ep_constrain):
+        if mesh is None and isinstance(hook, (SequenceParallel, ExpertParallel)):
+            mesh = hook.mesh
+    if mesh is not None:
+        check_mesh(mesh)
+    layers = params["layers"]
+    model_axis = expert_axis = None
+    if layers:
+        model_axis = _sharded_axis(mesh, "model", layers[0]["q"]["w"].shape[-1],
+                                   cfg.hidden, "the q projection")
+        if cfg.moe is not None:
+            moe = layers[0]["moe"]
+            expert_axis = _sharded_axis(mesh, "expert", moe["ff1"]["w"].shape[0],
+                                        cfg.moe.num_experts, "the expert axis")
+            if _sharded_axis(mesh, "model", moe["ff1"]["w"].shape[-1],
+                             cfg.intermediate, "the experts' ff1") != model_axis:
+                raise ValueError("the experts' FFNs must shard over 'model' as the "
+                                 "attention does (parallel/ep.py::moe_layer_specs)")
+    if model_axis is not None and cfg.heads % axis_size(mesh, model_axis):
+        raise ValueError(f"{cfg.heads} heads do not divide over the "
+                         f"{axis_size(mesh, model_axis)} ranks of {model_axis!r}: each "
+                         "rank must hold whole heads")
+    sp = isinstance(constrain, SequenceParallel)
+    if sp and model_axis is None:
+        raise ValueError("sequence parallelism needs the attention sharded over "
+                         "the mesh's 'model' axis (parallel/tp.py)")
+    data = () if mesh is None or "data" not in (mesh.mesh_dim_names or ()) else (
+        axis_groups(mesh, "data"))
+    return mesh, model_axis, expert_axis, data, sp
+
+
+def _reduce_stats(stats, groups):
+    """Routing sums of this rank's tokens -> those of every data rank's
+    (differentiable; the gradient passes through, each rank's own share)."""
+    E = stats["f_sum"].shape[-1]
+    flat = reduce_from_group(torch.cat([stats["f_sum"], stats["p_sum"],
+                                        stats["n"].reshape(1)]), groups)
+    return {"f_sum": flat[:E], "p_sum": flat[E : 2 * E], "n": flat[2 * E]}
 
 
 def transformer_apply_with_aux(
@@ -302,22 +439,58 @@ def transformer_apply_with_aux(
     type_ids: Optional[torch.Tensor] = None,
     constrain=None,
     ep_constrain=None,
+    *,
+    mesh=None,
 ):
     """(last hidden state [B, L, hidden], the MoE aux loss averaged over the
-    layers: 0 for the dense model). The reference's sharding hooks
-    (``constrain``, ``ep_constrain``) and ``pos_start`` (context
-    parallelism) wait for ROADMAP.md queue 1 item 12."""
-    if constrain is not None or ep_constrain is not None:
-        raise _not_ported("the constrain/ep_constrain sharding hooks", 12)
+    layers: 0 for the dense model).
+
+    ``mesh``: sharded parameters (``parallel/tp.py``, ``parallel/ep.py``);
+    the step or forward that gets them must learn its mesh, since explicit
+    SPMD has no global arrays to carry it. ``ids``, ``mask`` and
+    ``type_ids`` are then this rank's rows of the batch (``shard_batch``),
+    the hidden state is returned for those rows, and the aux loss is that
+    of the whole batch: each layer's routing sums are summed over ``data``
+    before ``moe_aux_from_stats`` (a product of means is not the mean of
+    the ranks' products). ``constrain``: ``parallel.tp.make_sp_constrainer``
+    (sequence parallelism, which needs ``L`` to divide over ``model``), or
+    a callable applied to the activations after the embedding LayerNorm
+    and after every block. ``ep_constrain``: ``make_ep_constrainer`` (the
+    explicit EP path), or a callable applied to the MoE expert slabs."""
+    mesh, model_axis, expert_axis, data, sp = _parallel_layout(
+        params, cfg, mesh, constrain, ep_constrain)
+    if isinstance(ep_constrain, ExpertParallel):
+        ep_constrain = None  # the layout above carries it
+    sp_group = None
+    if sp:
+        sp_group = mesh.get_group(model_axis)
+        m = axis_size(mesh, model_axis)
+        if ids.shape[1] % m:
+            raise ValueError(f"sequence parallelism splits the length {ids.shape[1]} "
+                             f"over {m} ranks of 'model': it must divide")
+        if m == 1:
+            sp_group = None
+        constrain = None
     x = transformer_embed(params, cfg, ids, type_ids)
+    x = scatter_seq(x, sp_group) if sp_group is not None else x
+    if constrain is not None:
+        x = constrain(x)
     attn_ctx = attention_mask_inputs(cfg, mask)
+    kw = dict(model_axis=model_axis, expert_axis=expert_axis, mesh=mesh,
+              sequence_parallel=sp_group is not None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         if cfg.moe is not None:
-            x, aux = transformer_block(x, lp, cfg, attn_ctx, moe_mask=mask)
-            aux_total = aux_total + aux
+            x, aux = transformer_block(x, lp, cfg, attn_ctx, ep_constrain, moe_mask=mask,
+                                       moe_stats=bool(data), **kw)
+            aux_total = aux_total + (moe_aux_from_stats(_reduce_stats(aux, data))
+                                     if data else aux)
         else:
-            x = transformer_block(x, lp, cfg, attn_ctx)
+            x = transformer_block(x, lp, cfg, attn_ctx, **kw)
+        if constrain is not None:
+            x = constrain(x)
+    if sp_group is not None:
+        x = gather_seq(x, sp_group, reduce_grad=False)
     return x, aux_total / max(len(params["layers"]), 1)
 
 
@@ -327,9 +500,18 @@ def transformer_apply(
     ids: torch.Tensor,  # [B, L] int
     mask: torch.Tensor,  # [B, L] f32 (1 = real token)
     type_ids: Optional[torch.Tensor] = None,
+    constrain=None,
+    ep_constrain=None,
+    *,
+    mesh=None,
 ) -> torch.Tensor:
-    """Last hidden state [B, L, hidden] (the aux loss discarded)."""
-    return transformer_apply_with_aux(params, cfg, ids, mask, type_ids)[0]
+    """Last hidden state [B, L, hidden] (the aux loss discarded): the
+    inference path. With ``mesh`` the inputs are this rank's rows
+    (``shard_batch``) and the result is the whole batch's, on every rank,
+    as the reference returns a global array."""
+    x = transformer_apply_with_aux(params, cfg, ids, mask, type_ids, constrain,
+                                   ep_constrain, mesh=mesh)[0]
+    return gather_data_rows(x, mesh)
 
 
 def from_huggingface(name: str = "bert-base-uncased"):

@@ -50,6 +50,15 @@ def all_gather_rows(x: torch.Tensor, mesh, axis: str) -> list:
     return parts
 
 
+def gather_data_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every ``data`` rank's rows of ``x``, in rank order (``x`` itself
+    without a mesh, or without a data axis of more than one rank)."""
+    if mesh is None or "data" not in (mesh.mesh_dim_names or ()) or (
+            axis_size(mesh, "data") == 1):
+        return x
+    return torch.cat(all_gather_rows(x.detach(), mesh, "data"))
+
+
 def replicate(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The axis's first rank's ``x``, on every rank, in a new tensor of
     ``x``'s strides (the collectives take contiguous tensors; a layout can
@@ -70,3 +79,139 @@ def gather_topk_merge(s: torch.Tensor, gids: torch.Tensor, k: int, mesh, axis: s
     all_i = torch.stack(all_gather_rows(gids, mesh, axis), dim=1).reshape(b, -1)
     ms, midx = torch.topk(all_s, min(k, all_s.shape[1]), dim=1)
     return ms, torch.gather(all_i, 1, midx)
+
+
+# ---- the collectives of tensor, sequence and expert parallelism ---------------
+#
+# The reference's GSPMD (and shard_map's transpose rules) place the backward
+# collective of every forward one; here each pair is one autograd Function,
+# Megatron-LM's f and g and their sequence-parallel forms. ``groups`` is a
+# tuple of process groups, reduced over one after another (a sum over the
+# product of the axes); a caller passes only groups of more than one rank.
+
+
+def _all_reduce(x: torch.Tensor, groups) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    for group in groups:
+        dist.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather_seq(x: torch.Tensor, group) -> torch.Tensor:
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _own_rows(x: torch.Tensor, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    return x.chunk(n, dim=1)[dist.get_rank(group)].contiguous()
+
+
+def _reduce_scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    chunks = [c.contiguous() for c in x.chunk(dist.get_world_size(group), dim=1)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """f: the identity forward; the gradient all-reduced over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.groups), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """g: the all-reduce forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _all_reduce(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """This rank's rows along dim 1 of a replicated tensor; the gradient
+    all-gathered, so every rank holds the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _own_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, ctx.group), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The all-gather along dim 1 of the ranks' rows. ``reduce_grad``: the
+    gradient is a partial sum on each rank (it fed column-parallel products)
+    and is reduce-scattered; otherwise it is whole on every rank and this
+    rank keeps its rows."""
+
+    @staticmethod
+    def forward(ctx, x, group, reduce_grad):
+        ctx.group, ctx.reduce_grad = group, reduce_grad
+        return _all_gather_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            return _reduce_scatter_seq(g, ctx.group), None, None
+        return _own_rows(g, ctx.group), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """The reduce-scatter along dim 1 of a row-parallel product's partial
+    sums; the gradient all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _reduce_scatter_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, ctx.group), None
+
+
+def copy_to_group(x: torch.Tensor, groups) -> torch.Tensor:
+    """Megatron's f, on the replicated input of a column-parallel product:
+    ``x`` itself; its gradient, a partial sum on each rank, summed over
+    ``groups``. ``x`` unchanged where there is no group."""
+    return _CopyToGroup.apply(x, tuple(groups)) if groups else x
+
+
+def reduce_from_group(x: torch.Tensor, groups) -> torch.Tensor:
+    """Megatron's g, on a row-parallel product's partial sums: their sum
+    over ``groups``, with the gradient passed through (it is whole on every
+    rank). ``x`` unchanged where there is no group."""
+    return _ReduceFromGroup.apply(x, tuple(groups)) if groups else x
+
+
+def scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of rows along dim 1 of a replicated ``x``."""
+    return _ScatterSeq.apply(x, group)
+
+
+def gather_seq(x: torch.Tensor, group, reduce_grad: bool = True) -> torch.Tensor:
+    """The ranks' blocks of rows along dim 1, all-gathered in rank order."""
+    return _GatherSeq.apply(x, group, reduce_grad)
+
+
+def reduce_scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of ``x``, each rank keeping its block of rows
+    along dim 1."""
+    return _ReduceScatterSeq.apply(x, group)

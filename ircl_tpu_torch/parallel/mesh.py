@@ -71,8 +71,25 @@ def make_mesh(
                             mesh_dim_names=tuple(axis_names))
 
 
+def group_size(device=None) -> int:
+    """The number of ranks of the process group, joined on ``device``'s
+    type (by default the card) as ``make_mesh`` joins it."""
+    join_env_group(resolve_device(device).type)
+    return dist.get_world_size()
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh[axis].size()
+
+
+def axis_groups(mesh, *axes):
+    """The process groups of the named axes of ``mesh`` that span more than
+    one rank (``None`` names are skipped). Explicit axes need the mesh."""
+    axes = [a for a in axes if a is not None]
+    if axes and mesh is None:
+        raise ValueError(f"the explicit axes {axes} need mesh=: explicit SPMD has no "
+                         "global arrays to carry the mesh")
+    return tuple(mesh.get_group(a) for a in axes if axis_size(mesh, a) > 1)
 
 
 def axis_rank(mesh: DeviceMesh, axis: str) -> int:

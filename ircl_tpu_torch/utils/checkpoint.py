@@ -67,20 +67,85 @@ def restore_state(path: str, template: TrainState) -> TrainState:
     return TrainState(**restored)
 
 
-def save_sharded(path: str, tree) -> str:
-    """Sharded (multi-device) checkpoints are not ported yet (ROADMAP.md
-    queue 1 item 12)."""
-    raise NotImplementedError(
-        "save_sharded is not ported yet (ROADMAP.md queue 1 item 12)"
-    )
+# ---------------------------------------------------------------------------
+# Sharded (multi-device) checkpoints: each rank writes only its own shards,
+# with no gather onto one host, and a restore puts the state into the
+# target layout, which may differ from the one it was saved from (an elastic
+# resume). torch.distributed.checkpoint does both over DTensor views of the
+# local shards; its directory format is not orbax's (ROADMAP.md queue 3).
+# ---------------------------------------------------------------------------
 
 
-def restore_sharded(path: str, like):
-    """Sharded (multi-device) checkpoints are not ported yet (ROADMAP.md
-    queue 1 item 12)."""
-    raise NotImplementedError(
-        "restore_sharded is not ported yet (ROADMAP.md queue 1 item 12)"
-    )
+def _flat(tree, prefix=""):
+    """``{"a/b/0/c": leaf}`` in ``utils/tree.py``'s order."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _views(tree, mesh, specs):
+    """The flat state dict of ``tree``: each tensor a DTensor view of this
+    rank's shard under its spec (whole tensors without a mesh)."""
+    flat = _flat(tree)
+    if mesh is None:
+        return flat
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    flat_specs = _flat(specs)
+
+    def view(key, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        axes = flat_specs[key].axes
+        placements = [Shard(axes.index(n)) if n in axes else Replicate() for n in names]
+        return DTensor.from_local(x, mesh, placements, run_check=False)
+
+    return {k: view(k, v) for k, v in flat.items()}
+
+
+def save_sharded(path: str, tree, *, mesh=None, specs=None) -> str:
+    """Save a tree of this rank's shards, ``specs`` (``parallel/tp.py``'s
+    ``P`` trees; ``parallel.tp.state_specs`` for an optimizer state) saying
+    how each shards over ``mesh``. Every rank calls it; each writes its own
+    shards (a replicated tensor once), with no gather onto one host.
+    Without a mesh, a tree of whole tensors in this process alone."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    dcp.save(_views(tree, mesh, specs), checkpoint_id=path, no_dist=mesh is None)
+    return path
+
+
+def restore_sharded(path: str, like, *, mesh=None, specs=None):
+    """A tree of ``like``'s structure holding the checkpoint's values in the
+    layout that ``like``, ``specs`` and ``mesh`` describe: this rank's
+    shards, read from the shards that hold them. The layout may differ
+    from the saved one (TP(4) x DP(2) restores onto TP(2) x DP(4), or onto
+    replicated parameters). ``like`` is left as it is."""
+    import torch.distributed.checkpoint as dcp
+
+    fresh = tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x,
+                     like)
+    state = _views(fresh, mesh, specs)
+    dcp.load(state, checkpoint_id=os.path.abspath(path), no_dist=mesh is None)
+    values = iter(state.values())
+
+    def leaf(x):
+        v = next(values)
+        if not isinstance(x, torch.Tensor):
+            return v
+        return x  # loaded in place, through its view
+
+    return tree_map(leaf, fresh)
 
 
 def latest_checkpoint(ckptdir: str, tag: str) -> Optional[str]:

@@ -22,8 +22,16 @@ gradients and on its updates; the step here does the same, so a frozen
 body stays bit for bit what it was. With ``attention="flash"`` the gradient
 of every layer's attention comes from the backward kernels of
 ``ops/flash_attention_cuda.py``, which receive f32 q, k and v under either
-dtype. The sharding hooks (``constrain``, ``ep_constrain``) wait for
-ROADMAP.md queue 1 item 12.
+dtype.
+
+Sharded training and inference (``parallel/tp.py``, ``parallel/ep.py``):
+the step, ``verdict_apply`` and ``verdict_predict`` take ``mesh=`` (explicit
+SPMD has no global arrays to carry it), read the layout from the local
+parameter shapes, and take this rank's rows of the batch. The loss is the
+whole batch's mean, the MoE aux the whole batch's, the gradients are summed
+over ``data`` after the model-axis collectives, and AdamW, elementwise and
+without clipping, runs on the local shards; every rank keeps bit-equal
+copies of the replicated leaves.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ircl_tpu_torch.models.transformer import (
@@ -40,10 +49,12 @@ from ircl_tpu_torch.models.transformer import (
     init_transformer_params,
     transformer_apply_with_aux,
 )
+from ircl_tpu_torch.parallel.common import gather_data_rows
+from ircl_tpu_torch.parallel.mesh import axis_groups, axis_size, check_mesh, mesh_device
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
 from ircl_tpu_torch.utils.precision import float32_precision
-from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, value_and_grad
+from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten, value_and_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +103,17 @@ def verdict_apply_with_aux(
     type_ids: Optional[torch.Tensor] = None,
     constrain=None,
     ep_constrain=None,
+    *,
+    mesh=None,
 ):
     """(logits [B, num_labels], MoE load-balance aux: 0 for dense), in full
-    fp32 and under the caller's autograd mode: the training forward."""
+    fp32 and under the caller's autograd mode: the training forward. With
+    ``mesh`` (sharded parameters), the logits of this rank's rows and the
+    whole batch's aux (``transformer_apply_with_aux``)."""
     with float32_precision():
         hidden, aux = transformer_apply_with_aux(
             params["body"], cfg.encoder, ids, mask, type_ids,
-            constrain=constrain, ep_constrain=ep_constrain,
+            constrain=constrain, ep_constrain=ep_constrain, mesh=mesh,
         )
         return verdict_head(params, hidden[:, 0, :]), aux
 
@@ -109,16 +124,25 @@ def verdict_apply(
     ids: torch.Tensor,  # [B, L] int
     mask: torch.Tensor,  # [B, L] f32 (1 = real token)
     type_ids: Optional[torch.Tensor] = None,
+    constrain=None,
+    ep_constrain=None,
+    *,
+    mesh=None,
 ) -> torch.Tensor:
     """Logits [B, num_labels], without autograd and in full fp32 (the aux
-    loss discarded): the serving forward."""
+    loss discarded): the serving forward. With ``mesh`` the inputs are this
+    rank's rows (``parallel.tp.shard_batch``) and the logits those of the
+    whole batch, on every rank."""
     with torch.no_grad():
-        return verdict_apply_with_aux(params, cfg, ids, mask, type_ids)[0]
+        logits = verdict_apply_with_aux(params, cfg, ids, mask, type_ids, constrain,
+                                        ep_constrain, mesh=mesh)[0]
+    return gather_data_rows(logits, mesh)
 
 
-def verdict_predict(params, cfg: VerdictConfig, ids, mask, type_ids):
-    """Predicted label ids [B]."""
-    return torch.argmax(verdict_apply(params, cfg, ids, mask, type_ids), dim=-1)
+def verdict_predict(params, cfg: VerdictConfig, ids, mask, type_ids, *, mesh=None):
+    """Predicted label ids [B] (with ``mesh``: of the whole batch, from this
+    rank's rows, as ``verdict_apply``)."""
+    return torch.argmax(verdict_apply(params, cfg, ids, mask, type_ids, mesh=mesh), dim=-1)
 
 
 def _linear_schedule(init_value, end_value, transition_steps, count):
@@ -199,8 +223,67 @@ def make_verdict_optimizer(cfg: VerdictConfig) -> VerdictOptimizer:
     return VerdictOptimizer(cfg)
 
 
+def make_verdict_grad_fn(cfg: VerdictConfig, constrain=None, ep_constrain=None, *,
+                         device=None, mesh=None):
+    """``fn(params, ids, mask, type_ids, labels) -> (loss, preds, grads)``:
+    the mean softmax cross-entropy (plus ``moe_aux_weight`` times the aux
+    for an MoE encoder), its argmax labels and its gradients over
+    ``params``, the step's first half. The batch may be numpy arrays or
+    tensors; it is moved to ``device`` (by default the card, or the mesh's).
+
+    With ``mesh`` the batch is this rank's rows and ``params`` this rank's
+    shards: the loss is the whole batch's (every data rank's cross-entropy,
+    scaled by its share of the rows, summed), ``preds`` are this rank's
+    rows', and the gradients are summed over ``data`` in one all-reduce of
+    one flat buffer, after the model-axis collectives of the forward's
+    backward. Each gradient leaf has its parameter's shape."""
+    if mesh is not None:
+        check_mesh(mesh)
+    device = mesh_device(mesh) if mesh is not None else resolve_device(device)
+    data = ()
+    if mesh is not None and "data" in (mesh.mesh_dim_names or ()):
+        data = axis_groups(mesh, "data")
+    share = 1.0 / (axis_size(mesh, "data") if data else 1)
+
+    def loss_fn(params, ids, mask, type_ids, labels):
+        logits, aux = verdict_apply_with_aux(
+            params, cfg, ids, mask, type_ids, constrain, ep_constrain, mesh=mesh
+        )
+        ce = F.cross_entropy(logits, labels)
+        if data:
+            ce = ce * share
+        loss = ce
+        if cfg.encoder.moe is not None:
+            loss = loss + cfg.moe_aux_weight * aux
+        return loss, (torch.argmax(logits, dim=-1), ce.detach(), aux.detach())
+
+    def fn(params, ids, mask, type_ids, labels):
+        ids, type_ids, labels = (
+            torch.as_tensor(x, device=device).long() for x in (ids, type_ids, labels)
+        )
+        mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
+        loss, (preds, ce, aux), grads = value_and_grad(
+            loss_fn, params, ids, mask, type_ids, labels
+        )
+        if data:
+            leaves = tree_leaves(grads)
+            flat = torch.cat([g.reshape(-1) for g in leaves] + [ce.reshape(1)])
+            for group in data:
+                dist.all_reduce(flat, group=group)
+            out = torch.split(flat[:-1], [g.numel() for g in leaves])
+            grads = tree_unflatten(grads, [o.view_as(g) for o, g in zip(out, leaves)])
+            # the whole batch's loss: the summed cross-entropy shares, and the
+            # aux, which every rank computed from the summed routing sums
+            loss = flat[-1]
+            if cfg.encoder.moe is not None:
+                loss = loss + cfg.moe_aux_weight * aux
+        return loss, preds, grads
+
+    return fn
+
+
 def make_verdict_train_step(cfg: VerdictConfig, constrain=None, ep_constrain=None,
-                            *, device=None):
+                            *, device=None, mesh=None):
     """``(step, tx)``. ``step(params, opt_state, step_idx, ids, mask,
     type_ids, labels)`` takes one AdamW step on the mean softmax
     cross-entropy of a batch and returns ``(params, opt_state, loss,
@@ -210,28 +293,21 @@ def make_verdict_train_step(cfg: VerdictConfig, constrain=None, ep_constrain=Non
     the card), where ``params`` and ``opt_state`` must lie. While
     ``cfg.freeze_body_until_warmup`` and ``step_idx < cfg.warmup_steps`` the
     body's gradients are computed and then count as zero, and its update is
-    withheld. ``constrain``/``ep_constrain`` (sharded training) wait for
-    ROADMAP.md queue 1 item 12."""
-    device = resolve_device(device)
-    tx = make_verdict_optimizer(cfg)
+    withheld.
 
-    def loss_fn(params, ids, mask, type_ids, labels):
-        logits, aux = verdict_apply_with_aux(
-            params, cfg, ids, mask, type_ids, constrain, ep_constrain
-        )
-        loss = F.cross_entropy(logits, labels)
-        if cfg.encoder.moe is not None:
-            loss = loss + cfg.moe_aux_weight * aux
-        return loss, torch.argmax(logits, dim=-1)
+    ``mesh``: sharded training over its process groups. Explicit SPMD has
+    no global arrays to carry the mesh, so the step learns it here; the
+    parameters and the state are this rank's shards (``parallel/tp.py::
+    shard_tree``, ``init_sharded_opt_state``), the batch this rank's rows
+    (``shard_batch``), and the loss is the whole batch's on every rank
+    (``make_verdict_grad_fn``). ``constrain``: sequence parallelism
+    (``make_sp_constrainer``) or an activation hook; ``ep_constrain``: the
+    EP hook (``make_ep_constrainer``) or a hook on the expert slabs."""
+    tx = make_verdict_optimizer(cfg)
+    grad_fn = make_verdict_grad_fn(cfg, constrain, ep_constrain, device=device, mesh=mesh)
 
     def step(params, opt_state, step_idx, ids, mask, type_ids, labels):
-        ids, type_ids, labels = (
-            torch.as_tensor(x, device=device).long() for x in (ids, type_ids, labels)
-        )
-        mask = torch.as_tensor(mask, dtype=torch.float32, device=device)
-        loss, preds, grads = value_and_grad(
-            loss_fn, params, ids, mask, type_ids, labels
-        )
+        loss, preds, grads = grad_fn(params, ids, mask, type_ids, labels)
         body_on = (
             not cfg.freeze_body_until_warmup or int(step_idx) >= cfg.warmup_steps
         )

@@ -8,10 +8,17 @@ are the reference's, drawn in its order, so one seed gives the same split
 and the same batches in both packages; the initial weights differ (a
 ``torch.Generator`` here) unless ``init_params`` carries them across.
 
-Ported: the single-device loop, for every encoder ``verdict/model.py``
-trains (float32 or bfloat16, dense or MoE). ``mesh`` (data, tensor, expert
-and pipeline parallelism) waits for ROADMAP.md queue 1 item 12.
-``save_path`` writes the port's checkpoint directory
+Ported: the loop for every encoder ``verdict/model.py`` trains (float32 or
+bfloat16, dense or MoE), on one device or on a mesh without a ``"stage"``
+axis, where it takes the reference's layouts: data parallelism alone
+(replicated parameters), TP x DP (``verdict_param_specs``), EP x DP and EP x
+TP x DP for an MoE encoder (``moe_verdict_param_specs`` with
+``make_ep_constrainer``), and replicated parameters for an MoE encoder on a
+mesh without an ``expert`` axis. Every rank draws the same split and
+batches and takes its rows of each batch; validation runs on every rank
+through the sharded forward; only rank 0 writes metrics and ``save_path``.
+A ``"stage"`` mesh (pipeline parallelism) waits for ROADMAP.md queue 1 item
+12. ``save_path`` writes the port's checkpoint directory
 (``verdict/infer.py::save_verdict_checkpoint``), not an orbax tree, and
 needs the tokenizer for it.
 """
@@ -23,6 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ircl_tpu_torch.parallel import ep, tp
+from ircl_tpu_torch.parallel.mesh import axis_size, check_mesh, mesh_device
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
 from ircl_tpu_torch.utils.metrics import MetricsLogger
@@ -37,13 +46,25 @@ from ircl_tpu_torch.verdict.model import (
 )
 
 
-def predict_in_batches(params, cfg, ids, mask, types, batch_size=32, *, device=None):
+def predict_in_batches(params, cfg, ids, mask, types, batch_size=32, *, device=None,
+                       mesh=None):
     """Predicted labels ``[n]`` int64 for numpy ``ids``, ``mask``, ``types``
     ``[n, L]``. Every device call has exactly ``batch_size`` rows, the tail
     padded with empty rows that are dropped from the result. ``params`` are
-    moved to ``device`` (by default the card) once."""
-    device = resolve_device(device)
-    params = to_device(params, device)
+    moved to ``device`` (by default the card) once. With ``mesh`` they are
+    this rank's shards, ``batch_size`` is rounded up to a multiple of the
+    data ranks, and each rank runs its rows of every batch
+    (``verdict_predict(mesh=)``); every rank returns every label."""
+    if mesh is not None:
+        device = mesh_device(mesh)
+        if "data" in (mesh.mesh_dim_names or ()):
+            n_data = axis_size(mesh, "data")
+            batch_size = -(-batch_size // n_data) * n_data
+        place = lambda *a: tp.shard_batch(mesh, *a)  # noqa: E731
+    else:
+        device = resolve_device(device)
+        params = to_device(params, device)
+        place = lambda *a: tuple(torch.as_tensor(x, device=device) for x in a)  # noqa: E731
     preds = []
     n = len(ids)
     pending = None  # 1-deep pipeline: host pad/encode overlaps device run
@@ -52,16 +73,12 @@ def predict_in_batches(params, cfg, ids, mask, types, batch_size=32, *, device=N
         pad = batch_size - (hi - lo)
         sl = slice(lo, hi)
         i = np.pad(ids[sl], ((0, pad), (0, 0)))
-        m = np.pad(mask[sl], ((0, pad), (0, 0)))
+        m = np.pad(mask[sl], ((0, pad), (0, 0))).astype(np.float32)
         t = np.pad(types[sl], ((0, pad), (0, 0)))
+        i, m, t = place(i, m, t)
         # enqueued, not waited for: the card runs this batch while the host
         # pads the next one and only then reads the previous result
-        p_d = verdict_predict(
-            params, cfg,
-            torch.as_tensor(i, device=device).long(),
-            torch.as_tensor(m, dtype=torch.float32, device=device),
-            torch.as_tensor(t, device=device).long(),
-        )
+        p_d = verdict_predict(params, cfg, i.long(), m, t.long(), mesh=mesh)
         if pending is not None:
             preds.append(pending[0].cpu().numpy()[: pending[1]])
         pending = (p_d, hi - lo)
@@ -92,19 +109,28 @@ def train_verdict(
     #   ``seed``. Pass a FIXED value when comparing val F1 across seed
     #   restarts — otherwise each restart is scored on a different val
     #   split and the max over restarts is upward-biased split noise
-    mesh=None,  # multi-chip layouts are not ported (ROADMAP.md queue 1 item 12)
-    pp_micro: int = 4,
+    mesh=None,  # a DeviceMesh: run the same loop over its ranks. Axis
+    #   names select the layout: "data" -> DP (each rank takes its rows,
+    #   gradients summed), "model" -> Megatron TP (parallel/tp.py),
+    #   "expert" -> EP for MoE encoders (parallel/ep.py); they compose, e.g.
+    #   ("data", "expert", "model"). "stage" (pipeline parallelism) is not
+    #   ported yet (ROADMAP.md queue 1 item 12)
+    pp_micro: int = 4,  # microbatches a step on a "stage" mesh
     *,
-    device=None,  # by default the card
+    device=None,  # by default the card; with a mesh, the mesh's
     tokenizer=None,  # the WordPiece tokenizer that ``save_path`` writes out
 ):
     """Returns ``(params on device, history)``; ``history`` has one
-    ``{"epoch", "train_loss", "val_macro_f1"}`` per epoch run."""
+    ``{"epoch", "train_loss", "val_macro_f1"}`` per epoch run. With a mesh
+    every rank returns the whole parameters and the same history."""
     if mesh is not None:
-        raise NotImplementedError(
-            "train_verdict(mesh=...) and pp_micro are not ported yet "
-            "(ROADMAP.md queue 1 item 12)"
-        )
+        check_mesh(mesh)
+        if "stage" in (mesh.mesh_dim_names or ()):
+            raise NotImplementedError(
+                "train_verdict on a 'stage' mesh (pipeline parallelism) and "
+                "pp_micro are not ported yet (ROADMAP.md queue 1 item 12)"
+            )
+        device = mesh_device(mesh)
     if save_path and tokenizer is None:
         raise ValueError(
             "save_path writes verdict_config.json, verdict_vocab.txt and "
@@ -129,10 +155,40 @@ def train_verdict(
         if init_params is not None
         else init_verdict_params(torch.Generator().manual_seed(seed), cfg, device)
     )
-    step_fn, tx = make_verdict_train_step(cfg, device=device)
-    opt_state = tx.init(params)
+    rank0 = True
+    if mesh is not None:
+        names = mesh.mesh_dim_names
+        has_model = "model" in names
+        ep_constrain = None
+        if cfg.encoder.moe is not None and "expert" in names:
+            specs = ep.moe_verdict_param_specs(params, tp=has_model)
+            ep_constrain = ep.make_ep_constrainer(mesh)
+        elif cfg.encoder.moe is None and has_model:
+            specs = tp.verdict_param_specs(params)
+        else:  # DP alone, or MoE without an expert axis: replicated params
+            specs = tp.replicated_specs(params)
+        step_fn, tx = make_verdict_train_step(cfg, ep_constrain=ep_constrain, mesh=mesh)
+        params = tp.shard_tree(params, specs, mesh)
+        opt_state = tp.init_sharded_opt_state(tx, params, mesh, specs)
+        rank0 = mesh.get_rank() == 0
 
-    metrics = MetricsLogger(logdir, "verdict") if logdir else None
+        def place(*arrays):
+            return tp.shard_batch(mesh, *arrays)
+
+        def whole(p):
+            return tp.gather_tree(p, specs, mesh)
+
+    else:
+        step_fn, tx = make_verdict_train_step(cfg, device=device)
+        opt_state = tx.init(params)
+
+        def place(*arrays):
+            return arrays
+
+        def whole(p):
+            return p
+
+    metrics = MetricsLogger(logdir, "verdict") if logdir and rank0 else None
 
     step = 0
     history = []
@@ -143,7 +199,8 @@ def train_verdict(
         for lo in range(0, len(ep_order) - batch_size + 1, batch_size):
             sel = ep_order[lo : lo + batch_size]
             params, opt_state, loss, _ = step_fn(
-                params, opt_state, step, ids[sel], mask[sel], types[sel], labels[sel]
+                params, opt_state, step,
+                *place(ids[sel], mask[sel], types[sel], labels[sel]),
             )
             # device tensor, not float(): keep dispatch async within the
             # epoch (one sync at the epoch-end mean below)
@@ -154,7 +211,7 @@ def train_verdict(
         if len(val_idx):
             preds = predict_in_batches(
                 params, cfg, ids[val_idx], mask[val_idx], types[val_idx],
-                device=device,
+                device=device, mesh=mesh,
             )
             rep = classification_report(labels[val_idx], preds)
         history.append(
@@ -172,7 +229,7 @@ def train_verdict(
                 metrics.scalar("qa_val_macro_f1", rep["macro_f1"], step)
         if keep_best and rep is not None and rep["macro_f1"] > best_f1:
             best_f1 = rep["macro_f1"]
-            best_params = tree_map(lambda t: t.to("cpu", copy=True), params)
+            best_params = tree_map(lambda t: t.to("cpu", copy=True), whole(params))
         if (
             stop_at_val_f1 is not None
             and rep is not None
@@ -180,11 +237,12 @@ def train_verdict(
         ):
             break
 
-    if keep_best and best_params is not None:
-        params = to_device(best_params, device)
+    # the whole parameters, on every rank: a layout-stable result
+    params = (to_device(best_params, device) if keep_best and best_params is not None
+              else whole(params))
     if metrics:
         metrics.close()
 
-    if save_path:
+    if save_path and rank0:
         save_verdict_checkpoint(save_path, cfg, params, tokenizer)
     return params, history

@@ -5,7 +5,8 @@ group on the CPU, which import this module afresh: so it imports neither
 JAX nor the JAX package (``tests/conftest.py`` is not loaded there), and
 the test modules, which import JAX at their top, hand it numpy inputs.
 Each target checks that every rank returned rank 0's bits, then returns
-rank 0's results as numpy arrays.
+rank 0's results as numpy arrays; where the ranks hold different shards,
+it returns every rank's digests for the test to compare instead.
 """
 
 import contextlib
@@ -239,13 +240,28 @@ def cli_main(argv):
 
 
 def loaded_jax_modules():
-    """A 2-rank ``sharded_cosine_topk``; the JAX modules each rank loaded."""
+    """A 2-rank ``sharded_cosine_topk`` and a 2-rank TP forward of a tiny
+    transformer (``parallel/tp.py``, ``parallel/ep.py`` imported); the JAX
+    modules each rank loaded."""
     from ircl_tpu_torch.dense.scorer import sharded_cosine_topk
+    from ircl_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_transformer_params,
+        transformer_apply,
+    )
+    from ircl_tpu_torch.parallel import ep, tp  # noqa: F401
     from ircl_tpu_torch.parallel.mesh import make_mesh
 
     rng = np.random.default_rng(0)
     c = rng.normal(size=(13, 8)).astype(np.float32)
     sharded_cosine_topk(c[:3], c, 5, make_mesh(("corpus",), device="cpu"))
+    cfg = TransformerConfig(vocab_size=16, hidden=8, layers=1, heads=2,
+                            intermediate=16, max_positions=8)
+    mesh = tp.make_tp_mesh(device="cpu")
+    full = init_transformer_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    ids, mask = tp.shard_batch(mesh, np.zeros((2, 8), np.int64), np.ones((2, 8), np.float32))
+    transformer_apply(tp.shard_tree(full, tp.transformer_param_specs(full), mesh), cfg,
+                      ids, mask, mesh=mesh)
     mine = sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
     every = [None] * dist.get_world_size()
@@ -258,3 +274,298 @@ def raise_on_rank(bad):
     if dist.get_rank() == bad:
         raise ValueError(f"rank {bad} was told to fail")
     dist.barrier()
+
+
+# ---- tensor, sequence and expert parallelism of the verdict model ---------------
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _layout_report(mesh, params, specs):
+    """Every rank's (coordinates on the sharded axes, digest of its local
+    shards, digest of its replicated leaves): ranks that share coordinates
+    must hold equal shards, and every rank the same replicated leaves."""
+    from ircl_tpu_torch.parallel.mesh import axis_rank
+    from ircl_tpu_torch.utils.tree import tree_leaves, tree_leaves_like
+
+    leaves, spec_leaves = tree_leaves(params), tree_leaves_like(params, specs)
+    coords = tuple(axis_rank(mesh, a) for a in mesh.mesh_dim_names if a != "data")
+    mine = (coords, _digest(leaves),
+            _digest([x for x, s in zip(leaves, spec_leaves) if not any(s.axes)]))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def _verdict_specs(kind, params):
+    from ircl_tpu_torch.parallel import ep, tp
+
+    if kind == "tp":
+        return tp.verdict_param_specs(params)
+    if kind in ("ep", "ep_tp"):
+        return ep.moe_verdict_param_specs(params, tp=kind == "ep_tp")
+    return tp.replicated_specs(params)
+
+
+def _mesh(shape):
+    """``("data", "model")``, ``("data", "expert")`` or ``("data",
+    "expert", "model")`` by ``shape``'s keys, on the CPU."""
+    from ircl_tpu_torch.parallel import ep, tp
+
+    if "expert" in shape and "model" in shape:
+        return ep.make_ep_tp_mesh(shape["expert"], shape["model"], shape["data"],
+                                  device="cpu")
+    if "expert" in shape:
+        return ep.make_ep_mesh(shape["expert"], shape["data"], device="cpu")
+    return tp.make_tp_mesh(shape["model"], shape["data"], device="cpu")
+
+
+def verdict_sharded_steps(cfg, params0, batches, shape, kind, sp=False, grads=False):
+    """``make_verdict_train_step(mesh=)`` over ``batches`` from the numpy
+    ``params0`` in layout ``kind`` on a mesh of ``shape``: per step the
+    loss, then the whole parameters; with ``grads`` also the whole
+    gradients of the first batch (``make_verdict_grad_fn``); and every
+    rank's layout report."""
+    from ircl_tpu_torch.parallel import ep, tp
+    from ircl_tpu_torch.utils import convert
+    from ircl_tpu_torch.verdict.model import make_verdict_grad_fn, make_verdict_train_step
+
+    mesh = _mesh(shape)
+    full = convert.verdict_params_from_numpy(params0, "cpu")
+    specs = _verdict_specs(kind, full)
+    constrain = tp.make_sp_constrainer(mesh) if sp else None
+    ep_constrain = ep.make_ep_constrainer(mesh) if kind.startswith("ep") else None
+    out = {}
+    p = tp.shard_tree(full, specs, mesh)
+    if grads:
+        fn = make_verdict_grad_fn(cfg, constrain, ep_constrain, mesh=mesh)
+        loss, _, g = fn(p, *tp.shard_batch(mesh, *batches[0]))
+        out["grads"] = _np(tp.gather_tree(g, specs, mesh))
+        out["grad_loss"] = float(loss)
+    step, tx = make_verdict_train_step(cfg, constrain, ep_constrain, mesh=mesh)
+    o = tp.init_sharded_opt_state(tx, p, mesh, specs)
+    losses = []
+    for i, b in enumerate(batches):
+        p, o, loss, _ = step(p, o, i, *tp.shard_batch(mesh, *b))
+        losses.append(float(loss))
+    out.update(losses=losses, params=_np(tp.gather_tree(p, specs, mesh)),
+               layout=_layout_report(mesh, p, specs))
+    return out
+
+
+def verdict_local_shapes(cfg, params0, shape, kind):
+    """The local shapes of a few sharded leaves and of their Adam moments."""
+    from ircl_tpu_torch.parallel import tp
+    from ircl_tpu_torch.utils import convert
+    from ircl_tpu_torch.utils.tree import tree_map
+    from ircl_tpu_torch.verdict.model import make_verdict_optimizer
+
+    mesh = _mesh(shape)
+    full = convert.verdict_params_from_numpy(params0, "cpu")
+    specs = _verdict_specs(kind, full)
+    p = tp.shard_tree(full, specs, mesh)
+    o = tp.init_sharded_opt_state(make_verdict_optimizer(cfg), p, mesh, specs)
+    shapes = lambda t: tree_map(lambda x: tuple(x.shape), t)  # noqa: E731
+    return dict(params=shapes(p), mu=shapes(o["mu"]), count=o["count"])
+
+
+def verdict_sharded_forward(cfg, params0, arrays, shape, kind, what):
+    """``verdict_predict(mesh=)``, ``verdict_apply_with_aux(mesh=)`` (this
+    rank's logits and the aux) or ``transformer_apply(mesh=)`` on this
+    rank's rows of ``arrays``."""
+    from ircl_tpu_torch.models.transformer import transformer_apply
+    from ircl_tpu_torch.parallel import ep, tp
+    from ircl_tpu_torch.parallel.common import all_gather_rows
+    from ircl_tpu_torch.utils import convert
+    from ircl_tpu_torch.verdict.model import verdict_apply_with_aux, verdict_predict
+
+    mesh = _mesh(shape)
+    if what == "transformer_apply":
+        full = convert.transformer_params_from_numpy(params0, "cpu")
+        p = tp.shard_tree(full, tp.transformer_param_specs(full), mesh)
+        ids, mask = tp.shard_batch(mesh, *arrays)
+        with torch.no_grad():
+            return transformer_apply(p, cfg, ids.long(), mask, mesh=mesh).numpy()
+    full = convert.verdict_params_from_numpy(params0, "cpu")
+    p = tp.shard_tree(full, _verdict_specs(kind, full), mesh)
+    ids, mask, types = tp.shard_batch(mesh, *arrays)
+    if what == "predict":
+        return verdict_predict(p, cfg, ids.long(), mask, types.long(), mesh=mesh).numpy()
+    ep_constrain = ep.make_ep_constrainer(mesh) if kind.startswith("ep") else None
+    with torch.no_grad():
+        logits, aux = verdict_apply_with_aux(p, cfg, ids.long(), mask, types.long(),
+                                             ep_constrain=ep_constrain, mesh=mesh)
+    return dict(logits=torch.cat(all_gather_rows(logits, mesh, "data")).numpy(),
+                aux=float(aux))
+
+
+def parallel_runs(cases):
+    """Each case ``(target name, kwargs)`` in turn on this group's ranks;
+    rank 0's results by case name (the meshes of the cases are made anew,
+    in the same order, on every rank)."""
+    out = {}
+    for name, (target, kwargs) in cases.items():
+        try:
+            out[name] = globals()[target](**kwargs)
+        except (ValueError, TypeError, NotImplementedError) as e:
+            out[name] = ("raised", type(e).__name__, str(e))
+    return out
+
+
+def sharded_checkpoint(cfg, params0, batches, path):
+    """``tests/test_sharded_checkpoint.py``'s run: TP(4) x DP(2) for every
+    batch; again for all but the last, ``save_sharded``, then the last batch
+    from ``restore_sharded`` onto the same layout, onto TP(2) x DP(4) and
+    onto replicated DP(8) parameters. Each run's last loss, whole
+    parameters and a local shard's shape."""
+    from ircl_tpu_torch.parallel import tp
+    from ircl_tpu_torch.utils import convert
+    from ircl_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
+    from ircl_tpu_torch.verdict.model import make_verdict_train_step
+
+    full = convert.verdict_params_from_numpy(params0, "cpu")
+
+    def start(shape, kind):
+        mesh = _mesh(shape)
+        specs = _verdict_specs(kind, full)
+        step, tx = make_verdict_train_step(cfg, mesh=mesh)
+        p = tp.shard_tree(full, specs, mesh)
+        o = tp.init_sharded_opt_state(tx, p, mesh, specs)
+        return mesh, step, p, o, {"params": specs, "opt": tp.state_specs(o, p, specs)}
+
+    def run(mesh, step, p, o, todo, first=0):
+        for i, b in enumerate(todo):
+            p, o, loss, _ = step(p, o, first + i, *tp.shard_batch(mesh, *b))
+        return p, o, float(loss)
+
+    def result(mesh, specs, p, o, loss):
+        return dict(loss=loss, count=o["count"],
+                    params=_np(tp.gather_tree(p, specs["params"], mesh)),
+                    ff1_w=tuple(p["body"]["layers"][0]["ff1"]["w"].shape))
+
+    out = {}
+    mesh, step, p, o, specs = start(dict(data=2, model=4), "tp")
+    out["uninterrupted"] = result(mesh, specs, *run(mesh, step, p, o, batches))
+    mesh, step, p, o, specs = start(dict(data=2, model=4), "tp")
+    p, o, _ = run(mesh, step, p, o, batches[:-1])
+    save_sharded(path, {"params": p, "opt": o}, mesh=mesh, specs=specs)
+    for name, shape, kind in (("same", dict(data=2, model=4), "tp"),
+                              ("tp2_dp4", dict(data=4, model=2), "tp"),
+                              ("dp8", dict(data=8, model=1), "dp")):
+        mesh, step, p, o, specs = start(shape, kind)
+        back = restore_sharded(path, {"params": p, "opt": o}, mesh=mesh, specs=specs)
+        restored_count = back["opt"]["count"]  # the step counts on in place
+        out[name] = result(mesh, specs, *run(mesh, step, back["params"], back["opt"],
+                                             batches[-1:], first=len(batches) - 1))
+        out[name]["restored_count"] = restored_count
+    return out
+
+
+def train_verdict_runs(cases, data, out_dir):
+    """``train_verdict(mesh=)`` for each case ``(cfg, params0, mesh shape,
+    kwargs)``: rank 0's history and returned parameters, and whether every
+    rank returned the same; a ``"stage"`` mesh's refusal."""
+    from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from ircl_tpu_torch.parallel.mesh import make_mesh
+    from ircl_tpu_torch.utils import convert
+    from ircl_tpu_torch.utils.tree import tree_leaves
+    from ircl_tpu_torch.verdict.train import train_verdict
+
+    _no_tensorflow()
+    out = {}
+    for name, (cfg, params0, shape, kw) in cases.items():
+        if kw.pop("save", False):
+            kw.update(save_path=f"{out_dir}/{name}/ckpt", logdir=f"{out_dir}/{name}/log",
+                      tokenizer=WordPieceTokenizer.train(["a claim", "its evidence"],
+                                                         vocab_size=64))
+        params, history = train_verdict(
+            cfg, *data, epochs=2, batch_size=8, val_fraction=0.1, seed=7,
+            mesh=_mesh(shape), init_params=convert.verdict_params_from_numpy(params0, "cpu"),
+            **kw)
+        mine = dict(history=history, params=_np(params))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, _digest(tree_leaves(params)))
+        out[name] = dict(mine, same_on_every_rank=len(set(every)) == 1)
+    try:
+        train_verdict(cases["tp_dp"][0], *data, epochs=1, batch_size=8, val_fraction=0.0,
+                      mesh=make_mesh(("stage", "data"), (2, 4), device="cpu"))
+    except NotImplementedError as e:
+        out["stage"] = str(e)
+    return out
+
+
+def layer_parity(cases):
+    """Each case runs one sharded layer on a mesh of every rank and returns,
+    the same on every rank: its output (and the MoE aux), the gradient of
+    ``sum(output * w)`` with respect to the input, and with respect to the
+    parameters, gathered whole. A case is ``dict(layer="block" | "moe",
+    cfg, params, specs, axes, kwargs, x, mask, w)``: ``specs`` is
+    ``"tp"``/``"ep"``/``"ep_tp"``/``"tp_moe"``, ``axes`` the mesh's axis names and
+    sizes, ``kwargs`` what the layer is called with (the hook
+    ``"ep_constrain"`` made from the mesh)."""
+    from ircl_tpu_torch.models import moe as t_moe
+    from ircl_tpu_torch.models import transformer as t_tf
+    from ircl_tpu_torch.parallel import ep, tp
+    from ircl_tpu_torch.parallel.mesh import make_mesh
+    from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    out = {}
+    for name, c in cases.items():
+        mesh = make_mesh(tuple(c["axes"]), tuple(c["axes"].values()), device="cpu")
+        full = tree_map(torch.as_tensor, c["params"])
+        if c["specs"] == "tp":
+            specs = tp.transformer_param_specs({"layers": [None]})["layers"][0]
+        elif c["layer"] == "block":
+            specs = dict(ep.moe_transformer_param_specs({"layers": [None]},
+                                                        c["specs"] == "ep_tp")["layers"][0])
+        elif c["specs"] == "tp_moe":  # every expert on every rank, TP-sharded
+            P = tp.P
+            specs = {"router": {"w": P()},
+                     "ff1": {"w": P(None, None, "model"), "b": P(None, "model")},
+                     "ff2": {"w": P(None, "model", None), "b": P()}}
+        else:
+            specs = ep.moe_layer_specs(c["specs"] == "ep_tp")
+        local = tp.shard_tree(full, specs, mesh)
+        kwargs = dict(c["kwargs"])
+        if kwargs.get("ep_constrain") == "hook":
+            kwargs["ep_constrain"] = ep.make_ep_constrainer(mesh)
+        else:
+            kwargs["mesh"] = mesh
+        views = tree_map(lambda t: t.detach().requires_grad_(), local)
+        x = torch.as_tensor(c["x"]).requires_grad_()
+        mask = torch.as_tensor(c["mask"])
+        if c["layer"] == "block":
+            cfg = c["cfg"]
+            ctx = t_tf.attention_mask_inputs(cfg, mask)
+            y = t_tf.transformer_block(x, views, cfg, ctx, moe_mask=mask, **kwargs)
+        else:
+            y = t_moe.moe_ffn(x, views, c["cfg"], mask=mask, **kwargs)
+        y, aux = y if isinstance(y, tuple) else (y, None)
+        loss = (y * torch.as_tensor(c["w"])).sum() + (0.0 if aux is None else aux)
+        grads = torch.autograd.grad(loss, [x] + tree_leaves(views))
+        whole = tp.gather_tree(tree_unflatten(views, grads[1:]), specs, mesh)
+        res = dict(y=y.detach().numpy(), aux=None if aux is None else float(aux),
+                   grad_x=grads[0].numpy(), grads=_np(whole),
+                   local=tuple(local["ff1"]["w"].shape) if "ff1" in local else
+                   tuple(local["moe"]["ff1"]["w"].shape))
+        out[name] = _same_on_every_rank(res)
+    return out
+
+
+def cli_mains(argvs):
+    """``cli.main(argv)`` for each argv in turn, in every rank; each argv's
+    standard output of every rank, in rank order."""
+    out = []
+    for argv in argvs:
+        mine = cli_main(argv)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out.append(every)
+    return out

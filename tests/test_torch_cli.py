@@ -453,6 +453,29 @@ def test_cli_train_dp_starts_a_rank_per_card(workspaces, monkeypatch):
     assert kw == {"device": torch.device("cuda")}
 
 
+@pytest.mark.parametrize("flags,ranks", [(["--dp", "2", "--tp", "2"], 4),
+                                         (["--moe-experts", "4", "--ep", "2"], 2)])
+def test_cli_train_verdict_starts_dp_tp_ep_ranks(workspaces, monkeypatch, flags, ranks):
+    """Outside a process group, ``train-verdict --dp/--tp/--ep`` starts
+    ``dp * tp * ep`` ranks through ``parallel/launch.py``, each running
+    ``cmd_train_verdict`` with the same arguments, and refuses more ranks
+    than there are devices with the reference's message."""
+    from ircl_tpu_torch.parallel import launch as t_launch
+
+    _, cfg = workspaces["t"]
+    calls = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(t_launch, "launch",
+                        lambda fn, n, *a, **kw: calls.append((fn, n, a, kw)))
+    t_cli.main(["--device", "cuda", "--config", cfg, "train-verdict", *flags])
+    ((fn, n, (args,), kw),) = calls
+    assert fn is t_cli.cmd_train_verdict and n == ranks
+    assert kw == {"device": torch.device("cuda")}
+    with pytest.raises(SystemExit, match="dp\\*tp\\*ep=8 exceeds 4 devices"):
+        t_cli.main(["--device", "cuda", "--config", cfg, "train-verdict", *flags,
+                    "--dp", "4"])
+
+
 def test_cli_train_dp_on_one_device_trains_single_device(workspaces, capsys):
     _, cfg = workspaces["t"]
     run_t(["--config", cfg, *TINY, "train", "--steps", "2", "--log-step", "2",
@@ -462,25 +485,86 @@ def test_cli_train_dp_on_one_device_trains_single_device(workspaces, capsys):
     assert "finished at step 2" in out
 
 
+MESH_FLAGS = {"flags1": ["--dp", "2"], "flags2": ["--tp", "2"],
+              "flags4": ["--moe-experts", "4", "--ep", "2"]}
+
+
+def _own_config(workspace_cfg, root, name):
+    """A copy of a workspace's config writing into ``root/name``."""
+    own = json.load(open(workspace_cfg))
+    own["ckptdir"], own["logdir"] = f"{root}/{name}ckpt", f"{root}/{name}log"
+    path = f"{root}/{name}cfg.json"
+    json.dump(own, open(path, "w"))
+    return path
+
+
+@pytest.fixture(scope="module")
+def verdict_ranks(workspaces, tmp_path_factory):
+    """``train-verdict`` with each of ``MESH_FLAGS`` over 2 gloo ranks on the
+    CPU (each rank runs ``cli.main`` as ``torchrun`` would start it), in
+    one launch; every rank's standard output by case, and the configs."""
+    from _torch_ranks import cli_mains
+    from ircl_tpu_torch.parallel.launch import launch
+
+    root = str(tmp_path_factory.mktemp("verdict_ranks"))
+    configs = {name: _own_config(workspaces["t"][1], root, name) for name in MESH_FLAGS}
+    argvs = [["--device", "cpu", "--config", configs[name], "train-verdict",
+              *VERDICT_FLAGS, *flags] for name, flags in MESH_FLAGS.items()]
+    outs = launch(cli_mains, 2, argvs, device="cpu", timeout=300.0)
+    return dict(zip(MESH_FLAGS, outs)), configs, root
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--pp", "2", "--dp", "2", "--layers", "2"], "item 12"),
-    (["--dp", "2"], "item 12"),
-    (["--tp", "2"], "item 12"),
+    (["--dp", "2"], "ranks"),
+    (["--tp", "2"], "ranks"),
     (["--moe-experts", "4"], None),  # runs: the MoE FFN is ported
-    (["--moe-experts", "4", "--ep", "2"], "item 12"),
+    (["--moe-experts", "4", "--ep", "2"], "ranks"),
 ], ids=[  # the cases' names from when --moe-experts raised item 9
     "flags0-item 12", "flags1-item 12", "flags2-item 12", "flags3-item 9",
     "flags4-item 9",
 ])
-def test_train_verdict_mesh_and_moe_raise(workspaces, flags, match, tmp_path, capsys):
-    """The mesh flags raise item 12. ``--moe-experts 4`` trains in both
-    packages, into checkpoints of their own: equal ``verdict_config.json``
-    files, the port's checkpoint evaluates, and with the reference's trained
-    MoE weights carried into it both packages report alike."""
-    if match is not None:
+def test_train_verdict_mesh_and_moe_raise(workspaces, flags, match, tmp_path, capsys,
+                                          request):
+    """``--pp`` raises item 12. ``--dp 2``, ``--tp 2`` and ``--moe-experts 4
+    --ep 2`` (once item 12's raises) train over 2 ranks, as the reference
+    trains over its mesh: one history line, from rank 0, of the
+    reference's epochs; the reference's ``verdict_config.json``; and the
+    history and the checkpoint of the port's single-device run of the same
+    command (train loss rtol 2e-5, validation F1 equal, parameters rtol
+    5e-4, atol 5e-6). ``--moe-experts 4`` trains in both packages, into
+    checkpoints of their own: equal ``verdict_config.json`` files, the
+    port's checkpoint evaluates, and with the reference's trained MoE
+    weights carried into it both packages report alike."""
+    if match == "item 12":
         _, cfg = workspaces["t"]
         with pytest.raises(NotImplementedError, match=match):
             run_t(["--config", cfg, "train-verdict", *VERDICT_FLAGS[:2], *flags])
+        return
+    if match == "ranks":
+        name = request.node.callspec.id.split("-")[0]
+        outs, configs, root = request.getfixturevalue("verdict_ranks")
+        printed = [o.strip().splitlines() for o in outs[name]]
+        assert [len(p) for p in printed] == [1, 0]  # rank 0 alone prints
+        history = json.loads(printed[0][0])
+        j_cfg = _own_config(workspaces["j"][1], root, f"j{name}")
+        j_cli.main(["--config", j_cfg, "train-verdict", *VERDICT_FLAGS, *flags])
+        want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        single_flags = [f for f in flags if f not in ("--dp", "--tp", "--ep", "2")]
+        t_cfg = _own_config(workspaces["t"][1], root, f"single{name}")
+        run_t(["--config", t_cfg, "train-verdict", *VERDICT_FLAGS, *single_flags])
+        single = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert [h["epoch"] for h in history] == [h["epoch"] for h in want] == [0, 1]
+        for g, s in zip(history, single):
+            np.testing.assert_allclose(g["train_loss"], s["train_loss"], rtol=2e-5)
+            assert g["val_macro_f1"] == s["val_macro_f1"]
+        metas = [json.load(open(f"{root}/{n}ckpt/verdict_config.json"))
+                 for n in (name, f"j{name}")]
+        assert metas[0] == metas[1]
+        mine, ref = (torch.load(f"{root}/{n}ckpt/verdict_params.pt", weights_only=True)
+                     for n in (name, f"single{name}"))
+        for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(ref)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4, atol=5e-6)
         return
     metas, configs = {}, {}
     for name, run in (("j", j_cli.main), ("t", run_t)):

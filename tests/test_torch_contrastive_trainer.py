@@ -42,6 +42,7 @@ from ircl_tpu_torch.models import featurizer as t_feat
 from ircl_tpu_torch.pipeline import intrinsic as t_intr
 from ircl_tpu_torch.utils import checkpoint as t_ckpt
 from ircl_tpu_torch.utils import convert
+from ircl_tpu_torch.utils.tree import tree_leaves
 
 LR = 1e-3
 ENC = dict(input_size=16, hidden_size=8, output_size=8, num_layers=1)
@@ -229,10 +230,18 @@ def test_checkpoint_round_trip_and_refusals(tmp_path):
     with pytest.raises(ValueError):  # another queue size
         t_ckpt.restore_state(path, t_state.init_train_state(
             4, _configs(optimizer="sgd", queue_size=32)[1], device="cpu"))
-    for fn in (lambda: t_ckpt.save_sharded(str(tmp_path), {}),
-               lambda: t_ckpt.restore_sharded(str(tmp_path), {})):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+    # the sharded checkpoint without a mesh: whole tensors in this process
+    # (the ranks' layouts: tests/test_torch_sharded_checkpoint.py)
+    tree = {"params": st.params_q, "opt": st.opt_state}
+    path = t_ckpt.save_sharded(str(tmp_path / "sharded"), tree)
+    like = {"params": t_state.init_train_state(4, cfg, device="cpu").params_q,
+            "opt": t_state.init_train_state(4, cfg, device="cpu").opt_state}
+    before = [t.clone() for t in tree_leaves(like) if isinstance(t, torch.Tensor)]
+    back = t_ckpt.restore_sharded(path, like)
+    for a, b in zip(tree_leaves(back), tree_leaves(tree)):
+        assert torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b
+    after = [t for t in tree_leaves(like) if isinstance(t, torch.Tensor)]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))  # like is untouched
 
 
 @pytest.mark.parametrize("loss", ["ProtoNCE", "HProtoNCE"])

@@ -302,13 +302,91 @@ def test_unported_transformer_options_raise(case):
     assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
 
 
+def _layer_case(t_cfg, layer, specs, axes, kwargs, seed):
+    """A 2-rank case of ``_torch_ranks.layer_parity`` for block 0 of
+    ``layer``'s tree, with its inputs and the full block's results."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(3, 16, 64)).astype(np.float32)
+    w = rng.normal(size=(3, 16, 64)).astype(np.float32)
+    mask = np.zeros((3, 16), np.float32)
+    for b, n in enumerate([16, 9, 2]):
+        mask[b, :n] = 1.0
+    views = jax.tree.map(lambda a: torch.tensor(a).requires_grad_(), layer)
+    xt = torch.tensor(x).requires_grad_()
+    ctx = t_tf.attention_mask_inputs(t_cfg, _t(mask))
+    y = t_tf.transformer_block(xt, views, t_cfg, ctx, moe_mask=_t(mask))
+    y, aux = y if isinstance(y, tuple) else (y, None)
+    loss = (y * _t(w)).sum() + (0.0 if aux is None else aux)
+    leaves = jax.tree.leaves(views)
+    grads = torch.autograd.grad(loss, [xt] + leaves)
+    want = dict(y=y.detach().numpy(), aux=None if aux is None else float(aux.detach()),
+                grad_x=grads[0].numpy(),
+                grads=jax.tree.unflatten(jax.tree.structure(views),
+                                         [g.numpy() for g in grads[1:]]))
+    case = dict(layer="block", cfg=t_cfg, params=layer, specs=specs, axes=axes,
+                kwargs=kwargs, x=x, mask=mask, w=w)
+    return case, want
+
+
+@pytest.fixture(scope="module")
+def two_rank_blocks(tf_pair):
+    """Block 0 of the dense transformer over a 2-rank ``model`` axis and of
+    the MoE transformer over a 2-rank ``expert`` axis, in one launch."""
+    from _torch_ranks import layer_parity
+    from ircl_tpu_torch.parallel.launch import launch
+
+    _, t_cfg, j_params, _, _, _ = tf_pair
+    moe = dict(num_experts=4, top_k=2, capacity_factor=2.0)
+    jm_cfg = j_tf.TransformerConfig(**TF_KW, moe=j_moe.MoEConfig(**moe))
+    tm_cfg = t_tf.TransformerConfig(**TF_KW, moe=t_moe.MoEConfig(**moe))
+    rng = np.random.default_rng(9)  # MoE biases off zero as well
+    jm = jax.tree.map(lambda a: np.asarray(a) + np.float32(0.05) * rng.normal(
+        size=a.shape).astype(np.float32),
+        j_tf.init_transformer_params(jax.random.PRNGKey(8), jm_cfg))
+    cases, wants = {}, {}
+    cases["model_axis"], wants["model_axis"] = _layer_case(
+        t_cfg, _np_tree(j_params["layers"][0]), "tp", {"model": 2},
+        {"model_axis": "model"}, 1)
+    cases["expert_axis"], wants["expert_axis"] = _layer_case(
+        tm_cfg, _np_tree(jm["layers"][0]), "ep", {"expert": 2},
+        {"expert_axis": "expert"}, 2)
+    return launch(layer_parity, 2, cases, device="cpu", timeout=300.0), wants
+
+
 @pytest.mark.parametrize("axis", ["model_axis", "expert_axis", "seq_axis"])
-def test_explicit_collective_axes_wait_for_item_12(tf_pair, axis):
-    _, t_cfg, _, t_params, ids, mask = tf_pair
-    x = torch.zeros(1, 4, 64)
-    ctx = t_tf.attention_mask_inputs(t_cfg, torch.ones(1, 4))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_tf.transformer_block(x, t_params["layers"][0], t_cfg, ctx, **{axis: "x"})
+def test_explicit_collective_axes_wait_for_item_12(tf_pair, axis, request):
+    """Once a raise naming ROADMAP.md queue 1 item 12 for all three axes.
+    ``model_axis``: block 0 with its q/k/v/ff1 column-sharded and o/ff2
+    row-sharded over 2 gloo ranks; ``expert_axis``: the MoE block with 2 of
+    its 4 experts a rank. Each equals the full block: its output, the
+    gradient of its input, and every parameter's gradient gathered whole
+    (f32 sums in another order, ``ATOL``); both ranks return the same bits.
+    ``seq_axis`` (context parallelism) still waits for item 12."""
+    _, t_cfg, _, t_params, _, _ = tf_pair
+    if axis == "seq_axis":
+        x = torch.zeros(1, 4, 64)
+        ctx = t_tf.attention_mask_inputs(t_cfg, torch.ones(1, 4))
+        with pytest.raises(NotImplementedError, match="item 12"):
+            t_tf.transformer_block(x, t_params["layers"][0], t_cfg, ctx, seq_axis="x")
+        return
+    got, wants = request.getfixturevalue("two_rank_blocks")
+    got, want = got[axis], wants[axis]
+    assert got["local"] == ((64, 48) if axis == "model_axis" else (2, 64, 96))
+    for key in ("y", "grad_x"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=ATOL, err_msg=key)
+    for (name, g), w in zip(_named(got["grads"]), jax.tree.leaves(want["grads"])):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL, err_msg=name)
+    if axis == "expert_axis":
+        assert got["aux"] == pytest.approx(want["aux"], rel=1e-6)
+
+
+def _named(tree, prefix=""):
+    """``(path, leaf)`` in ``jax.tree.leaves``' order (dicts by sorted key)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
 
 
 def test_from_huggingface_names_the_missing_files():

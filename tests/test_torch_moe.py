@@ -253,13 +253,59 @@ def test_init_draws_expert_leading_weights():
     assert not got["ff1"]["b"].any() and not got["ff2"]["b"].any()
 
 
+@pytest.fixture(scope="module")
+def two_rank_moe():
+    """``moe_ffn`` over 2 gloo ranks: the EP hook on a ``("data", "expert")``
+    mesh and ``expert_axis`` (2 of 4 experts a rank), and ``model_axis``
+    (every expert's ff1 columns and ff2 rows halved), in one launch; beside
+    them the whole layer's output, aux and gradients."""
+    from _torch_ranks import layer_parity
+    from ircl_tpu_torch.parallel.launch import launch
+
+    ecfg = t_moe.MoEConfig(num_experts=4, top_k=2, capacity_factor=1.0)
+    rng = np.random.default_rng(4)
+    p = _np_tree(j_moe.init_moe_ffn_params(jax.random.PRNGKey(3), 16, 32, 4))
+    p = jax.tree.map(lambda a: a + np.float32(0.05) * rng.normal(size=a.shape).astype(
+        np.float32), p)  # biases off zero: ff2.b is added on model rank 0 alone
+    p["router"]["w"] = p["router"]["w"] * np.float32(20.0)  # routes far from ties
+    x = rng.normal(size=(2, 16, 16)).astype(np.float32)
+    w = rng.normal(size=(2, 16, 16)).astype(np.float32)
+    mask = np.ones((2, 16), np.float32)
+    mask[1, 11:] = 0.0
+    views = jax.tree.map(lambda a: torch.tensor(a).requires_grad_(), p)
+    xt = torch.tensor(x).requires_grad_()
+    y, aux = t_moe.moe_ffn(xt, views, ecfg, mask=_t(mask))
+    grads = torch.autograd.grad((y * _t(w)).sum() + aux, [xt] + jax.tree.leaves(views))
+    want = dict(y=y.detach().numpy(), aux=float(aux.detach()), grad_x=grads[0].numpy(),
+                grads=[g.numpy() for g in grads[1:]])
+    base = dict(layer="moe", cfg=ecfg, params=p, x=x, mask=mask, w=w)
+    cases = {
+        "ep_constrain": dict(base, specs="ep", axes={"data": 1, "expert": 2},
+                             kwargs={"ep_constrain": "hook"}),
+        "expert_axis": dict(base, specs="ep", axes={"expert": 2},
+                            kwargs={"expert_axis": "expert"}),
+        "model_axis": dict(base, specs="tp_moe", axes={"model": 2},
+                           kwargs={"model_axis": "model"}),
+    }
+    return launch(layer_parity, 2, cases, device="cpu", timeout=300.0), want
+
+
 @pytest.mark.parametrize("what", ["ep_constrain", "model_axis", "expert_axis"])
-def test_expert_parallel_hooks_wait_for_item_12(what):
-    x = torch.zeros(1, 4, 16)
-    p = t_moe.init_moe_ffn_params(torch.Generator().manual_seed(0), 16, 32, 4, "cpu")
-    arg = (lambda t: t) if what == "ep_constrain" else "expert"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_moe.moe_ffn(x, p, t_moe.MoEConfig(num_experts=4), **{what: arg})
+def test_expert_parallel_hooks_wait_for_item_12(two_rank_moe, what):
+    """Once a raise naming ROADMAP.md queue 1 item 12, now the hooks'
+    parity on 2 ranks: ``make_ep_constrainer(mesh)`` and ``expert_axis``
+    (each rank its 2 experts, the combine summed over ``expert``) and
+    ``model_axis`` (each expert's FFN Megatron-sharded, ``ff2.b`` added on
+    rank 0 alone) equal the whole layer: output, aux, the gradient of the
+    input and of every parameter (f32 sums in another order)."""
+    got, want = two_rank_moe
+    got = got[what]
+    assert got["local"] == ((2, 16, 32) if what != "model_axis" else (4, 16, 16))
+    for key in ("y", "grad_x"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-6, err_msg=key)
+    assert got["aux"] == pytest.approx(want["aux"], rel=1e-6)
+    for g, w in zip(jax.tree.leaves(got["grads"]), want["grads"]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
 
 
 # -- the MoE transformer and verdict model -----------------------------------

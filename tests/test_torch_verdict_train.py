@@ -396,20 +396,40 @@ def test_trainer_options(toy, tmp_path):
 
 
 def test_what_is_not_ported_raises(toy):
+    """Once three raises naming ROADMAP.md queue 1 item 12. ``mesh=`` that
+    is not a mesh is refused with ``TypeError``; a ``"stage"`` mesh
+    (pipeline parallelism) still waits for item 12; an activation hook
+    (``constrain``) and a hook on the expert slabs (``ep_constrain``) run,
+    and the identity leaves the forward and the step as they are."""
+    from unittest import mock
+
+    from torch.distributed.device_mesh import DeviceMesh
+
     tok, _, t_cfg = toy
     ids, mask, types, labels = _toy_dataset(tok, n=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_train.train_verdict(t_cfg, ids, mask, types, labels, mesh=object(),
                               device="cpu")
+    stage = mock.Mock(spec=DeviceMesh)  # a mesh object, without a process group
+    stage.mesh_dim_names = ("stage", "data")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        t_train.train_verdict(t_cfg, ids, mask, types, labels, mesh=stage, device="cpu")
     params = t_model.init_verdict_params(torch.Generator().manual_seed(0), t_cfg, "cpu")
     args = (params, t_cfg, torch.from_numpy(ids).long(), torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_model.verdict_apply_with_aux(*args, constrain=lambda x: x)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_model.make_verdict_train_step(t_cfg, ep_constrain=lambda x: x, device="cpu")[0](
-            params, None, 0, ids, mask, types, labels)
+    seen = []
+    hooked, _ = t_model.verdict_apply_with_aux(
+        *args, constrain=lambda x: seen.append(x.shape) or x)
     logits, aux = t_model.verdict_apply_with_aux(*args)
-    assert logits.shape == (8, 2) and float(aux) == 0.0
+    assert torch.equal(hooked, logits) and logits.shape == (8, 2) and float(aux) == 0.0
+    assert len(seen) == 1 + t_cfg.encoder.layers  # after the embedding, each block
+    runs = []
+    for hook in (None, lambda x: x):
+        p = tree_map(torch.clone, params)
+        step, tx = t_model.make_verdict_train_step(t_cfg, ep_constrain=hook, device="cpu")
+        _, _, loss, _ = step(p, tx.init(p), 0, ids, mask, types, labels)
+        runs.append((float(loss), tree_leaves(p)))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 @pytest.mark.parametrize("n,batch_size", [(11, 4), (8, 4), (3, 32), (0, 4)])
