@@ -170,6 +170,22 @@ Phases, each printed as it runs:
     step 2 from there, held to the uninterrupted run. Each rank counts its
     launches of #6a-#6c and fails if it loaded JAX; wall ms a step of each
     beside the single-device step, with the card's name and power limit.
+28. pipeline and context parallelism of the verdict model (phase 14's model
+    with the "xla" attention, which both refuse flash as the reference
+    does; B=8, L=512, no freeze, no warmup): (a) one NCCL rank in this
+    process, a (1, 1) ``("data", "stage")`` mesh for 2 GPipe steps of 4
+    microbatches and a (1, 1) ``("data", "seq")`` mesh for one forward and
+    2 steps; (b) PP(2) on two gloo ranks sharing the card, 6 layers a
+    stage, and (c) CP(2), L_local = 256, the ring's blocks and gradients
+    passed through the host (gloo), in the same launch; (d) PP(2) x DP(2)
+    on four ranks at 2 layers, ``save_sharded`` after step 1,
+    ``restore_sharded`` into a fresh layout, ``restack_pp_params`` onto one
+    stage with every layer's bits, and step 2 from the restored state
+    against the uninterrupted one. Each is held to the single-device step:
+    step 0's gradient within 1e-4 of each leaf's largest element, losses
+    rtol 1e-5, parameters rtol 5e-4 / atol 5e-6 apart from Adam's sign
+    noise, and CP's logits to ``verdict_apply``'s (rtol 2e-5, atol 2e-6);
+    wall ms a step of each, with the card's name and power limit.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -189,6 +205,8 @@ sharded scorers must launch #1 and #2 in this process and in every rank
 (each rank counts its own and reports it), and nothing else. Before phase
 27 every count is zeroed once more: #6a-#6c must run in (a)'s sharded steps
 and in every rank of (b)-(d), and no other kernel anywhere in the phase.
+Before phase 28 every count is zeroed again and must stay 0, in this
+process and in every rank: its path runs no counted kernel.
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -4108,17 +4126,18 @@ def timed_step(step, p, o, i, batch):
     return p, o, float(loss), 1e3 * (time.perf_counter() - t0)
 
 
-def mp_reference(cfg, seed, batch, dev, steps, path, grads=False, aux=False, keep=()):
+def mp_reference(cfg, seed, batch, dev, steps, path, grads=False, aux=False, keep=(),
+                 logits=False):
     """The single-device step on the card from ``mp_init(cfg)``: written to
     ``path`` for the ranks (losses, the parameters after the last step and
-    after each step in ``keep``, step 0's gradients, the aux at the start),
-    with the median wall ms a step."""
+    after each step in ``keep``, step 0's gradients, the aux and the
+    logits at the start), with the median wall ms a step."""
     import torch
 
     from ircl_tpu_torch.utils.convert import to_device
     from ircl_tpu_torch.utils.tree import tree_map
     from ircl_tpu_torch.verdict.model import (
-        make_verdict_grad_fn, make_verdict_train_step, verdict_apply_with_aux,
+        make_verdict_grad_fn, make_verdict_train_step, verdict_apply, verdict_apply_with_aux,
     )
 
     p = to_device(mp_init(cfg, seed), dev)
@@ -4130,6 +4149,8 @@ def mp_reference(cfg, seed, batch, dev, steps, path, grads=False, aux=False, kee
     if aux:
         with torch.no_grad():
             ref["aux"] = float(verdict_apply_with_aux(p, cfg, *batch[:3])[1])
+    if logits:
+        ref["logits"] = verdict_apply(p, cfg, *batch[:3]).cpu()
     step, tx = make_verdict_train_step(cfg, device=dev)
     o = tx.init(p)
     losses, ms = [], []
@@ -4455,6 +4476,386 @@ def phase27_model_parallel(dev, tok, pairs, tmpdir, smi, model=None):
         f"{ref_losses['tpdp'][1]:.1f}, (d) TP(2) x DP(2) {out4['ms']:.1f}")
     log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
     return launches_a, [lc for lc, _, _ in every2] + [lc for lc, _, _ in every4]
+
+
+# ---- phase 28: pipeline and context parallelism of the verdict model -------------
+
+PC_STEPS, PC_MICRO = 2, 4  # steps against one device; microbatches a pipeline step
+PC_DP_LAYERS = 2  # (d)'s model: phase 14's width, 2 layers
+PC_LOSS_RTOL = 1e-5  # losses against the single-device step
+PC_LOGIT_RTOL, PC_LOGIT_ATOL = 2e-5, 2e-6  # tests/test_cp.py's forward gate
+PC_ADAM_SHARE = 1e-5  # of a leaf's elements may differ by Adam's sign noise (below)
+PC_MODEL = dict(MP_MODEL, encoder=dict(VERDICT_ENCODER, attention="xla"))  # PP and CP
+#   refuse flash, as the reference's do
+
+
+def pc_loss_check(label, losses, want):
+    if not np.allclose(losses, want, rtol=PC_LOSS_RTOL, atol=0):
+        fail(f"phase 28: {label}: losses {losses} against {want} (rtol {PC_LOSS_RTOL})")
+
+
+def pc_logit_gap(logits, want):
+    """Fail-free: (within the forward gate, largest difference)."""
+    import torch
+
+    got = logits.detach().cpu()
+    return (bool(torch.allclose(got, want, rtol=PC_LOGIT_RTOL, atol=PC_LOGIT_ATOL)),
+            float((got - want).abs().max()))
+
+
+def pc_pipeline(cfg, mesh, init, batch, ref, steps, save=None):
+    """``steps`` pipeline steps on ``mesh`` from ``init`` (pipeline layout,
+    this rank's shards and rows): losses, median wall ms a step, the gap of
+    the shards from the single-device parameters ``ref["params"]``, and
+    the state (with ``save``: written with ``save_sharded`` after that
+    many steps to ``save[1]``)."""
+    from ircl_tpu_torch.parallel import pp, tp
+    from ircl_tpu_torch.utils.checkpoint import save_sharded
+
+    stages = mesh["stage"].size()
+    pp0 = pp.pp_verdict_params(init, stages)
+    specs = pp.pp_verdict_specs(pp0, mesh)
+    step, tx = pp.make_pp_verdict_train_step(cfg, mesh, PC_MICRO)
+    p = tp.shard_tree(pp0, specs, mesh)
+    o = tp.init_sharded_opt_state(tx, p, mesh, specs)
+    placed = tp.shard_batch(mesh, *batch)
+    grads, losses, ms = None, [], []
+    for i in range(steps):
+        if i == 0 and "grads" in ref:  # the step's two halves, to read its gradient
+            loss, _, g = pp.make_pp_verdict_grad_fn(cfg, mesh, PC_MICRO)(p, *placed)
+            grads = mp_grad_gap(g, pp.pp_verdict_params(ref["grads"], stages), specs, mesh)
+            tx.update_(p, g, o, body=("embed", "stages"))  # no freeze (mp_config)
+            losses.append(float(loss))
+            ms.append(float("nan"))  # untimed, as every first step
+            del g
+            continue
+        p, o, loss, t = timed_step(step, p, o, i, placed)
+        losses.append(loss)
+        ms.append(t)
+        if save and save[0] == i + 1:
+            save_sharded(save[1], {"params": p, "opt": o}, mesh=mesh,
+                         specs={"params": specs, "opt": tp.state_specs(o, p, specs)})
+    kb = 2 * cfg.learning_rate * steps  # the k/b leaves: noise under Adam (phase 27)
+    gap = pc_param_gap(p, pp.pp_verdict_params(ref["params"], stages), specs, mesh, kb)
+    return dict(losses=losses, ms=float(np.median(ms[1:] if len(ms) > 1 else ms)),
+                params=gap, grads=grads), (p, o, specs, step, tx, placed)
+
+
+def pc_context(cfg, mesh, init, batch, ref, steps, dev):
+    """One context-parallel forward on the whole batch, then ``steps``
+    steps with the verdict model's AdamW: the logits' gap from
+    ``verdict_apply``'s, losses, median wall ms a step and the parameters'
+    gap from the single-device step's."""
+    import torch
+
+    from ircl_tpu_torch.parallel import cp, tp
+    from ircl_tpu_torch.utils.tree import tree_map
+    from ircl_tpu_torch.verdict.model import make_verdict_optimizer
+
+    p = tree_map(lambda t: t.to(dev, copy=True), init)
+    logits = pc_logit_gap(cp.make_cp_verdict_forward(cfg, mesh)(p, *batch[:3]),
+                          ref["logits"])
+    step, tx = cp.make_cp_verdict_train_step(cfg, mesh, make_verdict_optimizer(cfg))
+    o = tx.init(p)
+    # step 0 in its two halves, to read its gradient through the reverse ring
+    loss, g = cp.make_cp_verdict_grad_fn(cfg, mesh)(p, *batch)
+    grads = mp_grad_gap(g, ref["grads"], tp.replicated_specs(p), mesh)
+    tx.update_(p, g, o)
+    del g
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    losses, ms = [float(loss)], []
+    for _ in range(1, steps):
+        sync()
+        t0 = time.perf_counter()
+        p, o, loss = step(p, o, *batch)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    kb = 2 * cfg.learning_rate * steps
+    gap = pc_param_gap(p, ref["params"], tp.replicated_specs(p), mesh, kb)
+    return dict(logits=logits, losses=losses, ms=float(np.median(ms)), params=gap,
+                grads=grads)
+
+
+def pc_rank_case(case, model, batch, dev, inits):
+    """One case of phase 28 on this rank: ``"pp"`` (with ``restore``: the
+    sharded checkpoint, its restacking onto one stage and the resumed step)
+    or ``"cp"``. ``inits`` keeps the initial parameters drawn for a config,
+    which the cases only read."""
+    import torch
+
+    from ircl_tpu_torch.parallel import cp, pp, tp
+    from ircl_tpu_torch.utils.checkpoint import restore_sharded
+    from ircl_tpu_torch.utils.tree import tree_leaves
+
+    cfg = mp_config(model, **case["cfg"])
+    key = tuple(sorted(case["cfg"].items()))
+    if key not in inits:  # the parent's draw, where it wrote one
+        inits[key] = (torch.load(case["init"], mmap=True, weights_only=True)
+                      if case.get("init") else mp_init(cfg, model["seed"]))
+    init = inits[key]
+    ref = torch.load(case["ref"], mmap=True, weights_only=True)
+    if case["kind"] == "cp":
+        mesh = cp.make_cp_mesh(seq=case["seq"], data=1, device=dev)
+        return pc_context(cfg, mesh, init, batch, ref, case["steps"], dev)
+    mesh = pp.make_pp_mesh(case["stages"], data=case.get("data", 1), device=dev)
+    save = (case["save_after"], case["ckpt"]) if case.get("restore") else None
+    out, (p, o, specs, step, tx, placed) = pc_pipeline(cfg, mesh, init, batch, ref,
+                                                       case["steps"], save)
+    if case.get("restore"):  # a fresh layout, read back; then the remaining steps
+        fresh = tp.shard_tree(pp.pp_verdict_params(init, case["stages"]), specs, mesh)
+        state = tp.init_sharded_opt_state(tx, fresh, mesh, specs)
+        back = restore_sharded(case["ckpt"], {"params": fresh, "opt": state}, mesh=mesh,
+                               specs={"params": specs, "opt": tp.state_specs(state, fresh,
+                                                                              specs)})
+        whole = tp.gather_tree(back["params"], specs, mesh)
+        one = pp.restack_pp_params(whole, 1)
+        kept = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(pp.unstack_layer_params(one["stages"])),
+            tree_leaves(pp.unstack_layer_params(whole["stages"]))))
+        q, s = back["params"], back["opt"]
+        count, losses = s["count"], []
+        for i in range(case["save_after"], case["steps"]):
+            q, s, loss, _ = timed_step(step, q, s, i, placed)
+            losses.append(loss)
+        far = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(q), tree_leaves(p)))
+        out["restored"] = dict(count=count, losses=losses, largest=far, layers_kept=kept,
+                               restacked=tuple(one["stages"]["q"]["w"].shape),
+                               uninterrupted=out["losses"][case["save_after"]:])
+    del p, o
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_pipeline_context(spec):
+    """A rank of phase 28: its cases, and every rank's results, launches of
+    #6a-#6c (none: the pipeline and the ring run the "xla" attention) and
+    loaded JAX modules, gathered to rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from ircl_tpu_torch.ops.flash_attention_cuda import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    )
+
+    started = time.time()  # the wall clock the parent shares: the ranks' start-up
+    counters = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    for fn in counters:
+        fn.launches = 0
+    dev = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
+           else torch.device("cpu"))
+    batch = tuple(torch.as_tensor(x) for x in spec["batch"])
+    out, inits = {}, {}
+    for case in spec["cases"]:
+        t0 = time.perf_counter()
+        out[case["name"]] = pc_rank_case(case, spec["model"], batch, dev, inits)
+        out[case["name"]]["seconds"] = time.perf_counter() - t0
+    out["started"] = started
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, ([fn.launches for fn in counters], out, jax_modules()))
+    return every
+
+
+def pc_param_gap(local, whole, specs, mesh, adam_atol):
+    """This rank's shards against the same slices of the single-device
+    parameters after the same steps: (ok, largest difference, the elements
+    outside rtol MP_PARAM_RTOL, atol MP_PARAM_ATOL by leaf: (leaf, count,
+    of, largest difference, its value)). Adam moves an element whose
+    gradient is at the level of f32 noise by up to the learning rate a step
+    whatever the noise's sign (phase 14's rule), so the gradient's summation
+    order (microbatches, the ring) may move it by up to ``adam_atol``; at
+    most PC_ADAM_SHARE of a leaf's elements (at least one) may do so, and
+    the k/b leaves, whose gradient is zero in exact arithmetic, all of
+    theirs, as phase 27 holds them. Every other element meets the gates."""
+    import torch
+
+    from ircl_tpu_torch.parallel.tp import shard_tree
+
+    want = shard_tree(whole, specs, mesh)
+    ok, far, outside = True, 0.0, []
+    for (name, a), (_, b) in zip(named_leaves(local), named_leaves(want)):
+        d = (a - b).abs()
+        if name.endswith("/k/b"):
+            ok &= float(d.max()) <= adam_atol
+            continue
+        far = max(far, float(d.max()))
+        bad = d > MP_PARAM_ATOL + MP_PARAM_RTOL * b.abs()
+        if bool(bad.any()):
+            n = int(bad.sum())
+            ok &= n <= max(1, int(PC_ADAM_SHARE * b.numel())) and float(d.max()) <= adam_atol
+            i = int(torch.argmax(torch.where(bad, d, torch.zeros_like(d))))
+            outside.append((name, n, b.numel(), float(d.flatten()[i]),
+                            float(b.flatten()[i])))
+    return ok, far, outside
+
+
+def pc_params_check(label, gap):
+    ok, far, outside = gap
+    if not ok:
+        fail(f"phase 28: {label}: parameters outside rtol {MP_PARAM_RTOL}, atol "
+             f"{MP_PARAM_ATOL} of the single-device step's beyond Adam's sign noise "
+             f"(largest difference {far}): {outside[:12]}")
+    return far, outside
+
+
+def pc_grads_check(label, gap):
+    (worst, leaf), noise = gap
+    if worst > MP_GRAD_RTOL or noise > MP_NOISE_ATOL:
+        fail(f"phase 28: {label}: step 0's gradient {worst} of {leaf}'s largest element "
+             f"(bound {MP_GRAD_RTOL}), k/b noise {noise} (bound {MP_NOISE_ATOL})")
+    return worst
+
+
+def phase28_pipeline_context(dev, tok, pairs, tmpdir, smi, model=None):
+    """Pipeline and context parallelism of the verdict model on the card,
+    phase 14's model with the "xla" attention (PP and CP refuse flash): (a)
+    one NCCL rank in this process, a (1, 1) ``("data", "stage")`` mesh for
+    2 pipeline steps of 4 microbatches and a (1, 1) ``("data", "seq")``
+    mesh for one forward and 2 steps; (b) PP(2) on two gloo ranks sharing
+    the card, 6 layers a stage, and (c) CP(2), L_local = 256, in the same
+    launch; (d) PP(2) x DP(2) on four ranks at 2 layers, saved sharded after
+    step 1, restored, restacked onto one stage and stepped once more. Each
+    is held to the single-device step. Returns the launches of #6a-#6c by
+    rank, which must all be 0."""
+    import tempfile as _tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ircl_tpu_torch.parallel import cp, pp
+    from ircl_tpu_torch.parallel.launch import launch
+
+    model = model or PC_MODEL
+    t_phase = time.perf_counter()
+    np_batch = train_batch(tok, pairs, range(3, 3 + TRAIN_BATCH), 14)  # phase 14's
+    batch = batch_tensors(np_batch, dev)
+    cfg = mp_config(model)
+    enc = cfg.encoder
+    log(f"phase 28: verdict model {enc.layers} x {enc.hidden}, {enc.heads} heads, "
+        f"{enc.attention}, B={TRAIN_BATCH}, L={np_batch[0].shape[1]}; no freeze, no warmup; "
+        f"{PC_MICRO} microbatches a pipeline step")
+    ref_path, ref_d = f"{tmpdir}/pc_ref.pt", f"{tmpdir}/pc_ref_d.pt"
+    ref_losses, ms_one = mp_reference(cfg, model["seed"], batch, dev, PC_STEPS, ref_path,
+                                      grads=True, logits=True)
+    ref_losses_d, ms_one_d = mp_reference(mp_config(model, layers=PC_DP_LAYERS),
+                                          model["seed"], batch, dev, PC_STEPS, ref_d)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    t_a = time.perf_counter()
+    log(f"phase 28: single-device references in {t_a - t_phase:.1f} s")
+
+    # ---- (a) one NCCL rank in this process, (1, 1) meshes ----
+    init = mp_init(cfg, model["seed"])
+    init_path = f"{tmpdir}/pc_init.pt"  # read by (b)-(c)'s ranks in place of a draw each
+    torch.save(init, init_path)
+    rdv = _tempfile.mkdtemp(prefix="ircl_nccl_", dir=tmpdir)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}/rendezvous", rank=0, world_size=1)
+    try:
+        a_pp, _ = pc_pipeline(cfg, pp.make_pp_mesh(1, data=1, device=dev), init, batch, ref,
+                              PC_STEPS)
+        a_cp = pc_context(cfg, cp.make_cp_mesh(seq=1, data=1, device=dev), init, batch,
+                          ref, PC_STEPS, dev)
+        del init
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    pc_loss_check("(a) PP on a (1, 1) mesh", a_pp["losses"], ref_losses)
+    g_a = pc_grads_check("(a) PP on a (1, 1) mesh", a_pp["grads"])
+    far_a = pc_params_check("(a) PP on a (1, 1) mesh", a_pp["params"])
+    if not a_cp["logits"][0]:
+        fail(f"phase 28: (a) CP forward on a (1, 1) mesh: logits {a_cp['logits'][1]} from "
+             f"verdict_apply's (rtol {PC_LOGIT_RTOL}, atol {PC_LOGIT_ATOL})")
+    pc_loss_check("(a) CP on a (1, 1) mesh", a_cp["losses"], ref_losses)
+    g_ac = pc_grads_check("(a) CP on a (1, 1) mesh", a_cp["grads"])
+    far_ac = pc_params_check("(a) CP on a (1, 1) mesh", a_cp["params"])
+    log(f"phase 28: (a) 1 NCCL rank: PP (1, 1) step 0's gradient within {g_a:.3g} of each "
+        f"leaf's largest element (bound {MP_GRAD_RTOL}), {PC_STEPS} steps' losses "
+        f"{a_pp['losses']} against {ref_losses} (rtol {PC_LOSS_RTOL}), parameters within "
+        f"rtol {MP_PARAM_RTOL}, atol {MP_PARAM_ATOL} but for Adam's sign noise {far_a[1]} "
+        f"(largest difference {far_a[0]:.3g}); CP (1, 1) logits within "
+        f"{a_cp['logits'][1]:.3g} of verdict_apply's, gradient within {g_ac:.3g}, "
+        f"{PC_STEPS} steps' losses {a_cp['losses']}, parameters within the gates "
+        f"({far_ac[0]:.3g}; {far_ac[1]}); {time.perf_counter() - t_a:.1f} s")
+
+    # ---- (b) PP(2) and (c) CP(2): two gloo ranks on the card ----
+    t0 = time.perf_counter()
+    spec = dict(device=dev.type, model=model, batch=np_batch, cases=[
+        dict(name="pp", kind="pp", cfg={}, ref=ref_path, init=init_path, stages=2,
+             steps=PC_STEPS),
+        dict(name="cp", kind="cp", cfg={}, ref=ref_path, init=init_path, seq=2,
+             steps=PC_STEPS)])
+    t_launch = time.time()
+    try:
+        every2 = launch(rank_pipeline_context, 2, spec, device=dev, backend="gloo",
+                        timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 28: the 2-rank PP and CP run failed: {e}")
+    start2 = max(out["started"] for _, out, _ in every2) - t_launch
+    for r, (launches, out, loaded) in enumerate(every2):
+        if loaded or any(launches):
+            fail(f"phase 28: rank {r} of 2 launched {launches} and loaded {loaded}")
+        pc_loss_check(f"(b) PP(2) rank {r}", out["pp"]["losses"], ref_losses)
+        g_b = pc_grads_check(f"(b) PP(2) rank {r}", out["pp"]["grads"])
+        far_b = pc_params_check(f"(b) PP(2) rank {r}", out["pp"]["params"])
+        if not out["cp"]["logits"][0]:
+            fail(f"phase 28: (c) CP(2) rank {r}: logits {out['cp']['logits'][1]} from "
+                 f"verdict_apply's (rtol {PC_LOGIT_RTOL}, atol {PC_LOGIT_ATOL})")
+        pc_loss_check(f"(c) CP(2) rank {r}", out["cp"]["losses"], ref_losses)
+        g_c = pc_grads_check(f"(c) CP(2) rank {r}", out["cp"]["grads"])
+        far_c = pc_params_check(f"(c) CP(2) rank {r}", out["cp"]["params"])
+    out2 = every2[0][1]
+    log(f"phase 28: (b) PP(2), {enc.layers // 2} layers a stage: step 0's gradient slices "
+        f"within {g_b:.3g} of each leaf's largest element, {PC_STEPS} steps' losses "
+        f"{out2['pp']['losses']} against {ref_losses}; each rank's stage within the gates "
+        f"({far_b[0]:.3g}; Adam's sign noise {far_b[1]}); (c) CP(2), L_local = "
+        f"{np_batch[0].shape[1] // 2}: logits within {out2['cp']['logits'][1]:.3g} of "
+        f"verdict_apply's, gradient within {g_c:.3g}, {PC_STEPS} steps' losses "
+        f"{out2['cp']['losses']}, parameters within the gates ({far_c[0]:.3g}; "
+        f"{far_c[1]}); {time.perf_counter() - t0:.1f} s (the ranks up after {start2:.1f} "
+        f"s, (b) {out2['pp']['seconds']:.1f} s, (c) {out2['cp']['seconds']:.1f} s)")
+
+    # ---- (d) PP(2) x DP(2) on four ranks, the sharded checkpoint and restacking ----
+    t0 = time.perf_counter()
+    spec = dict(device=dev.type, model=model, batch=np_batch, cases=[dict(
+        name="ppdp", kind="pp", cfg={"layers": PC_DP_LAYERS}, ref=ref_d, stages=2, data=2,
+        steps=PC_STEPS, save_after=1, restore=True, ckpt=f"{tmpdir}/pc_ckpt")])
+    t_launch = time.time()
+    try:
+        every4 = launch(rank_pipeline_context, 4, spec, device=dev, backend="gloo",
+                        timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 28: the 4-rank PP x DP run failed: {e}")
+    start4 = max(out["started"] for _, out, _ in every4) - t_launch
+    for r, (launches, out, loaded) in enumerate(every4):
+        if loaded or any(launches):
+            fail(f"phase 28: rank {r} of 4 launched {launches} and loaded {loaded}")
+        d = out["ppdp"]
+        pc_loss_check(f"(d) PP(2) x DP(2) rank {r}", d["losses"], ref_losses_d)
+        far_d = pc_params_check(f"(d) PP(2) x DP(2) rank {r}", d["params"])[0]
+        back = d["restored"]
+        if (back["count"] != 1 or not back["layers_kept"]
+                or back["restacked"][:2] != (1, PC_DP_LAYERS)
+                or not np.allclose(back["losses"], back["uninterrupted"],
+                                   rtol=PC_LOSS_RTOL, atol=0)
+                or back["largest"] > MP_PARAM_ATOL + 2 * cfg.learning_rate):
+            fail(f"phase 28: (d) rank {r}: restored {back}")
+    out4 = every4[0][1]["ppdp"]
+    log(f"phase 28: (d) PP(2) x DP(2), {PC_DP_LAYERS} layers: {PC_STEPS} steps' losses "
+        f"{out4['losses']} against {ref_losses_d} ({far_d:.3g}); saved sharded after step 1, "
+        f"restored (count {out4['restored']['count']}), restacked onto one stage "
+        f"{out4['restored']['restacked']} with every layer's bits, step 2's loss "
+        f"{out4['restored']['losses']} against the uninterrupted "
+        f"{out4['restored']['uninterrupted']}, parameters within "
+        f"{out4['restored']['largest']:.3g} of it; {time.perf_counter() - t0:.1f} s (the "
+        f"ranks up after {start4:.1f} s, the case {out4['seconds']:.1f} s)")
+    log(f"phase 28: wall ms a step ({smi}; the ranks share one card and move activations, "
+        f"blocks and gradients through gloo on the host, so these times check overhead, not "
+        f"scaling): one device {ms_one:.1f}, (a) PP (1, 1) {a_pp['ms']:.1f}, CP (1, 1) "
+        f"{a_cp['ms']:.1f}, (b) PP(2) {out2['pp']['ms']:.1f}, (c) CP(2) "
+        f"{out2['cp']['ms']:.1f}; {PC_DP_LAYERS} layers one device {ms_one_d:.1f}, (d) "
+        f"PP(2) x DP(2) {out4['ms']:.1f}")
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+    return [lc for lc, _, _ in every2] + [lc for lc, _, _ in every4]
 
 
 def serve_lines(service, lines):
@@ -5066,6 +5467,16 @@ def main() -> None:
     if others:
         fail(f"phase 27 launched {others}, off the verdict model's kernels")
 
+    # ---- pipeline and context parallelism: phase 28, with fresh launch counts ---
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    pc_rank_launches = phase28_pipeline_context(dev, vtok, pairs, tmp.name, smi)
+    launches_28 = {name: fn.launches for name, fn in counted.items()}
+    launched = {name: n for name, n in launches_28.items() if n}
+    if launched:
+        fail(f"phase 28 launched {launched}: its path runs none of the counted kernels")
+
     tmp.cleanup()
     loaded = jax_modules()
     if loaded:
@@ -5141,6 +5552,9 @@ def main() -> None:
             k = flash_names.index(name)
             report[-1]["launches_tp_path"] = [mp_launches[k]] + [
                 lc[k] for lc in mp_rank_launches]
+            # phase 28: this process, then by rank, (b)-(c), (d): none
+            report[-1]["launches_pp_cp_path"] = [launches_28[name]] + [
+                lc[k] for lc in pc_rank_launches]
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

@@ -21,16 +21,17 @@ too (``torchrun --nproc-per-node 8 -m ircl_tpu_torch.cli --device cpu ...
 train --dp``); otherwise it starts one rank per visible CUDA device, and
 with one device it trains on that one.
 
-``train-verdict --dp/--tp/--ep`` trains the verdict model over a mesh of
-``dp * tp * ep`` ranks in the reference's layouts (``--ep`` needs
-``--moe-experts``): in a group of that many ranks it joins it; otherwise
-it starts that many ranks, one a CUDA device, and refuses a count past the
+``train-verdict --dp/--tp/--ep/--pp`` trains the verdict model over a mesh
+of ``dp * tp * ep * pp`` ranks in the reference's layouts (``--ep`` needs
+``--moe-experts``; ``--pp`` composes with ``--dp`` only, runs the GPipe
+schedule in ``--pp-micro`` microbatches and needs ``--layers`` to divide
+into its stages): in a group of that many ranks it joins it; otherwise it
+starts that many ranks, one a CUDA device, and refuses a count past the
 devices with the reference's message. Only rank 0 prints the history line
 and writes the checkpoint.
 
-Not ported yet, each raising ``NotImplementedError``: ``bench`` (the port
-has no benchmark, ROADMAP.md queue 1 item 4); ``train-verdict --pp`` above
-1 (pipeline parallelism, item 12).
+Not ported yet, raising ``NotImplementedError``: ``bench`` (the port has no
+benchmark, ROADMAP.md queue 1 item 4).
 
 Where the JAX package writes orbax checkpoints, the port writes its own
 (``utils/checkpoint.py``, ``verdict/infer.py``) under the same names.
@@ -320,13 +321,11 @@ def cmd_train_verdict(args):
         )
     if pp > 1 and args.layers % pp:
         raise SystemExit(f"--layers {args.layers} not divisible by --pp {pp}")
-    if pp > 1:
-        raise _not_ported(f"pipeline-parallel verdict training (--pp {pp})", 12)
     if ep > 1 and not args.moe_experts:
         raise SystemExit("--ep requires --moe-experts")
     mesh = None
-    if dp > 1 or tp > 1 or ep > 1:
-        mesh = _verdict_mesh(args, dp, tp, ep)
+    if dp > 1 or tp > 1 or ep > 1 or pp > 1:
+        mesh = _verdict_mesh(args, dp, tp, ep, pp)
         if mesh is None:  # this process started the ranks, which have run
             return None
 
@@ -384,6 +383,7 @@ def cmd_train_verdict(args):
         logdir=cfg.logdir,
         save_path=cfg.ckptdir,
         mesh=mesh,
+        pp_micro=args.pp_micro,
         device=args.device,
         tokenizer=tok,
     )
@@ -391,19 +391,21 @@ def cmd_train_verdict(args):
         print(json.dumps(history))
 
 
-def _verdict_mesh(args, dp, tp, ep):
-    """The reference's mesh for ``--dp/--tp/--ep``, over this process's
-    group; ``None`` where this process is no rank: it starts ``dp * tp *
-    ep`` ranks, each running ``cmd_train_verdict``, and returns once they
-    have."""
+def _verdict_mesh(args, dp, tp, ep, pp):
+    """The reference's mesh for ``--dp/--tp/--ep/--pp``, over this
+    process's group; ``None`` where this process is no rank: it starts
+    that many ranks, each running ``cmd_train_verdict``, and returns once
+    they have."""
     import torch
     import torch.distributed as dist
 
     from ircl_tpu_torch.parallel.ep import make_ep_mesh, make_ep_tp_mesh
     from ircl_tpu_torch.parallel.mesh import in_process_group, join_env_group
+    from ircl_tpu_torch.parallel.pp import make_pp_mesh
     from ircl_tpu_torch.parallel.tp import make_tp_mesh
 
-    want = dp * tp * ep
+    want = dp * tp * ep * pp
+    label = "dp*pp" if pp > 1 else "dp*tp*ep"
     in_group = in_process_group()
     if in_group:  # a rank of launch() or of torchrun
         join_env_group(args.device.type)
@@ -411,14 +413,16 @@ def _verdict_mesh(args, dp, tp, ep):
     else:
         n = torch.cuda.device_count() if args.device.type == "cuda" else 1
     if n < want:
-        raise SystemExit(f"dp*tp*ep={want} exceeds {n} devices")
+        raise SystemExit(f"{label}={want} exceeds {n} devices")
     if not in_group:
         from ircl_tpu_torch.parallel.launch import launch
 
         launch(cmd_train_verdict, want, args, device=args.device)
         return None
     if n != want:
-        raise SystemExit(f"dp*tp*ep={want} where the process group has {n} ranks")
+        raise SystemExit(f"{label}={want} where the process group has {n} ranks")
+    if pp > 1:
+        return make_pp_mesh(stages=pp, data=dp, device=args.device)
     if ep > 1 and tp > 1:
         return make_ep_tp_mesh(expert=ep, model=tp, data=dp, device=args.device)
     if ep > 1:

@@ -46,8 +46,16 @@ kernels on its own heads, as the reference's GSPMD path runs flash on its
 sharded heads (its explicit path alone refuses flash). The ``constrain``
 hook of ``parallel.tp.make_sp_constrainer`` turns on sequence parallelism;
 any other callable is applied to the activations as the reference applies
-it. Not ported yet, and refused with ``NotImplementedError``: ``seq_axis``
-(context parallelism, ROADMAP.md queue 1 item 12) and ``from_huggingface``.
+it.
+
+Context parallelism (``parallel/cp.py``) runs the reference's ``seq_axis``
+path: ``x`` and the pad bias hold this rank's block of the sequence,
+``transformer_embed(pos_start=)`` gives the block its global positions, and
+the attention is ``ops/ring_attention.py``'s ring over the axis (the
+position-wise LayerNorms and FFN need no collective). As in the reference
+it refuses ``attention="flash"`` and MoE blocks. ``from_huggingface`` is
+refused with ``NotImplementedError``: the repository holds no HuggingFace
+weights.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from ircl_tpu_torch.models.moe import (
     moe_ffn,
 )
 from ircl_tpu_torch.ops.flash_attention_cuda import SegmentIds, flash_attention
+from ircl_tpu_torch.ops.ring_attention import ring_attention
 from ircl_tpu_torch.parallel.common import (
     copy_to_group,
     gather_data_rows,
@@ -79,12 +88,6 @@ from ircl_tpu_torch.parallel.mesh import axis_groups, axis_size, check_mesh
 from ircl_tpu_torch.parallel.tp import SequenceParallel
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,6 +221,8 @@ def transformer_embed(
     cfg: TransformerConfig,
     ids: torch.Tensor,  # [B, L] int
     type_ids: Optional[torch.Tensor] = None,
+    pos_start: int = 0,  # the first position: a context-parallel rank's
+    #   block starts at seq_rank * L_local
 ) -> torch.Tensor:
     """Embedding sum + embedding layernorm -> [B, L, hidden]. Every gather
     index is clamped into its table, as JAX's gather clamps it; an index
@@ -233,7 +238,7 @@ def transformer_embed(
         return torch.where(in_range, out, out.detach())
 
     L = ids.shape[1]
-    pos = torch.arange(L, device=ids.device) + cfg.position_offset
+    pos = torch.arange(L, device=ids.device) + cfg.position_offset + pos_start
     types = (
         rows(params["type_emb"], type_ids)
         if type_ids is not None
@@ -297,9 +302,12 @@ def attention_sublayer(
     the q/k/v/o weights arrive column/row-sharded over that axis of
     ``mesh``, the head count is the local q width's, and the o-projection's
     partial sums are summed over the axis; ``sequence_parallel``: ``x``
-    holds this rank's rows of the sequence (``make_sp_constrainer``)."""
-    if seq_axis is not None:
-        raise _not_ported("seq_axis (context parallelism)", 12)
+    holds this rank's rows of the sequence (``make_sp_constrainer``).
+    ``seq_axis``: ``x`` and ``attn_ctx`` hold this rank's block of the
+    sequence over that axis of ``mesh`` and the attention runs as ring
+    attention (``ops/ring_attention.py``)."""
+    if seq_axis is not None and cfg.attention == "flash":
+        raise ValueError("ring-attention CP supports the XLA path")
     groups = axis_groups(mesh, model_axis)
     sp_group = groups[0] if sequence_parallel and groups else None
     xin = _column_input(x, groups, sp_group)
@@ -311,7 +319,9 @@ def attention_sublayer(
         return _dense(xin, p).reshape(B, L, nh, hd).transpose(1, 2)
 
     q, k, v = heads(lp["q"]), heads(lp["k"]), heads(lp["v"])
-    if cfg.attention == "flash":
+    if seq_axis is not None:
+        ctx = ring_attention(q, k, v, attn_ctx, seq_axis, mesh=mesh)
+    elif cfg.attention == "flash":
         ctx = flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), segment_ids=attn_ctx,
             causal=False, sm_scale=1.0 / math.sqrt(hd),
@@ -347,10 +357,15 @@ def transformer_block(
     the routing sums (``models.moe.moe_aux_from_stats``) in place of aux.
     ``model_axis``/``expert_axis``: the explicit TP/EP path over those axes
     of ``mesh`` (the sums the reference's ``lax.psum`` takes, each with its
-    backward); ``sequence_parallel`` as in ``attention_sublayer``."""
-    if seq_axis is not None:
-        raise _not_ported("seq_axis (context parallelism)", 12)
-    x = attention_sublayer(x, lp, cfg, attn_ctx, model_axis, mesh=mesh,
+    backward); ``sequence_parallel`` and ``seq_axis`` as in
+    ``attention_sublayer``. Context parallelism refuses MoE blocks, as the
+    reference does."""
+    if seq_axis is not None and cfg.moe is not None:
+        raise ValueError(
+            "context parallelism does not compose with MoE blocks: local "
+            "routing capacity would differ from the global routing"
+        )
+    x = attention_sublayer(x, lp, cfg, attn_ctx, model_axis, seq_axis, mesh=mesh,
                            sequence_parallel=sequence_parallel)
     groups = axis_groups(mesh, model_axis)
     sp_group = groups[0] if sequence_parallel and groups else None

@@ -1,11 +1,14 @@
-"""Shared building blocks of the corpus-sharded scorers.
+"""Shared building blocks of the corpus-sharded scorers, and the collectives of
+the model-parallel paths.
 
 Counterpart of ``ircl_tpu/parallel/common.py``. ``ShardedEllIndex``,
 ``ShardedHybridIndex`` and the sharded dense scorer share one layout and one
 merge: doc-major ELL transposed to ``[K, N]``, K padded to 8 and N to
 ``shards * 256``, each rank keeping its own column block; then a local top-k
 whose (scores, global ids) are all-gathered over the axis's group and
-re-top-k'd on every rank.
+re-top-k'd on every rank. Below them: the autograd Functions of tensor,
+sequence and expert parallelism, and the point-to-point transfers of
+pipeline and context parallelism.
 """
 
 from __future__ import annotations
@@ -215,3 +218,58 @@ def reduce_scatter_seq(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group of ``x``, each rank keeping its block of rows
     along dim 1."""
     return _ReduceScatterSeq.apply(x, group)
+
+
+# ---- the point-to-point transfers of pipeline and context parallelism ----------
+#
+# Peers are named by their rank within ``group``. gloo's send and recv hand
+# the tensor's pointer to its host transport, so on gloo a CUDA tensor goes
+# through host memory (several gloo ranks sharing one card); NCCL takes the
+# CUDA tensor itself. Any other failure raises as it comes.
+
+
+def _through_host(device, group) -> bool:
+    return torch.device(device).type != "cpu" and dist.get_backend(group) == "gloo"
+
+
+def isend_to(t: torch.Tensor, dst: int, group):
+    """Start sending ``t`` to rank ``dst`` of ``group``; wait on the result
+    (``wait_sends``) before the send's buffer may go."""
+    buf = t.detach().contiguous()
+    if _through_host(buf.device, group):
+        buf = buf.cpu()
+    return dist.isend(buf, dist.get_global_rank(group, dst), group=group), buf
+
+
+def wait_sends(sends) -> None:
+    for work, _ in sends:
+        work.wait()
+
+
+def recv_from(shape, dtype, device, src: int, group) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` received from rank ``src`` of
+    ``group``, on ``device``."""
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if _through_host(device, group) else device)
+    dist.recv(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(device)
+
+
+def shift(tensors, dst: int, src: int, group):
+    """One hop of a ring: ``tensors`` packed into one buffer and sent to rank
+    ``dst`` of ``group`` while the same shapes and dtypes are received from
+    rank ``src`` (``dist.batch_isend_irecv``); the received tensors."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    flat = torch.cat([t.detach().reshape(-1).to(dt) for t in tensors])
+    device = flat.device
+    if _through_host(device, group):
+        flat = flat.cpu()
+    got = torch.empty_like(flat)
+    ops = [dist.P2POp(dist.isend, flat, dist.get_global_rank(group, dst), group),
+           dist.P2POp(dist.irecv, got, dist.get_global_rank(group, src), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    parts = torch.split(got.to(device), [t.numel() for t in tensors])
+    return [p.view(t.shape).to(t.dtype) for p, t in zip(parts, tensors)]

@@ -18,6 +18,7 @@ card.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Sequence
 
@@ -61,14 +62,26 @@ def make_mesh(
 ) -> DeviceMesh:
     """A mesh of every rank of the process group, on ``device``'s type (by
     default the card). ``shape`` defaults to all ranks on the first axis,
-    as the reference's does to all devices."""
+    as the reference's does to all devices. Where ``shape`` holds fewer
+    ranks than the group, the group runs it as replicas: the ranks are cut
+    into consecutive blocks of that many, each block a mesh of its own (the
+    reference's mesh takes the first devices and leaves the others idle;
+    here every rank takes part in one copy)."""
     device_type = resolve_device(device).type
     join_env_group(device_type)
     n = dist.get_world_size()
+    names = tuple(axis_names)
     if shape is None:
-        shape = (n,) + (1,) * (len(axis_names) - 1)
-    return init_device_mesh(device_type, tuple(shape),
-                            mesh_dim_names=tuple(axis_names))
+        shape = (n,) + (1,) * (len(names) - 1)
+    shape = tuple(shape)
+    size = math.prod(shape)
+    if size == n:
+        return init_device_mesh(device_type, shape, mesh_dim_names=names)
+    if size > n or n % size:
+        raise ValueError(f"a mesh of {shape} ranks does not tile the group's {n} ranks")
+    full = init_device_mesh(device_type, (n // size,) + shape,
+                            mesh_dim_names=("replica",) + names)
+    return full[names if len(names) > 1 else names[0]]
 
 
 def group_size(device=None) -> int:

@@ -73,6 +73,9 @@ def restore_state(path: str, template: TrainState) -> TrainState:
 # target layout, which may differ from the one it was saved from (an elastic
 # resume). torch.distributed.checkpoint does both over DTensor views of the
 # local shards; its directory format is not orbax's (ROADMAP.md queue 3).
+# The pipeline's stage-stacked layout (parallel/pp.py::pp_verdict_specs)
+# saves and restores like any other; parallel/pp.py::restack_pp_params
+# re-cuts the whole restored tree onto another stage count.
 # ---------------------------------------------------------------------------
 
 

@@ -16,6 +16,9 @@ card (``utils/device.py``):
   and ``pos``;
 - ``verdict_params_from_numpy``: the verdict model's ``body`` (a
   transformer tree), ``head_dense`` and ``head_out``;
+- ``pp_verdict_params_from_numpy``: the reference's pipeline layout of the
+  verdict model (``parallel/pp.py::pp_verdict_params``: ``embed``, the
+  ``[S, L/S, ...]`` stacked ``stages``, ``head_dense``, ``head_out``);
 - ``verdict_opt_state_from_numpy``: the reference's optax AdamW state
   (its step count and both moment trees) as the port's optimizer state, so
   that both packages resume training from the same point;
@@ -96,6 +99,21 @@ def verdict_params_from_numpy(params, device=None):
         "head_dense": _from_numpy(params["head_dense"], device),
         "head_out": _from_numpy(params["head_out"], device),
     }
+
+
+def pp_verdict_params_from_numpy(params, device=None):
+    """The pipeline layout of ``pp_verdict_params`` (``embed`` with the
+    embeddings and their LayerNorm, ``stages`` with every layer leaf
+    stacked ``[S, L/S, ...]``, ``head_dense``, ``head_out``) of numpy arrays
+    -> f32 tensors."""
+    _require(params, ("embed", "stages", "head_dense", "head_out"), "pipeline params")
+    _require(params["embed"], ("tok_emb", "pos_emb", "type_emb", "emb_ln"),
+             "the pipeline's embed")
+    _require(params["stages"], ("q", "k", "v", "o", "attn_ln", "ff_ln"),
+             "the pipeline's stacked layers")
+    for name in ("head_dense", "head_out"):
+        _require(params[name], ("w", "b"), f"the verdict {name}")
+    return _from_numpy(params, device)
 
 
 def verdict_opt_state_from_numpy(count, mu, nu, device=None):

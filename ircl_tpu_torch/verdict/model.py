@@ -189,10 +189,13 @@ class VerdictOptimizer:
         }
 
     @torch.no_grad()
-    def update_(self, params, grads, opt_state, body_on: bool = True) -> None:
+    def update_(self, params, grads, opt_state, body_on: bool = True,
+                body=("body",)) -> None:
         """One AdamW step in place. With ``body_on`` false the body's
         gradients count as zero (its moments decay) and its update,
-        weight decay included, is withheld: the body keeps its bits."""
+        weight decay included, is withheld: the body keeps its bits.
+        ``body`` names the top-level entries that are the body (the
+        pipeline layout's are ``"embed"`` and ``"stages"``)."""
         count_inc = opt_state["count"] + 1
         lr = self.learning_rate(opt_state["count"])
         bc1 = 1.0 - self.b1 ** count_inc
@@ -204,7 +207,7 @@ class VerdictOptimizer:
             )
             torch._foreach_mul_(mu, self.b1)
             torch._foreach_mul_(nu, self.b2)
-            if name == "body" and not body_on:
+            if name in body and not body_on:
                 continue
             torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
             torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)

@@ -9,18 +9,20 @@ and the same batches in both packages; the initial weights differ (a
 ``torch.Generator`` here) unless ``init_params`` carries them across.
 
 Ported: the loop for every encoder ``verdict/model.py`` trains (float32 or
-bfloat16, dense or MoE), on one device or on a mesh without a ``"stage"``
-axis, where it takes the reference's layouts: data parallelism alone
-(replicated parameters), TP x DP (``verdict_param_specs``), EP x DP and EP x
-TP x DP for an MoE encoder (``moe_verdict_param_specs`` with
-``make_ep_constrainer``), and replicated parameters for an MoE encoder on a
-mesh without an ``expert`` axis. Every rank draws the same split and
-batches and takes its rows of each batch; validation runs on every rank
-through the sharded forward; only rank 0 writes metrics and ``save_path``.
-A ``"stage"`` mesh (pipeline parallelism) waits for ROADMAP.md queue 1 item
-12. ``save_path`` writes the port's checkpoint directory
-(``verdict/infer.py::save_verdict_checkpoint``), not an orbax tree, and
-needs the tokenizer for it.
+bfloat16, dense or MoE), on one device or on every mesh the reference's
+takes, in its layouts: data parallelism alone (replicated parameters), TP x
+DP (``verdict_param_specs``), EP x DP and EP x TP x DP for an MoE encoder
+(``moe_verdict_param_specs`` with ``make_ep_constrainer``), replicated
+parameters for an MoE encoder on a mesh without an ``expert`` axis, and a
+``"stage"`` mesh (``parallel/pp.py``): the pipeline layout
+(``pp_verdict_params``, ``pp_verdict_specs``) and ``pp_micro``
+microbatches a step. Every rank draws the same split and batches and takes
+its rows of each batch; validation runs on every rank, through the sharded
+forward or, on a ``"stage"`` mesh, on the whole parameters in the standard
+layout; only rank 0 writes metrics and ``save_path``. ``save_path`` writes
+the port's checkpoint directory (``verdict/infer.py::
+save_verdict_checkpoint``), not an orbax tree, and needs the tokenizer for
+it.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ircl_tpu_torch.parallel import ep, tp
+from ircl_tpu_torch.parallel import ep, pp, tp
 from ircl_tpu_torch.parallel.mesh import axis_size, check_mesh, mesh_device
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
@@ -113,9 +115,10 @@ def train_verdict(
     #   names select the layout: "data" -> DP (each rank takes its rows,
     #   gradients summed), "model" -> Megatron TP (parallel/tp.py),
     #   "expert" -> EP for MoE encoders (parallel/ep.py); they compose, e.g.
-    #   ("data", "expert", "model"). "stage" (pipeline parallelism) is not
-    #   ported yet (ROADMAP.md queue 1 item 12)
-    pp_micro: int = 4,  # microbatches a step on a "stage" mesh
+    #   ("data", "expert", "model"). "stage" -> the GPipe pipeline
+    #   (parallel/pp.py), on make_pp_mesh's ("data", "stage") mesh
+    pp_micro: int = 4,  # microbatches a step on a "stage" mesh; batch_size
+    #   must divide into them
     *,
     device=None,  # by default the card; with a mesh, the mesh's
     tokenizer=None,  # the WordPiece tokenizer that ``save_path`` writes out
@@ -123,13 +126,15 @@ def train_verdict(
     """Returns ``(params on device, history)``; ``history`` has one
     ``{"epoch", "train_loss", "val_macro_f1"}`` per epoch run. With a mesh
     every rank returns the whole parameters and the same history."""
+    staged = False
     if mesh is not None:
         check_mesh(mesh)
-        if "stage" in (mesh.mesh_dim_names or ()):
-            raise NotImplementedError(
-                "train_verdict on a 'stage' mesh (pipeline parallelism) and "
-                "pp_micro are not ported yet (ROADMAP.md queue 1 item 12)"
-            )
+        staged = "stage" in (mesh.mesh_dim_names or ())
+        if staged:
+            pp.check_pp_mesh(mesh)
+            if batch_size % pp_micro:
+                raise ValueError(f"batch_size={batch_size} not divisible into "
+                                 f"pp_micro={pp_micro} microbatches")
         device = mesh_device(mesh)
     if save_path and tokenizer is None:
         raise ValueError(
@@ -156,7 +161,23 @@ def train_verdict(
         else init_verdict_params(torch.Generator().manual_seed(seed), cfg, device)
     )
     rank0 = True
-    if mesh is not None:
+    to_std = lambda p: p  # noqa: E731  the standard layout, for validation and saving
+    if staged:
+        params = pp.pp_verdict_params(params, axis_size(mesh, "stage"))
+        specs = pp.pp_verdict_specs(params, mesh)
+        step_fn, tx = pp.make_pp_verdict_train_step(cfg, mesh, n_micro=pp_micro)
+        params = tp.shard_tree(params, specs, mesh)
+        opt_state = tp.init_sharded_opt_state(tx, params, mesh, specs)
+        rank0 = mesh.get_rank() == 0
+
+        def place(*arrays):
+            return tp.shard_batch(mesh, *arrays)
+
+        def whole(p):
+            return pp.verdict_params_from_pp(tp.gather_tree(p, specs, mesh))
+
+        to_std, val_mesh = whole, None
+    elif mesh is not None:
         names = mesh.mesh_dim_names
         has_model = "model" in names
         ep_constrain = None
@@ -178,6 +199,7 @@ def train_verdict(
         def whole(p):
             return tp.gather_tree(p, specs, mesh)
 
+        val_mesh = mesh
     else:
         step_fn, tx = make_verdict_train_step(cfg, device=device)
         opt_state = tx.init(params)
@@ -188,6 +210,7 @@ def train_verdict(
         def whole(p):
             return p
 
+        val_mesh = None
     metrics = MetricsLogger(logdir, "verdict") if logdir and rank0 else None
 
     step = 0
@@ -210,8 +233,8 @@ def train_verdict(
         rep = None
         if len(val_idx):
             preds = predict_in_batches(
-                params, cfg, ids[val_idx], mask[val_idx], types[val_idx],
-                device=device, mesh=mesh,
+                to_std(params), cfg, ids[val_idx], mask[val_idx], types[val_idx],
+                device=device, mesh=val_mesh,
             )
             rep = classification_report(labels[val_idx], preds)
         history.append(

@@ -240,9 +240,11 @@ def cli_main(argv):
 
 
 def loaded_jax_modules():
-    """A 2-rank ``sharded_cosine_topk`` and a 2-rank TP forward of a tiny
-    transformer (``parallel/tp.py``, ``parallel/ep.py`` imported); the JAX
-    modules each rank loaded."""
+    """A 2-rank ``sharded_cosine_topk``, a 2-rank TP forward of a tiny
+    transformer (``parallel/tp.py``, ``parallel/ep.py`` imported), a 2-stage
+    pipeline forward of it (``parallel/pp.py``) and a 2-rank context-parallel
+    forward of a tiny verdict model (``parallel/cp.py``, the ring of
+    ``ops/ring_attention.py``); the JAX modules each rank loaded."""
     from ircl_tpu_torch.dense.scorer import sharded_cosine_topk
     from ircl_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -262,6 +264,22 @@ def loaded_jax_modules():
     ids, mask = tp.shard_batch(mesh, np.zeros((2, 8), np.int64), np.ones((2, 8), np.float32))
     transformer_apply(tp.shard_tree(full, tp.transformer_param_specs(full), mesh), cfg,
                       ids, mask, mesh=mesh)
+    from ircl_tpu_torch.parallel import cp, pp
+    from ircl_tpu_torch.verdict.model import VerdictConfig, init_verdict_params
+
+    two = TransformerConfig(vocab_size=16, hidden=8, layers=2, heads=2, intermediate=16,
+                            max_positions=8)
+    full = init_transformer_params(torch.Generator().manual_seed(1), two, "cpu")
+    mesh = pp.make_pp_mesh(2, device="cpu")
+    stacked = pp.stack_layer_params(full["layers"], 2)
+    pp.make_pp_transformer_apply(two, mesh, n_micro=2)(
+        {k: v for k, v in full.items() if k != "layers"},
+        tp.shard_tree(stacked, pp.stage_specs(stacked), mesh), *tp.shard_batch(
+            mesh, np.zeros((2, 8), np.int64), np.ones((2, 8), np.float32)))
+    vcfg = VerdictConfig(encoder=two, max_length=8)
+    cp.make_cp_verdict_forward(vcfg, cp.make_cp_mesh(device="cpu"))(
+        init_verdict_params(torch.Generator().manual_seed(2), vcfg, "cpu"),
+        np.zeros((2, 8), np.int64), np.ones((2, 8), np.float32), np.zeros((2, 8), np.int64))
     mine = sorted(m for m in sys.modules
                   if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"))
     every = [None] * dist.get_world_size()
@@ -315,10 +333,15 @@ def _verdict_specs(kind, params):
 
 
 def _mesh(shape):
-    """``("data", "model")``, ``("data", "expert")`` or ``("data",
-    "expert", "model")`` by ``shape``'s keys, on the CPU."""
-    from ircl_tpu_torch.parallel import ep, tp
+    """``("data", "model")``, ``("data", "expert")``, ``("data",
+    "expert", "model")`` or, with a ``"stage"`` key, ``make_pp_mesh``'s
+    ``("data", "stage"[, "expert"][, "model"])`` by ``shape``'s keys, on
+    the CPU."""
+    from ircl_tpu_torch.parallel import ep, pp, tp
 
+    if "stage" in shape:
+        return pp.make_pp_mesh(shape["stage"], shape.get("data", 1), shape.get("model", 1),
+                               shape.get("expert", 1), device="cpu")
     if "expert" in shape and "model" in shape:
         return ep.make_ep_tp_mesh(shape["expert"], shape["model"], shape["data"],
                                   device="cpu")
@@ -419,12 +442,13 @@ def parallel_runs(cases):
     return out
 
 
-def sharded_checkpoint(cfg, params0, batches, path):
-    """``tests/test_sharded_checkpoint.py``'s run: TP(4) x DP(2) for every
+def sharded_checkpoint(cfg, params0, batches, path, pp_case):
+    """``tests/test_sharded_checkpoint.py``'s runs: TP(4) x DP(2) for every
     batch; again for all but the last, ``save_sharded``, then the last batch
     from ``restore_sharded`` onto the same layout, onto TP(2) x DP(4) and
     onto replicated DP(8) parameters. Each run's last loss, whole
-    parameters and a local shard's shape."""
+    parameters and a local shard's shape. Then ``pp_case`` (params0,
+    batches, path), the pipeline's run (``_pp_checkpoint``)."""
     from ircl_tpu_torch.parallel import tp
     from ircl_tpu_torch.utils import convert
     from ircl_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
@@ -465,13 +489,66 @@ def sharded_checkpoint(cfg, params0, batches, path):
         out[name] = result(mesh, specs, *run(mesh, step, back["params"], back["opt"],
                                              batches[-1:], first=len(batches) - 1))
         out[name]["restored_count"] = restored_count
+    out["pp"] = _pp_checkpoint(cfg, **pp_case)
     return out
+
+
+def _pp_checkpoint(cfg, params0, batches, path):
+    """``test_pp_sharded_save_restore_resumes_training``'s run: PP(2) x
+    DP(2), 4 microbatches, over every batch; again for all but the last,
+    ``save_sharded`` of the stage-stacked shards, ``restore_sharded`` into
+    a fresh layout, its restacking onto one stage, and the last batch from
+    the restored state. The losses, whole parameters in the standard
+    layout, the restored stage shard's local shape, the restacked shape and
+    whether the restacking kept every layer's bits."""
+    from ircl_tpu_torch.parallel import pp, tp
+    from ircl_tpu_torch.utils import convert
+    from ircl_tpu_torch.utils.checkpoint import restore_sharded, save_sharded
+    from ircl_tpu_torch.utils.tree import tree_leaves
+
+    mesh = _mesh(dict(stage=2, data=2))
+    pp0 = pp.pp_verdict_params(convert.verdict_params_from_numpy(params0, "cpu"), 2)
+    specs = pp.pp_verdict_specs(pp0, mesh)
+    step, tx = pp.make_pp_verdict_train_step(cfg, mesh, n_micro=4)
+
+    def start():
+        p = tp.shard_tree(pp0, specs, mesh)
+        o = tp.init_sharded_opt_state(tx, p, mesh, specs)
+        return p, o, {"params": specs, "opt": tp.state_specs(o, p, specs)}
+
+    def run(p, o, todo, first=0):
+        for i, b in enumerate(todo):
+            p, o, loss, _ = step(p, o, first + i, *tp.shard_batch(mesh, *b))
+        return p, o, float(loss)
+
+    def std(p):
+        return _np(pp.verdict_params_from_pp(tp.gather_tree(p, specs, mesh)))
+
+    p, o, _ = start()
+    p_full, o_full, loss_full = run(p, o, batches)
+    p, o, both = start()
+    p, o, _ = run(p, o, batches[:-1])
+    save_sharded(path, {"params": p, "opt": o}, mesh=mesh, specs=both)
+    p, o, both = start()
+    back = restore_sharded(path, {"params": p, "opt": o}, mesh=mesh, specs=both)
+    whole = tp.gather_tree(back["params"], specs, mesh)
+    restacked = pp.restack_pp_params(whole, 1)
+    kept = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(pp.unstack_layer_params(restacked["stages"])),
+        tree_leaves(pp.unstack_layer_params(whole["stages"]))))
+    local = tuple(back["params"]["stages"]["ff1"]["w"].shape)
+    count = back["opt"]["count"]
+    p3, o3, loss3 = run(back["params"], back["opt"], batches[-1:], first=len(batches) - 1)
+    return dict(loss_full=loss_full, params_full=std(p_full), loss=loss3, params=std(p3),
+                count=o3["count"], full_count=o_full["count"], restored_count=count,
+                local=local, restacked=tuple(restacked["stages"]["ff1"]["w"].shape),
+                layers_kept=kept)
 
 
 def train_verdict_runs(cases, data, out_dir):
     """``train_verdict(mesh=)`` for each case ``(cfg, params0, mesh shape,
     kwargs)``: rank 0's history and returned parameters, and whether every
-    rank returned the same; a ``"stage"`` mesh's refusal."""
+    rank returned the same; a ``("stage", "model")`` mesh's refusal."""
     from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
     from ircl_tpu_torch.parallel.mesh import make_mesh
     from ircl_tpu_torch.utils import convert
@@ -495,9 +572,9 @@ def train_verdict_runs(cases, data, out_dir):
         out[name] = dict(mine, same_on_every_rank=len(set(every)) == 1)
     try:
         train_verdict(cases["tp_dp"][0], *data, epochs=1, batch_size=8, val_fraction=0.0,
-                      mesh=make_mesh(("stage", "data"), (2, 4), device="cpu"))
-    except NotImplementedError as e:
-        out["stage"] = str(e)
+                      mesh=make_mesh(("stage", "model"), (2, 4), device="cpu"))
+    except ValueError as e:
+        out["stage_model"] = str(e)
     return out
 
 
@@ -507,9 +584,13 @@ def layer_parity(cases):
     ``sum(output * w)`` with respect to the input, and with respect to the
     parameters, gathered whole. A case is ``dict(layer="block" | "moe",
     cfg, params, specs, axes, kwargs, x, mask, w)``: ``specs`` is
-    ``"tp"``/``"ep"``/``"ep_tp"``/``"tp_moe"``, ``axes`` the mesh's axis names and
-    sizes, ``kwargs`` what the layer is called with (the hook
-    ``"ep_constrain"`` made from the mesh)."""
+    ``"tp"``/``"ep"``/``"ep_tp"``/``"tp_moe"``, or ``"rep"`` (every leaf
+    replicated), ``axes`` the mesh's axis names and sizes, ``kwargs`` what
+    the layer is called with (the hook ``"ep_constrain"`` made from the
+    mesh). Under ``kwargs["seq_axis"]`` each rank takes its block of the
+    sequence of ``x``, ``mask`` and ``w``; the output and the input's
+    gradient are gathered along the sequence, and the parameters'
+    gradients, partial on each rank, summed over the axis."""
     from ircl_tpu_torch.models import moe as t_moe
     from ircl_tpu_torch.models import transformer as t_tf
     from ircl_tpu_torch.parallel import ep, tp
@@ -520,7 +601,9 @@ def layer_parity(cases):
     for name, c in cases.items():
         mesh = make_mesh(tuple(c["axes"]), tuple(c["axes"].values()), device="cpu")
         full = tree_map(torch.as_tensor, c["params"])
-        if c["specs"] == "tp":
+        if c["specs"] == "rep":
+            specs = tp.replicated_specs(full)
+        elif c["specs"] == "tp":
             specs = tp.transformer_param_specs({"layers": [None]})["layers"][0]
         elif c["layer"] == "block":
             specs = dict(ep.moe_transformer_param_specs({"layers": [None]},
@@ -539,8 +622,12 @@ def layer_parity(cases):
         else:
             kwargs["mesh"] = mesh
         views = tree_map(lambda t: t.detach().requires_grad_(), local)
-        x = torch.as_tensor(c["x"]).requires_grad_()
-        mask = torch.as_tensor(c["mask"])
+        x, mask, w = (torch.as_tensor(c[k]) for k in ("x", "mask", "w"))
+        seq = kwargs.get("seq_axis")
+        if seq:
+            n, r = mesh[seq].size(), mesh.get_local_rank(seq)
+            x, mask, w = (t.chunk(n, dim=1)[r].contiguous() for t in (x, mask, w))
+        x = x.requires_grad_()
         if c["layer"] == "block":
             cfg = c["cfg"]
             ctx = t_tf.attention_mask_inputs(cfg, mask)
@@ -548,8 +635,18 @@ def layer_parity(cases):
         else:
             y = t_moe.moe_ffn(x, views, c["cfg"], mask=mask, **kwargs)
         y, aux = y if isinstance(y, tuple) else (y, None)
-        loss = (y * torch.as_tensor(c["w"])).sum() + (0.0 if aux is None else aux)
-        grads = torch.autograd.grad(loss, [x] + tree_leaves(views))
+        loss = (y * w).sum() + (0.0 if aux is None else aux)
+        grads = list(torch.autograd.grad(loss, [x] + tree_leaves(views)))
+        if seq:
+            from ircl_tpu_torch.parallel.common import all_gather_rows
+
+            def along(t):
+                return torch.cat(all_gather_rows(t.detach().movedim(1, 0).contiguous(),
+                                                 mesh, seq)).movedim(0, 1)
+
+            y, grads[0] = along(y), along(grads[0])
+            for g in grads[1:]:
+                dist.all_reduce(g, group=mesh.get_group(seq))
         whole = tp.gather_tree(tree_unflatten(views, grads[1:]), specs, mesh)
         res = dict(y=y.detach().numpy(), aux=None if aux is None else float(aux),
                    grad_x=grads[0].numpy(), grads=_np(whole),
@@ -569,3 +666,139 @@ def cli_mains(argvs):
         dist.all_gather_object(every, mine)
         out.append(every)
     return out
+
+
+# ---- pipeline and context parallelism of the verdict model ----------------------
+
+
+def _stacked(full, shape, moe):
+    """``full``'s layers stacked over ``shape["stage"]`` stages and the spec
+    tree that places them (``P("stage")``, or the TP/EP layout where the
+    mesh has those axes)."""
+    from ircl_tpu_torch.parallel import pp
+
+    stacked = pp.stack_layer_params(full["layers"], shape["stage"])
+    if "model" in shape or "expert" in shape:
+        return stacked, pp.stacked_stage_specs(moe=moe, tp="model" in shape,
+                                               ep="expert" in shape)
+    return stacked, pp.stage_specs(stacked)
+
+
+def pp_forward(cfg, params, arrays, shape, n_micro):
+    """``make_pp_transformer_apply`` on this rank's rows of ``arrays`` (ids,
+    mask, types): the whole batch's last hidden state (and the aux of an
+    MoE encoder), the same on every rank."""
+    from ircl_tpu_torch.parallel import pp, tp
+    from ircl_tpu_torch.parallel.common import gather_data_rows
+    from ircl_tpu_torch.utils import convert
+
+    mesh = _mesh(shape)
+    full = convert.transformer_params_from_numpy(params, "cpu")
+    embed = {k: v for k, v in full.items() if k != "layers"}
+    stacked, specs = _stacked(full, shape, cfg.moe is not None)
+    apply = pp.make_pp_transformer_apply(cfg, mesh, n_micro)
+    out = apply(embed, tp.shard_tree(stacked, specs, mesh), *tp.shard_batch(mesh, *arrays))
+    hidden, aux = out if isinstance(out, tuple) else (out, None)
+    return _same_on_every_rank(dict(hidden=gather_data_rows(hidden, mesh).numpy(),
+                                    aux=None if aux is None else float(aux)))
+
+
+def pp_refusal(cfg, shape):
+    """``make_pp_transformer_apply`` of ``cfg`` on a mesh of ``shape``."""
+    from ircl_tpu_torch.parallel import pp
+
+    pp.make_pp_transformer_apply(cfg, _mesh(shape), n_micro=2)
+
+
+def pp_steps(cfg, params0, batches, shape, n_micro, remat=False, grads=True):
+    """``make_pp_verdict_train_step`` over ``batches`` from the numpy
+    ``params0`` on a ``make_pp_mesh`` of ``shape``: per step the loss, then
+    the whole parameters in the standard layout, the local shapes of the
+    stage-sharded ``ff1`` (or MoE ``ff1``) weight and of its Adam moment;
+    with ``grads`` the whole gradients of the first batch
+    (``make_pp_verdict_grad_fn``); and every rank's layout report."""
+    from ircl_tpu_torch.parallel import pp, tp
+    from ircl_tpu_torch.utils import convert
+
+    mesh = _mesh(shape)
+    pp0 = pp.pp_verdict_params(convert.verdict_params_from_numpy(params0, "cpu"),
+                               shape["stage"])
+    specs = pp.pp_verdict_specs(pp0, mesh)
+    p = tp.shard_tree(pp0, specs, mesh)
+    out = {}
+    if grads:
+        fn = pp.make_pp_verdict_grad_fn(cfg, mesh, n_micro, remat)
+        loss, _, g = fn(p, *tp.shard_batch(mesh, *batches[0]))
+        out.update(grads=_np(pp.verdict_params_from_pp(tp.gather_tree(g, specs, mesh))),
+                   grad_loss=float(loss))
+    step, tx = pp.make_pp_verdict_train_step(cfg, mesh, n_micro, remat)
+    o = tp.init_sharded_opt_state(tx, p, mesh, specs)
+    losses = []
+    for i, b in enumerate(batches):
+        p, o, loss, _ = step(p, o, i, *tp.shard_batch(mesh, *b))
+        losses.append(float(loss))
+    ff1 = lambda t: t["moe"]["ff1"]["w"] if "moe" in t else t["ff1"]["w"]  # noqa: E731
+    out.update(losses=losses,
+               params=_np(pp.verdict_params_from_pp(tp.gather_tree(p, specs, mesh))),
+               local=(tuple(ff1(p["stages"]).shape), tuple(ff1(o["mu"]["stages"]).shape)))
+    layout = _layout_report(mesh, p, specs)
+    return dict(_same_on_every_rank(out), layout=layout)
+
+
+def cp_forward(cfg, params0, arrays, shape):
+    """``make_cp_verdict_forward`` on the whole batch: its logits, the same
+    on every rank."""
+    from ircl_tpu_torch.parallel import cp
+    from ircl_tpu_torch.utils import convert
+
+    mesh = cp.make_cp_mesh(seq=shape["seq"], data=shape["data"], device="cpu")
+    params = convert.verdict_params_from_numpy(params0, "cpu")
+    return _same_on_every_rank(cp.make_cp_verdict_forward(cfg, mesh)(params, *arrays).numpy())
+
+
+def cp_steps(cfg, params0, batches, shape):
+    """The first batch's gradients (``make_cp_verdict_grad_fn``), then
+    ``make_cp_verdict_train_step`` with its default Adam(1e-3) over
+    ``batches``: the losses and the parameters, the same on every rank."""
+    from ircl_tpu_torch.parallel import cp
+    from ircl_tpu_torch.utils import convert
+
+    mesh = cp.make_cp_mesh(seq=shape["seq"], data=shape["data"], device="cpu")
+    p = convert.verdict_params_from_numpy(params0, "cpu")
+    loss, g = cp.make_cp_verdict_grad_fn(cfg, mesh)(p, *batches[0])
+    out = dict(grads=_np(g), grad_loss=float(loss))
+    step, tx = cp.make_cp_verdict_train_step(cfg, mesh)
+    o = tx.init(p)
+    losses = []
+    for b in batches:
+        p, o, loss = step(p, o, *b)
+        losses.append(float(loss))
+    return _same_on_every_rank(dict(out, losses=losses, params=_np(p)))
+
+
+def ring_parity(q, k, v, bias, w, seq):
+    """``ring_attention`` over a ``("data", "seq")`` mesh of ``seq`` ranks,
+    each holding its block of the sequence: the whole output and the whole
+    gradients of ``sum(out * w)`` in q, k and v, gathered in rank order."""
+    from ircl_tpu_torch.ops.ring_attention import ring_attention
+    from ircl_tpu_torch.parallel import cp
+    from ircl_tpu_torch.parallel.common import all_gather_rows
+    from ircl_tpu_torch.parallel.mesh import axis_rank
+
+    mesh = cp.make_cp_mesh(seq=seq, data=1, device="cpu")
+    r = axis_rank(mesh, "seq")
+
+    def mine(a):  # [B, H, L, D]: this rank's block of L
+        return torch.as_tensor(a).chunk(seq, dim=2)[r]
+
+    ql, kl, vl = (mine(a).clone().requires_grad_() for a in (q, k, v))
+    out = ring_attention(ql, kl, vl, torch.as_tensor(bias).chunk(seq, dim=-1)[r], "seq",
+                         mesh=mesh)
+    grads = torch.autograd.grad((out * mine(w)).sum(), (ql, kl, vl))
+
+    def whole(t):
+        return torch.cat(all_gather_rows(t.detach().movedim(2, 0).contiguous(), mesh,
+                                         "seq")).movedim(0, 2).numpy()
+
+    return _same_on_every_rank(dict(out=whole(out), dq=whole(grads[0]), dk=whole(grads[1]),
+                                    dv=whole(grads[2])))

@@ -14,8 +14,9 @@ from different generators (``TrainState``, the hash featurizer's table, the
 verdict model), the port's stage is given the JAX package's weights,
 carried across with ``utils/convert.py``, before the outputs are compared.
 The reference's ``test_cli_train_dp`` runs the port's ``train --dp`` over
-8 gloo ranks on the CPU; ``test_train_verdict_cli_pp_dp_mesh`` becomes the
-port's raises naming ROADMAP.md queue 1 item 12.
+8 gloo ranks on the CPU; ``test_train_verdict_cli_pp_dp_mesh`` runs the
+port's ``train-verdict --pp 2 --layers 2 --pp-micro 4`` over the fixture's
+2 ranks (its ``--dp 2`` would need 4).
 """
 
 import dataclasses
@@ -485,8 +486,10 @@ def test_cli_train_dp_on_one_device_trains_single_device(workspaces, capsys):
     assert "finished at step 2" in out
 
 
-MESH_FLAGS = {"flags1": ["--dp", "2"], "flags2": ["--tp", "2"],
+MESH_FLAGS = {"flags0": ["--pp", "2", "--layers", "2", "--pp-micro", "4"],
+              "flags1": ["--dp", "2"], "flags2": ["--tp", "2"],
               "flags4": ["--moe-experts", "4", "--ep", "2"]}
+RANK_FLAGS = ("--dp", "--tp", "--ep", "--pp")  # and their values: the mesh
 
 
 def _own_config(workspace_cfg, root, name):
@@ -515,7 +518,7 @@ def verdict_ranks(workspaces, tmp_path_factory):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--pp", "2", "--dp", "2", "--layers", "2"], "item 12"),
+    (MESH_FLAGS["flags0"], "ranks"),
     (["--dp", "2"], "ranks"),
     (["--tp", "2"], "ranks"),
     (["--moe-experts", "4"], None),  # runs: the MoE FFN is ported
@@ -526,21 +529,17 @@ def verdict_ranks(workspaces, tmp_path_factory):
 ])
 def test_train_verdict_mesh_and_moe_raise(workspaces, flags, match, tmp_path, capsys,
                                           request):
-    """``--pp`` raises item 12. ``--dp 2``, ``--tp 2`` and ``--moe-experts 4
-    --ep 2`` (once item 12's raises) train over 2 ranks, as the reference
-    trains over its mesh: one history line, from rank 0, of the
-    reference's epochs; the reference's ``verdict_config.json``; and the
-    history and the checkpoint of the port's single-device run of the same
-    command (train loss rtol 2e-5, validation F1 equal, parameters rtol
-    5e-4, atol 5e-6). ``--moe-experts 4`` trains in both packages, into
-    checkpoints of their own: equal ``verdict_config.json`` files, the
-    port's checkpoint evaluates, and with the reference's trained MoE
-    weights carried into it both packages report alike."""
-    if match == "item 12":
-        _, cfg = workspaces["t"]
-        with pytest.raises(NotImplementedError, match=match):
-            run_t(["--config", cfg, "train-verdict", *VERDICT_FLAGS[:2], *flags])
-        return
+    """``--pp 2 --layers 2 --pp-micro 4``, ``--dp 2``, ``--tp 2`` and
+    ``--moe-experts 4 --ep 2`` (each once item 12's raise) train over 2
+    ranks, as the reference trains over its mesh: one history line, from
+    rank 0, of the reference's epochs; the reference's
+    ``verdict_config.json``; and the history and the checkpoint of the
+    port's single-device run of the same command without the mesh's flags
+    (train loss rtol 2e-5, validation F1 equal, parameters rtol 5e-4, atol
+    5e-6). ``--moe-experts 4`` trains in both packages, into checkpoints of
+    their own: equal ``verdict_config.json`` files, the port's checkpoint
+    evaluates, and with the reference's trained MoE weights carried into
+    it both packages report alike."""
     if match == "ranks":
         name = request.node.callspec.id.split("-")[0]
         outs, configs, root = request.getfixturevalue("verdict_ranks")
@@ -550,7 +549,8 @@ def test_train_verdict_mesh_and_moe_raise(workspaces, flags, match, tmp_path, ca
         j_cfg = _own_config(workspaces["j"][1], root, f"j{name}")
         j_cli.main(["--config", j_cfg, "train-verdict", *VERDICT_FLAGS, *flags])
         want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        single_flags = [f for f in flags if f not in ("--dp", "--tp", "--ep", "2")]
+        single_flags = [f for i, f in enumerate(flags)
+                        if f not in RANK_FLAGS and (i == 0 or flags[i - 1] not in RANK_FLAGS)]
         t_cfg = _own_config(workspaces["t"][1], root, f"single{name}")
         run_t(["--config", t_cfg, "train-verdict", *VERDICT_FLAGS, *single_flags])
         single = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

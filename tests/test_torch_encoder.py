@@ -331,7 +331,8 @@ def _layer_case(t_cfg, layer, specs, axes, kwargs, seed):
 @pytest.fixture(scope="module")
 def two_rank_blocks(tf_pair):
     """Block 0 of the dense transformer over a 2-rank ``model`` axis and of
-    the MoE transformer over a 2-rank ``expert`` axis, in one launch."""
+    the MoE transformer over a 2-rank ``expert`` axis, and the dense block
+    with its sequence split over a 2-rank ``seq`` axis, in one launch."""
     from _torch_ranks import layer_parity
     from ircl_tpu_torch.parallel.launch import launch
 
@@ -350,28 +351,28 @@ def two_rank_blocks(tf_pair):
     cases["expert_axis"], wants["expert_axis"] = _layer_case(
         tm_cfg, _np_tree(jm["layers"][0]), "ep", {"expert": 2},
         {"expert_axis": "expert"}, 2)
+    cases["seq_axis"], wants["seq_axis"] = _layer_case(
+        t_cfg, _np_tree(j_params["layers"][0]), "rep", {"seq": 2},
+        {"seq_axis": "seq"}, 3)
     return launch(layer_parity, 2, cases, device="cpu", timeout=300.0), wants
 
 
 @pytest.mark.parametrize("axis", ["model_axis", "expert_axis", "seq_axis"])
 def test_explicit_collective_axes_wait_for_item_12(tf_pair, axis, request):
-    """Once a raise naming ROADMAP.md queue 1 item 12 for all three axes.
-    ``model_axis``: block 0 with its q/k/v/ff1 column-sharded and o/ff2
-    row-sharded over 2 gloo ranks; ``expert_axis``: the MoE block with 2 of
-    its 4 experts a rank. Each equals the full block: its output, the
-    gradient of its input, and every parameter's gradient gathered whole
-    (f32 sums in another order, ``ATOL``); both ranks return the same bits.
-    ``seq_axis`` (context parallelism) still waits for item 12."""
-    _, t_cfg, _, t_params, _, _ = tf_pair
-    if axis == "seq_axis":
-        x = torch.zeros(1, 4, 64)
-        ctx = t_tf.attention_mask_inputs(t_cfg, torch.ones(1, 4))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            t_tf.transformer_block(x, t_params["layers"][0], t_cfg, ctx, seq_axis="x")
-        return
+    """Once a raise naming ROADMAP.md queue 1 item 12 for all three axes,
+    now none. ``model_axis``: block 0 with its q/k/v/ff1 column-sharded and
+    o/ff2 row-sharded over 2 gloo ranks; ``expert_axis``: the MoE block
+    with 2 of its 4 experts a rank; ``seq_axis``: block 0 with the sequence
+    (16 positions, rows of 16, 9 and 2 real tokens, so one row's second
+    block is all pads) split over 2 ranks and the attention run as ring
+    attention, its reverse ring written by hand. Each equals the full
+    block: its output, the gradient of its input, and every parameter's
+    gradient gathered whole (f32 sums in another order, ``ATOL``); both
+    ranks return the same bits."""
     got, wants = request.getfixturevalue("two_rank_blocks")
     got, want = got[axis], wants[axis]
-    assert got["local"] == ((64, 48) if axis == "model_axis" else (2, 64, 96))
+    assert got["local"] == {"model_axis": (64, 48), "expert_axis": (2, 64, 96),
+                            "seq_axis": (64, 96)}[axis]
     for key in ("y", "grad_x"):
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=ATOL, err_msg=key)
     for (name, g), w in zip(_named(got["grads"]), jax.tree.leaves(want["grads"])):

@@ -308,9 +308,10 @@ def test_port_fronts_and_cli_run_without_loading_jax():
 
 
 def test_port_runs_sharded_ranks_without_loading_jax():
-    """``sharded_cosine_topk`` and a TP forward of a tiny transformer on a
-    fresh 2-rank gloo group: neither the launching process nor either rank
-    loads JAX or the JAX package."""
+    """``sharded_cosine_topk``, a TP forward of a tiny transformer, its
+    2-stage pipeline forward and a context-parallel forward of a tiny
+    verdict model (the ring) on a fresh 2-rank gloo group: neither the
+    launching process nor either rank loads JAX or the JAX package."""
     _run_fresh(_SHARDED_RANKS)
 
 
@@ -339,7 +340,7 @@ def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
     for new in ("serve_native.py", "cli.py", "config.py", "recall.py",
                 "profiling.py", "fetch.py", "prepare.py", "mesh.py", "launch.py",
                 "common.py", "sharded_index.py", "sharded_hybrid.py", "dp.py",
-                "tp.py", "ep.py"):
+                "tp.py", "ep.py", "pp.py", "cp.py", "ring_attention.py"):
         assert any(p.endswith(os.sep + new) for p in files), new
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders

@@ -12,8 +12,11 @@ histories and the port's single-device ones (train loss rtol 2e-5, as the
 reference's test holds its mesh to its single device; validation macro-F1
 equal), the returned parameters are whole and equal on every rank and meet
 the single-device run's (rtol 5e-4, atol 5e-6). The TP x DP run also writes
-its checkpoint and metrics from rank 0, read back here. A ``"stage"`` mesh
-waits for pipeline parallelism (ROADMAP.md queue 1 item 12).
+its checkpoint and metrics from rank 0, read back here. The pipeline cases
+(``tests/test_verdict_mesh.py:79-131``) run in the same launch: PP(2) x
+DP(2) and PP(2) over the MoE encoder (``pp_micro`` 4) meet the same
+histories and return the standard layout, and a ``("stage", "model")``
+mesh is refused with ``ValueError``, as the reference refuses it.
 """
 
 import jax
@@ -43,6 +46,10 @@ CASES = {  # name: (MoE, mesh shape)
     "dp_only": (False, dict(data=8, model=1)),
     "moe_3axis": (True, dict(data=2, expert=2, model=2)),
 }
+PP_CASES = {  # the pipeline's: (MoE, mesh shape)
+    "pp_dp": (False, dict(stage=2, data=2)),
+    "pp_moe": (True, dict(stage=2, data=1)),
+}
 
 
 def _data(n=64, L=16, seed=0):
@@ -68,7 +75,7 @@ def runs(tmp_path_factory):
             t_cfg, *data, init_params=convert.verdict_params_from_numpy(p0, "cpu"),
             device="cpu", **KW)
         refs[moe] = dict(jax=j_hist, port=t_hist, params=_torch_ranks._np(t_params))
-        for name, (is_moe, shape) in CASES.items():
+        for name, (is_moe, shape) in {**CASES, **PP_CASES}.items():
             if is_moe == moe:
                 cases[name] = (t_cfg, p0, shape, {"save": name == "tp_dp"})
     out_dir = str(tmp_path_factory.mktemp("verdict_mesh"))
@@ -103,6 +110,32 @@ def test_train_verdict_mesh_writes_from_rank_0(runs):
     assert sum("qa_val_macro_f1" in r for r in lines) == 2
 
 
+def _check_pp(runs, case):
+    refs, got, _ = runs
+    ref, run = refs[PP_CASES[case][0]], got[case]
+    assert len(run["history"]) == 2 and run["same_on_every_rank"]
+    for want in (ref["jax"], ref["port"]):
+        for r, g in zip(want, run["history"]):
+            np.testing.assert_allclose(g["train_loss"], r["train_loss"], rtol=2e-5)
+            assert g["val_macro_f1"] == r["val_macro_f1"]
+    assert_trees_close(run["params"], ref["params"], **PARAM_TOL)
+
+
 def test_train_verdict_stage_mesh_waits_for_item_12(runs):
+    """Once a raise naming ROADMAP.md queue 1 item 12, now
+    ``tests/test_verdict_mesh.py::test_train_verdict_pp_dp_mesh_matches_
+    single_device``: the same loop runs the GPipe schedule on PP(2) x
+    DP(2); the histories (loss and validation F1) and the returned
+    parameters, in the standard layout, meet the single device's."""
+    _check_pp(runs, "pp_dp")
+
+
+def test_train_verdict_pp_moe_mesh_matches_single_device(runs):
+    """PP(2) over MoE blocks through the loop (the aux from routing sums
+    added over microbatches), in the standard layout."""
+    _check_pp(runs, "pp_moe")
+
+
+def test_train_verdict_rejects_pp_tp_mesh(runs):
     _, got, _ = runs
-    assert "item 12" in got["stage"] and "stage" in got["stage"]
+    assert "('stage', 'model')" in got["stage_model"]

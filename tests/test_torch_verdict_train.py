@@ -395,25 +395,49 @@ def test_trainer_options(toy, tmp_path):
         run(epochs=1, save_path=ckpt)
 
 
-def test_what_is_not_ported_raises(toy):
-    """Once three raises naming ROADMAP.md queue 1 item 12. ``mesh=`` that
-    is not a mesh is refused with ``TypeError``; a ``"stage"`` mesh
-    (pipeline parallelism) still waits for item 12; an activation hook
-    (``constrain``) and a hook on the expert slabs (``ep_constrain``) run,
-    and the identity leaves the forward and the step as they are."""
+def test_what_is_not_ported_raises(toy, tmp_path):
+    """Once three raises naming ROADMAP.md queue 1 item 12, now none.
+    ``mesh=`` that is not a mesh is refused with ``TypeError``; a
+    ``"stage"`` mesh trains: on a one-rank group in this process, one
+    stage in 2 microbatches, the history and the returned (standard
+    layout) parameters meet the single-device run's; a ``("stage",
+    "model")`` mesh is refused with ``ValueError``, as the reference
+    refuses it; an activation hook (``constrain``) and a hook on the expert
+    slabs (``ep_constrain``) run, and the identity leaves the forward and
+    the step as they are."""
     from unittest import mock
 
+    import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
+
+    from ircl_tpu_torch.parallel.pp import make_pp_mesh
 
     tok, _, t_cfg = toy
     ids, mask, types, labels = _toy_dataset(tok, n=8)
     with pytest.raises(TypeError, match="DeviceMesh"):
         t_train.train_verdict(t_cfg, ids, mask, types, labels, mesh=object(),
                               device="cpu")
-    stage = mock.Mock(spec=DeviceMesh)  # a mesh object, without a process group
-    stage.mesh_dim_names = ("stage", "data")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_train.train_verdict(t_cfg, ids, mask, types, labels, mesh=stage, device="cpu")
+    bad = mock.Mock(spec=DeviceMesh)  # a mesh object, without a process group
+    bad.mesh_dim_names = ("stage", "model")
+    with pytest.raises(ValueError, match="'data', 'stage'"):
+        t_train.train_verdict(t_cfg, ids, mask, types, labels, mesh=bad, device="cpu")
+    data = _toy_dataset(tok, n=24)
+    init = t_model.init_verdict_params(torch.Generator().manual_seed(3), t_cfg, "cpu")
+    kw = dict(epochs=2, batch_size=4, val_fraction=0.2, seed=2)
+    p_one, want = t_train.train_verdict(t_cfg, *data, init_params=init, device="cpu", **kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        p_pp, got = t_train.train_verdict(t_cfg, *data, init_params=init, pp_micro=2,
+                                          mesh=make_pp_mesh(1, device="cpu"), **kw)
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["train_loss"], w["train_loss"], rtol=2e-5)
+        assert g["val_macro_f1"] == w["val_macro_f1"]
+    assert tree_map(lambda t: t.shape, p_pp) == tree_map(lambda t: t.shape, p_one)
+    for a, b in zip(tree_leaves(p_pp), tree_leaves(p_one)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4, atol=5e-6)
     params = t_model.init_verdict_params(torch.Generator().manual_seed(0), t_cfg, "cpu")
     args = (params, t_cfg, torch.from_numpy(ids).long(), torch.from_numpy(mask))
     seen = []
