@@ -96,7 +96,7 @@ Phases, each printed as it runs:
     timed steps (steps/s, device ms, peak memory), their CUDA launches and
     idle share by ``torch.profiler``, and one step's device time by stage;
 21. ``bench_train.py --e2e``: ``ContrastiveTrainer`` over 2,000 synthetic
-    docs with augment pairs, 200 timed steps; its checkpoint restored bit
+    docs with augment pairs, 60 timed steps; its checkpoint restored bit
     for bit and resumed; stage 2's claim/evidence cosine from the trained
     state; then ProtoNCE at (4096, 6144, 8192) clusters over 20,000 docs,
     refreshed twice by k-means on the card, its centroids and densities
@@ -186,6 +186,27 @@ Phases, each printed as it runs:
     rtol 1e-5, parameters rtol 5e-4 / atol 5e-6 apart from Adam's sign
     noise, and CP's logits to ``verdict_apply``'s (rtol 2e-5, atol 2e-6);
     wall ms a step of each, with the card's name and power limit.
+29. the paper's measured experiments and the scale rehearsal through the
+    port's tools (``ircl_tpu_torch/tools/``) at the scripts' widths and a
+    cut depth: (a) ``eval_e2e`` (1,000 docs, 100 claims, 20 steps a trained
+    variant) in this process, its ``doc_tfidf``, ``sparse`` and
+    ``dense_untrained`` rows held to the same functions on the CPU: the
+    card's stage-1 lists equal the CPU's but where an exact tie breaks
+    otherwise (the card's top-k and the CPU's break them differently), and
+    ``dense_untrained`` reruns on the card's doc lists with the untrained
+    state and featurizer moved to the CPU (a stage-2 rank may move only
+    among near-equal cosines, and the moves are logged); (b)
+    ``similarity_ab`` (500 docs, 10 steps), its divergence counts against
+    the CPU's; (c) ``verdict_table2`` (100 docs, 400 train claims, 1 epoch,
+    1 restart, the phase-C replay), its retrievals equal to the CPU's up to
+    exact ties, and on them every phase's encoded arrays and every dev
+    variant's bit-equal to the CPU's, its retrieval recall equal, and its
+    dev labels equal to ``predict_in_batches`` on the CPU with the trained
+    parameters but where a logit margin is under 1e-5; (d)
+    ``rehearsal_scale`` (2,000 docs, 200 claims, 2 shards, 5 train steps)
+    in fresh processes started first, every one of them refusing JAX and
+    the JAX package, its summary ``ok`` and its doc recall equal to the
+    port's API in this process.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -207,6 +228,9 @@ sharded scorers must launch #1 and #2 in this process and in every rank
 and in every rank of (b)-(d), and no other kernel anywhere in the phase.
 Before phase 28 every count is zeroed again and must stay 0, in this
 process and in every rank: its path runs no counted kernel.
+Before phase 29 every count is zeroed again: (a)-(c) must launch #1 in this
+process and nothing else, and (d)'s ``retrieve`` and ``serve`` processes
+must launch #1 (each process of the chain writes its counts at exit).
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -265,7 +289,8 @@ TRAINER_PAIRS, TRAINER_EPOCHS, PREDICT_BATCH = 256, 2, 64
 CT_FEAT = dict(dim=768, max_len=64)  # HashEmbedFeaturizer: a 2^18 x 768 table
 CT_TRAIN = {}  # TrainConfig's defaults: BiLSTM 3 x 256 bi over 768-d -> 128
 CT_WARMUP, CT_TIMED_STEPS, CT_PROFILED_STEPS = 3, 30, 3
-CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 20, 200, 256
+# bench_train.py --e2e times 200 steps; 60 here, for the script's time limit
+CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 20, 60, 256
 CT_STAGED_STEPS = 20
 CT_PROTO_DOCS, CT_PROTO_STEPS, CT_PROTO_EVERY, CT_PROTO_LOG = 20_000, 20, 10, 5
 CT_RTOL = 1e-5  # loss and gradient norm, card against CPU: fp32, TF32 off
@@ -286,6 +311,19 @@ SERVE_WAIT_MS, SERVE_WORKERS = 5.0, 2
 SENT_RTOL = 1e-5  # a claim's embedding in another batch: fp32 sums in another order
 # the CLI phase: a synthetic corpus through every command, each in a fresh process
 CLI_DOCS, CLI_CLAIMS, CLI_TRAIN_STEPS, CLI_TIMEOUT = 1000, 200, 20, 600
+# the experiment tools' phase: the scripts' widths, their depth cut
+TOOLS_EVAL = ["--docs", "1000", "--claims", "100", "--steps", "20", "--skip-stem-ab",
+              "--skip-proto"]
+TOOLS_AB = ["--docs", "500", "--claims", "60", "--steps", "10"]
+TOOLS_TABLE2 = ["--docs", "100", "--train-claims", "400", "--dev-claims", "100",
+                "--epochs", "1", "--restarts", "1"]
+TOOLS_REHEARSAL = ["--docs", "2000", "--claims", "200", "--shards", "2",
+                   "--train-steps", "5"]
+TOOLS_TIE_ATOL = 1e-5  # a stage-2 sentence may change rank, card against CPU, only
+# among cosines this close (fp32 through the BiLSTM, sums in another order)
+TOOLS_MARGIN = 1e-5  # a dev label may differ, card against CPU, only below this margin
+TOOLS_SCORE_RTOL = 1e-5  # tf-idf scores, card against CPU: fp32 sums in another order
+TOOLS_TIMEOUT = 900
 # the bf16 and MoE verdict phases: bench_verdict.py's --dtypes bf16 and --moe-experts
 BF16_QUARTER = 0.25  # tests/test_torch_bf16.py's bound, of the bf16-against-f32 distance
 BF16_SHIFT_MIN, BF16_SHIFT_MAX = 1e-5, 0.05  # bf16 logits from the f32 ones (rel. L2):
@@ -4858,6 +4896,388 @@ def phase28_pipeline_context(dev, tok, pairs, tmpdir, smi, model=None):
     return [lc for lc, _, _ in every2] + [lc for lc, _, _ in every4]
 
 
+# Every process of the rehearsal (the tool, its RSS wrappers and each CLI
+# command) starts with this as its sitecustomize: an import of JAX or of the
+# JAX package fails there, and at exit a process that loaded the port's
+# kernel wrappers writes their launch counts into SMOKE_LAUNCH_DIR. A
+# sitecustomize it shadows still runs.
+_TOOL_PROCESS_SITE = r"""
+import atexit, importlib.abc, importlib.machinery, importlib.util, json, os, sys
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"):
+            raise ImportError(f"{name}: a process of the port's tools imported it")
+        return None
+
+sys.meta_path.insert(0, _Refuse())
+
+def _report():
+    out = os.environ.get("SMOKE_LAUNCH_DIR")
+    kernels = {"ircl_tpu_torch.ops.membership_cuda": ("membership_slab",
+                                                      "membership_slab_windowed"),
+               "ircl_tpu_torch.ops.light_add_cuda": ("light_add_topk_t",),
+               "ircl_tpu_torch.ops.flash_attention_cuda": ("flash_attention",)}
+    counts = {n: getattr(sys.modules[m], n).launches
+              for m, names in kernels.items() if m in sys.modules for n in names}
+    if out and counts:
+        with open(os.path.join(out, f"{os.getpid()}.json"), "w") as f:
+            json.dump({"argv": sys.argv, "launches": counts}, f)
+
+atexit.register(_report)
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+def moved_off_ties(card, cpu):
+    """Sentences a claim's card ranking places elsewhere than the CPU's:
+    ``(moved, worst)``, where ``worst`` is the largest gap between a moved
+    sentence's card cosine and the card's cosine at the CPU's rank (or at
+    the list's end, where the CPU dropped it)."""
+    moved, worst = 0, 0.0
+    for keys_a, s_a, keys_b in zip(card.sentences, card.sentence_scores, cpu.sentences):
+        if keys_a == keys_b:
+            continue
+        at_b = {k: p for p, k in enumerate(keys_b)}
+        for j, k in enumerate(keys_a):
+            p = at_b.get(k, len(keys_a) - 1)
+            if p != j:
+                moved += 1
+                worst = max(worst, abs(float(s_a[j]) - float(s_a[min(p, len(s_a) - 1)])))
+    return moved, worst
+
+
+def tied_lists_agree(card, cpu, rtol):
+    """Two devices' ranked ``(ids, scores)`` lists, claim by claim: scores
+    within ``rtol``, and the ids equal as sets within every group of tied
+    scores but the last, which a tie at the cut may fill with other docs
+    (the card's top-k and the CPU's break exact ties differently). Returns
+    how many claims' ids differ, or None where a pair breaks the rule."""
+    differ = 0
+    for (ia, sa), (ib, sb) in zip(card, cpu):
+        sa, sb = np.asarray(sa, np.float64), np.asarray(sb, np.float64)
+        if len(ia) != len(ib) or not np.allclose(sa, sb, rtol=rtol, atol=0.0):
+            return None
+        if list(ia) == list(ib):
+            continue
+        differ += 1
+        start = 0
+        for j in range(1, len(sb)):
+            if sb[j] < sb[j - 1] - rtol * abs(sb[j - 1]):
+                if set(ia[start:j]) != set(ib[start:j]):
+                    return None
+                start = j
+    return differ if len(card) == len(cpu) else None
+
+
+class FixedRanker:
+    """A stage-1 ranker that hands out given ``(ids, scores)`` rows in
+    order: the CPU side of phase 29 reruns a stage on the card's doc lists,
+    so that the check meets the stage and not the card's tie breaks."""
+
+    def __init__(self, rows):
+        self.rows = list(rows)
+
+    def closest_docs_batch(self, queries, k=5):
+        out, self.rows = self.rows[:len(queries)], self.rows[len(queries):]
+        return out
+
+
+def tool_eval_on_cpu(corpus_args, cfg, feat, state, card_deep, card_docs, out):
+    """(a)'s CPU side, on a thread: the stage-1 sweep and the sparse row
+    through the tool's own functions, the card's stage-1 lists against the
+    CPU's, and the untrained dense stage 2 on the card's doc lists with the
+    card's state and featurizer moved to the CPU."""
+    try:
+        from ircl_tpu_torch.models.featurizer import HashEmbedFeaturizer
+        from ircl_tpu_torch.pipeline.dense_scorer import ContrastiveSentenceScorer
+        from ircl_tpu_torch.pipeline.recall import sentence_recall_at_k
+        from ircl_tpu_torch.pipeline.retrieve import host_sparse_scorer, retrieve
+        from ircl_tpu_torch.tools import eval_e2e
+        from ircl_tpu_torch.utils.convert import to_device
+
+        ks = eval_e2e.KS
+        wiki, claims_text, ranker, _ = eval_e2e.build_corpus(*corpus_args, "cpu")
+        out["doc_tfidf"] = eval_e2e.stage1_sweep(wiki, claims_text, ranker)
+        out["deep_ties"] = tied_lists_agree(
+            card_deep, ranker.closest_docs_batch(claims_text, k=max(ks)), TOOLS_SCORE_RTOL)
+        out["sparse"] = eval_e2e.stage2(wiki, claims_text, ranker, host_sparse_scorer())[0]
+        k20 = ranker.closest_docs_batch(claims_text, k=20)
+        out["k20_ties"] = tied_lists_agree(card_docs, k20, TOOLS_SCORE_RTOL)
+        feat_cpu = HashEmbedFeaturizer(feat.config, device="cpu",
+                                       params=to_device(feat.params, "cpu"))
+        scorer = ContrastiveSentenceScorer(cfg, feat_cpu, state_to(state, "cpu"))
+        res = retrieve(claims_text, FixedRanker(card_docs), wiki.sentences, scorer,
+                       k_docs=20, k_sents=max(ks), batch_size=256)
+        out["dense_untrained"] = {
+            k: round(sentence_recall_at_k(wiki.claims, res.sentences, k=k), 4) for k in ks}
+        out["dense_result"] = res
+    except Exception:  # the thread's boundary: the main thread fails with it
+        import traceback
+
+        out["error"] = traceback.format_exc()
+
+
+def tool_launches(launch_dir):
+    """The rehearsal's CLI processes' launch counts, by command."""
+    by_command = {}
+    for name in sorted(os.listdir(launch_dir)):
+        rec = json.load(open(os.path.join(launch_dir, name)))
+        command = next((a for a in rec["argv"] if a in (
+            "fetch", "prepare", "build-index", "train", "retrieve", "serve")), "other")
+        total = by_command.setdefault(command, {})
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return by_command
+
+
+def phase29_tools(dev, root, tmpdir, smi, counted):
+    """The paper's measured experiments and the scale rehearsal through the
+    port's tools at a cut depth: (a) eval_e2e, (b) similarity_ab and (c)
+    verdict_table2 in this process, each held to its deterministic part on
+    the CPU; (d) rehearsal_scale in fresh processes, started first and held
+    to the port's API in this process. Returns this process's launches on
+    (a)-(c) and the rehearsal's by command."""
+    import threading
+
+    import torch
+
+    from ircl_tpu_torch.corpus import fever
+    from ircl_tpu_torch.corpus.store import MemoryDocStore
+    from ircl_tpu_torch.corpus.synthetic import generate
+    from ircl_tpu_torch.data.similarity import sentence_pair_similarity
+    from ircl_tpu_torch.index.build import build_count_index
+    from ircl_tpu_torch.index.ranker import TfidfRanker
+    from ircl_tpu_torch.index.tfidf import tfidf_transform
+    from ircl_tpu_torch.pipeline.recall import doc_recall_at_k
+    from ircl_tpu_torch.tools import eval_e2e, similarity_ab, verdict_table2
+    from ircl_tpu_torch.utils.convert import to_device
+    from ircl_tpu_torch.verdict.model import verdict_apply
+    from ircl_tpu_torch.verdict.train import predict_in_batches
+
+    out_md = os.path.join(tmpdir, "RESULTS_TORCH.md")
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    # (d) first: the CLI chain in fresh processes, beside (a)-(c)
+    reh_ws, launch_dir, site = (os.path.join(tmpdir, n) for n in (
+        "rehearsal", "rehearsal_launches", "rehearsal_site"))
+    os.makedirs(launch_dir)
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(_TOOL_PROCESS_SITE)
+    env = dict(os.environ, SMOKE_LAUNCH_DIR=launch_dir, PYTHONPATH=os.pathsep.join(
+        p for p in (site, root, os.environ.get("PYTHONPATH")) if p))
+    reh = subprocess.Popen(
+        [sys.executable, "-m", "ircl_tpu_torch.tools.rehearsal_scale", *TOOLS_REHEARSAL,
+         "--workdir", reh_ws], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # (a) eval_e2e on the card, its corpus, untrained state and stage-2
+        # results recorded; the CPU side on a thread while (b) and (c) run
+        rec = {"corpus": [], "scorer": [], "retrieved": []}
+        undo = [spy_on(eval_e2e, "build_corpus", lambda a, o: rec["corpus"].append(o)),
+                spy_on(eval_e2e, "ContrastiveSentenceScorer",
+                       lambda a, o: rec["scorer"].append(a)),
+                spy_on(eval_e2e, "retrieve", lambda a, o: rec["retrieved"].append(o))]
+        t0 = time.perf_counter()
+        try:
+            results, sweep = eval_e2e.main([*TOOLS_EVAL, "--out", out_md])
+        finally:
+            for u in undo:
+                u()
+        seconds["eval_e2e"] = round(time.perf_counter() - t0, 2)
+        cfg, feat, state0 = rec["scorer"][0]
+        ea = eval_e2e.parse_args(TOOLS_EVAL)
+        wiki_a, claims_a, ranker_a, _ = rec["corpus"][0]
+        card_deep = ranker_a.closest_docs_batch(claims_a, k=max(eval_e2e.KS))
+        card_docs = list(zip(rec["retrieved"][1].doc_ids, rec["retrieved"][1].doc_scores))
+        del wiki_a, ranker_a
+        cpu_a = {}
+        worker = threading.Thread(target=tool_eval_on_cpu, args=(
+            (ea.docs, ea.claims), cfg, feat, state0, card_deep, card_docs, cpu_a),
+            daemon=True)
+        worker.start()
+
+        # (b) similarity_ab; its divergence counts against the CPU's
+        t0 = time.perf_counter()
+        res_ab = similarity_ab.main([*TOOLS_AB, "--out", out_md])
+        seconds["similarity_ab"] = round(time.perf_counter() - t0, 2)
+        ab = similarity_ab.parse_args(TOOLS_AB)
+        docs = list(generate(num_docs=ab.docs, num_claims=ab.claims,
+                             inflect_prob=ab.inflect, seed=42).sentences.values())
+        want = similarity_ab.divergence(sentence_pair_similarity(docs),
+                                        sentence_pair_similarity(docs, stem=True))
+        got = (res_ab["docs_top_pair_changed"], res_ab["docs_ordering_changed"])
+        if got != want:
+            fail(f"phase 29 (b): divergence counts {got} on the card, {want} on the CPU")
+
+        # (c) verdict_table2; every encoded array, the retrieval recall and
+        # the dev labels against the CPU
+        rec_c = {"train": [], "predict": [], "retrieved": []}
+        undo = [spy_on(verdict_table2, "train_verdict",
+                       lambda a, o: rec_c["train"].append(a[1:5])),
+                spy_on(verdict_table2, "predict_in_batches",
+                       lambda a, o: rec_c["predict"].append((a, o))),
+                spy_on(verdict_table2, "retrieve",
+                       lambda a, o: rec_c["retrieved"].append(o))]
+        t0 = time.perf_counter()
+        try:
+            res_c, table = verdict_table2.main([*TOOLS_TABLE2, "--out", out_md])
+        finally:
+            for u in undo:
+                u()
+        seconds["verdict_table2"] = round(time.perf_counter() - t0, 2)
+        launches = {name: fn.launches for name, fn in counted.items()}
+        t0 = time.perf_counter()
+        va = verdict_table2.parse_args([*TOOLS_TABLE2, "--device", "cpu"])
+        wiki_c, train_c, dev_c = verdict_table2.build_corpus(va)
+        # the card's retrievals (the phase-C replay, the dev claims) against
+        # the CPU's; then the CPU reruns the rest on the card's, so that the
+        # arrays meet the curriculum and the encoding, not the tie breaks
+        retr = verdict_table2.SentenceRetriever(wiki_c, "cpu")
+        cpu_retrieved = [retr(train_c), retr(dev_c)]
+        ties_c = [tied_lists_agree(list(zip(card.doc_ids, card.doc_scores)),
+                                   list(zip(cpu.doc_ids, cpu.doc_scores)), TOOLS_SCORE_RTOL)
+                  for card, cpu in zip(rec_c["retrieved"], cpu_retrieved)]
+        if len(rec_c["retrieved"]) != 2 or None in ties_c:
+            fail(f"phase 29 (c): the card's retrievals differ from the CPU's beyond exact "
+                 f"ties ({ties_c})")
+        card_retrieved = iter(rec_c["retrieved"])
+        phases, tok_corpus = verdict_table2.curriculum(
+            va, train_c, wiki_c.sentences,
+            verdict_table2.make_build_aug(train_c, wiki_c.sentences, va.train_distractors),
+            lambda claims: next(card_retrieved))
+        tok = verdict_table2.train_tokenizer(tok_corpus)
+        encoded = verdict_table2.encode_phases(phases, tok, va.max_length)
+        if len(rec_c["train"]) != len(encoded) or not all(
+                all(np.array_equal(g, w) and g.dtype == w.dtype for g, w in zip(got, enc[0]))
+                for got, enc in zip(rec_c["train"], encoded)):
+            fail("phase 29 (c): the card run's encoded phases differ from the CPU's")
+        res_cpu = {}
+        verdict_table2.dev_variants(dev_c, wiki_c.sentences, lambda c: cpu_retrieved[1],
+                                    res_cpu)
+        variants = verdict_table2.dev_variants(dev_c, wiki_c.sentences,
+                                               lambda claims: next(card_retrieved), {})
+        for key in ("tfidf_sentence_recall@1", "tfidf_sentence_recall@5"):
+            if res_c[key] != res_cpu[key]:
+                fail(f"phase 29 (c): {key} {res_c[key]} on the card, {res_cpu[key]} on "
+                     f"the CPU")
+        moved_labels = 0
+        for (args, preds), override in zip(rec_c["predict"], variants.values()):
+            arrays = verdict_table2.encode_variant(dev_c, wiki_c.sentences, override, tok,
+                                                   va.max_length)
+            if not all(np.array_equal(g, w) for g, w in zip(args[2:5], arrays[:3])):
+                fail("phase 29 (c): a dev variant's encoded arrays differ from the CPU's")
+            params, vcfg = to_device(args[0], "cpu"), args[1]
+            want = predict_in_batches(params, vcfg, *arrays[:3], device="cpu")
+            with torch.no_grad():
+                logits = verdict_apply(params, vcfg, torch.as_tensor(arrays[0]).long(),
+                                       torch.as_tensor(arrays[1], dtype=torch.float32),
+                                       torch.as_tensor(arrays[2]).long())
+            margin = (logits[:, 1] - logits[:, 0]).abs().numpy()
+            moved = preds != want
+            if (margin[moved] >= TOOLS_MARGIN).any():
+                fail(f"phase 29 (c): dev labels differ from the CPU's at margins "
+                     f"{margin[moved].tolist()}")
+            moved_labels += int(moved.sum())
+        if len(rec_c["predict"]) != len(variants):
+            fail(f"phase 29 (c): {len(rec_c['predict'])} predictions for "
+                 f"{len(variants)} evidence sources")
+        seconds["verdict_table2_cpu_check"] = round(time.perf_counter() - t0, 2)
+        log(f"phase 29 (c): verdict_table2 {' '.join(TOOLS_TABLE2)}: the card's doc lists "
+            f"equal the CPU's but where exact ties break otherwise ({ties_c[0]} of "
+            f"{len(train_c)} train and {ties_c[1]} of {len(dev_c)} dev claims); on them "
+            f"{len(encoded)} encoded phases and {len(variants)} dev variants bit-equal to "
+            f"the CPU's, "
+            f"tfidf sentence recall@1/@5 {res_c['tfidf_sentence_recall@1']}/"
+            f"{res_c['tfidf_sentence_recall@5']} equal; {moved_labels} dev labels moved "
+            f"(all under a {TOOLS_MARGIN} margin); restart val F1 "
+            f"{res_c['restart_val_f1s']}; macro F1 by source "
+            f"{ {k: v['f1'] for k, v in table.items()} }")
+
+        # (a)'s CPU side
+        t0 = time.perf_counter()
+        worker.join(TOOLS_TIMEOUT)
+        if worker.is_alive() or "error" in cpu_a:
+            fail(f"phase 29 (a): the CPU side failed: {cpu_a.get('error', 'timed out')}")
+        seconds["eval_e2e_cpu_wait"] = round(time.perf_counter() - t0, 2)
+        for tag in ("doc_tfidf", "sparse", "dense_untrained"):
+            if sweep[tag] != cpu_a[tag]:
+                fail(f"phase 29 (a): the {tag} row {sweep[tag]} on the card, "
+                     f"{cpu_a[tag]} on the CPU")
+        if cpu_a["deep_ties"] is None or cpu_a["k20_ties"] is None:
+            fail("phase 29 (a): the card's stage-1 doc lists differ from the CPU's beyond "
+                 "exact ties")
+        card_res = rec["retrieved"][1]  # sparse, then dense_untrained
+        moved, worst = moved_off_ties(card_res, cpu_a["dense_result"])
+        if worst > TOOLS_TIE_ATOL:
+            fail(f"phase 29 (a): a stage-2 sentence moved {worst:.3g} off its CPU rank's "
+                 f"cosine")
+        gap = max((float(np.abs(np.sort(a) - np.sort(b)).max()) for a, b in zip(
+            card_res.sentence_scores, cpu_a["dense_result"].sentence_scores) if len(a)),
+            default=0.0)
+        log(f"phase 29 (a): eval_e2e {' '.join(TOOLS_EVAL)}: doc_tfidf, sparse and "
+            f"dense_untrained (on the card's doc lists) rows equal the CPU's; the card's "
+            f"stage-1 lists equal the CPU's but where exact ties break otherwise "
+            f"({cpu_a['deep_ties']} claims at k=100, {cpu_a['k20_ties']} at k=20); "
+            f"{moved} stage-2 ranks moved, all within "
+            f"{TOOLS_TIE_ATOL} of their CPU rank's cosine; cosines card against CPU within "
+            f"{gap:.3g}; recall@5 by variant "
+            f"{ {k: v[5] for k, v in sweep.items()} }; train s "
+            f"{ {k: v for k, v in results.items() if k.startswith('train_')} }")
+        log(f"phase 29 (b): similarity_ab {' '.join(TOOLS_AB)}: divergence {got} equals "
+            f"the CPU's; recall@5 surface {res_ab['sentence_recall@5_surface']}, stem "
+            f"{res_ab['sentence_recall@5_stem']}")
+
+        # (d): the chain's summary, its recall against this process's API
+        t0 = time.perf_counter()
+        stdout, stderr = reh.communicate(timeout=TOOLS_TIMEOUT)
+        seconds["rehearsal_wait"] = round(time.perf_counter() - t0, 2)
+        if reh.returncode != 0:
+            fail(f"phase 29 (d): rehearsal_scale exited {reh.returncode}: {stderr[-3000:]}")
+    finally:
+        if reh.poll() is None:
+            reh.kill()
+            reh.wait(timeout=60)
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    if summary.get("ok") is not True:
+        fail(f"phase 29 (d): rehearsal summary {summary}")
+    data = os.path.join(reh_ws, "data")
+    wiki = fever.load_wiki_json(os.path.join(data, "small_wiki.json"))
+    claims = fever.parse_claims_jsonl(os.path.join(data, "shared_task_dev.jsonl"),
+                                      drop_nei=True)
+    ranker = TfidfRanker(tfidf_transform(build_count_index(
+        MemoryDocStore({d: r.get("text", "") for d, r in wiki.items()}), ngram=2,
+        hash_size=1 << 24)), dev)
+    texts = [c.claim for c in claims]
+    doc_lists = [ids for i in range(0, len(texts), 256)
+                 for ids, _ in ranker.closest_docs_batch(texts[i:i + 256], k=5)]
+    mine = doc_recall_at_k(claims, doc_lists, k=5)
+    if summary["doc_recall@k"] != mine:
+        fail(f"phase 29 (d): the chain's doc recall {summary['doc_recall@k']} != {mine} "
+             f"computed in this process")
+    reh_launches = tool_launches(launch_dir)
+    for command in ("retrieve", "serve"):
+        if not reh_launches.get(command, {}).get("membership_slab"):
+            fail(f"phase 29 (d): {command} did not launch membership_slab: {reh_launches}")
+    log(f"phase 29 (d): rehearsal_scale {' '.join(TOOLS_REHEARSAL)}: ok, doc recall@5 "
+        f"{summary['doc_recall@k']} (equal to this process's), sentence recall@5 "
+        f"{summary['sentence_recall@k']}; seconds and peak RSS MB by stage "
+        f"{ {k: (v['seconds'], v['peak_rss_mb']) for k, v in summary['stages'].items()} }; "
+        f"launches by "
+        f"command {reh_launches}; no process loaded JAX or the JAX package")
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"phase 29: {smi}; seconds {json.dumps(seconds)}")
+    del state0, feat, cfg
+    torch.cuda.empty_cache()
+    return launches, reh_launches
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -5477,6 +5897,19 @@ def main() -> None:
     if launched:
         fail(f"phase 28 launched {launched}: its path runs none of the counted kernels")
 
+    # ---- the experiment tools: phase 29, with fresh launch counts -----------
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    tools_launches, reh_launches = phase29_tools(dev, root, tmp.name, smi, counted)
+    others = {name: n for name, n in tools_launches.items()
+              if n and name != "membership_slab"}
+    if not tools_launches["membership_slab"] or others:
+        fail(f"phase 29 launched {tools_launches}: its path runs membership_slab and no "
+             f"other counted kernel")
+    log(f"phase 29: kernel launches in this process "
+        f"{ {k: v for k, v in tools_launches.items() if v} }")
+
     tmp.cleanup()
     loaded = jax_modules()
     if loaded:
@@ -5555,6 +5988,11 @@ def main() -> None:
             # phase 28: this process, then by rank, (b)-(c), (d): none
             report[-1]["launches_pp_cp_path"] = [launches_28[name]] + [
                 lc[k] for lc in pc_rank_launches]
+        if name in ("membership_slab", "membership_slab_windowed"):
+            # phase 29: (a)-(c) in this process, then (d)'s CLI commands
+            report[-1]["launches_tools_path"] = tools_launches[name]
+            report[-1]["launches_rehearsal_path"] = {
+                command: c.get(name, 0) for command, c in reh_launches.items()}
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

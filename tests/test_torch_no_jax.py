@@ -264,6 +264,27 @@ print("JAX_MODULES", sorted(set(sum(every, [])) | {
 """
 
 
+# The four experiment tools imported in a fresh process; each entry point
+# defaults to the card, so without one it raises before any work.
+_TOOLS = r"""
+import sys
+import torch
+from ircl_tpu_torch.tools import eval_e2e, rehearsal_scale, similarity_ab, verdict_table2
+
+for tool in (eval_e2e, similarity_ab, verdict_table2, rehearsal_scale):
+    if not torch.cuda.is_available():
+        try:
+            tool.main(["--out", "/nonexistent/never-written.md"]
+                      if tool is not rehearsal_scale else [])
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError(f"{tool.__name__} ran without a device")
+print("JAX_MODULES", sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
+"""
+
 def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
@@ -315,6 +336,11 @@ def test_port_runs_sharded_ranks_without_loading_jax():
     _run_fresh(_SHARDED_RANKS)
 
 
+def test_port_tools_import_without_jax():
+    """``tools/{eval_e2e,similarity_ab,verdict_table2,rehearsal_scale}.py``
+    load neither JAX nor the JAX package, and default to the card."""
+    _run_fresh(_TOOLS)
+
 def _port_files():
     for base in ("ircl_tpu_torch",):
         for dirpath, _, files in os.walk(os.path.join(ROOT, base)):
@@ -340,7 +366,9 @@ def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
     for new in ("serve_native.py", "cli.py", "config.py", "recall.py",
                 "profiling.py", "fetch.py", "prepare.py", "mesh.py", "launch.py",
                 "common.py", "sharded_index.py", "sharded_hybrid.py", "dp.py",
-                "tp.py", "ep.py", "pp.py", "cp.py", "ring_attention.py"):
+                "tp.py", "ep.py", "pp.py", "cp.py", "ring_attention.py", "eval_e2e.py",
+                "similarity_ab.py", "verdict_table2.py", "rehearsal_scale.py",
+                "results.py"):
         assert any(p.endswith(os.sep + new) for p in files), new
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders
