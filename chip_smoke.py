@@ -96,13 +96,13 @@ Phases, each printed as it runs:
     timed steps (steps/s, device ms, peak memory), their CUDA launches and
     idle share by ``torch.profiler``, and one step's device time by stage;
 21. ``bench_train.py --e2e``: ``ContrastiveTrainer`` over 2,000 synthetic
-    docs with augment pairs, 60 timed steps; its checkpoint restored bit
+    docs with augment pairs, 30 timed steps; its checkpoint restored bit
     for bit and resumed; stage 2's claim/evidence cosine from the trained
-    state; then ProtoNCE at (4096, 6144, 8192) clusters over 20,000 docs,
+    state; then ProtoNCE at (4096, 6144, 8192) clusters over 10,000 docs,
     refreshed twice by k-means on the card, its centroids and densities
     checked;
 22. served doc search under concurrent clients (``bench_serve.py``'s
-    scenarios A and B, 3 s each): ``make_service`` at ``cli serve``'s defaults
+    scenarios A and B, 2 s each): ``make_service`` at ``cli serve``'s defaults
     over the 50K-doc index, closed-loop one-query clients at 1, 8 and 64
     through ``RetrievalService.search``, ``BatchingService``, ``serve_http``
     and ``serve_native_http`` (keep-alive connections, each opened by an
@@ -148,7 +148,7 @@ Phases, each printed as it runs:
     takes one rank a GPU; gloo takes the collectives on CUDA tensors, so
     every shard's kernels run on the card): the three sharded scorers on
     4 ranks, each holding a quarter, against the same gates and (a); then
-    ``ContrastiveTrainer(mesh=)`` on 2 ranks, 20 steps over phase 21's
+    ``ContrastiveTrainer(mesh=)`` on 2 ranks, 10 steps over phase 21's
     corpus, against the one-device trainer (parameters 1e-5, logged losses
     rtol 1e-4, every rank's state bit-equal to rank 0's). Every rank
     reports its launches of #1 and #2 and fails if it loaded JAX; wall ms
@@ -207,6 +207,17 @@ Phases, each printed as it runs:
     in fresh processes started first, every one of them refusing JAX and
     the JAX package, its summary ``ok`` and its doc recall equal to the
     port's API in this process.
+30. the graft entry points (``ircl_tpu_torch/graft_entry.py``) and the
+    sharded-scale tool: (b) ``entry()`` on the card, its loss within 1e-5
+    of the CPU's on the same arguments and its backward reaching
+    ``params_q`` alone; (c) ``dryrun_multichip(8)`` on 8 gloo ranks sharing
+    the card (NCCL takes one rank a card), every section's numbers finite in
+    the reference's shapes; (a) ``tools/sharded_scale.py``'s ``main()`` at
+    its defaults (40,000 docs, 64 queries, ``--ref scipy``) on 8 gloo ranks
+    sharing the card, parity 64/64, its sharded top-k also 64/64 against
+    ``--ref hybrid``'s one-device engine, and #2 on rank 0's shard bit for
+    bit against its plain version. Every rank refuses JAX and the JAX
+    package.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -231,6 +242,9 @@ process and in every rank: its path runs no counted kernel.
 Before phase 29 every count is zeroed again: (a)-(c) must launch #1 in this
 process and nothing else, and (d)'s ``retrieve`` and ``serve`` processes
 must launch #1 (each process of the chain writes its counts at exit).
+Before phase 30 every count is zeroed again: every rank of (a) and of (c)
+must launch #1 and #2 (each rank writes its counts at exit), and this
+process nothing until (a)'s references and slab check.
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -241,6 +255,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import io
 import json
@@ -289,10 +304,12 @@ TRAINER_PAIRS, TRAINER_EPOCHS, PREDICT_BATCH = 256, 2, 64
 CT_FEAT = dict(dim=768, max_len=64)  # HashEmbedFeaturizer: a 2^18 x 768 table
 CT_TRAIN = {}  # TrainConfig's defaults: BiLSTM 3 x 256 bi over 768-d -> 128
 CT_WARMUP, CT_TIMED_STEPS, CT_PROFILED_STEPS = 3, 30, 3
-# bench_train.py --e2e times 200 steps; 60 here, for the script's time limit
-CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 20, 60, 256
+# bench_train.py --e2e times 200 steps; 30 here, for the script's time limit
+CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 20, 30, 256
 CT_STAGED_STEPS = 20
-CT_PROTO_DOCS, CT_PROTO_STEPS, CT_PROTO_EVERY, CT_PROTO_LOG = 20_000, 20, 10, 5
+# ProtoNCE's corpus: 10,000 docs (20,000 until the script's time limit cut it),
+# above the largest granularity, 8192
+CT_PROTO_DOCS, CT_PROTO_STEPS, CT_PROTO_EVERY, CT_PROTO_LOG = 10_000, 20, 10, 5
 CT_RTOL = 1e-5  # loss and gradient norm, card against CPU: fp32, TF32 off
 CT_QUEUE_ATOL = 1e-5  # the enqueued keys: unit vectors, card against CPU
 CT_MOMENT_RTOL = (1e-4, 2e-4)  # mu, nu: of each leaf's largest element
@@ -306,7 +323,7 @@ ONEPASS_RTOL = 1e-5  # against the slab GEMM: another summation order
 # the serving phase: bench_serve.py's scenarios A and B through the port's fronts
 SERVE_QUERIES, SERVE_SENT_QUERIES, SERVE_SAMPLE = 512, 64, 256
 SERVE_CLIENTS = (1, 8, 64)
-SERVE_SECONDS = 3.0  # bench_serve.py runs 8 s a scenario; cut to 3 for the time limit
+SERVE_SECONDS = 2.0  # bench_serve.py runs 8 s a scenario; cut to 2 for the time limit
 SERVE_WAIT_MS, SERVE_WORKERS = 5.0, 2
 SENT_RTOL = 1e-5  # a claim's embedding in another batch: fp32 sums in another order
 # the CLI phase: a synthetic corpus through every command, each in a fresh process
@@ -2508,7 +2525,7 @@ def phase21_contrastive_trainer(dev, feat, tmpdir):
     """bench_train.py --e2e: ContrastiveTrainer over 2,000 synthetic docs with
     augment pairs, timed; its checkpoint round trip and resume; stage 2 from
     the trained state; then ProtoNCE at the reference's granularities over
-    20,000 docs with two k-means refreshes on the card."""
+    10,000 docs with two k-means refreshes on the card."""
     import dataclasses
 
     import torch
@@ -3746,9 +3763,9 @@ PAR_RANKS = 4  # corpus shards on the one card (gloo ranks)
 DP_RANKS = 2  # data-parallel trainer ranks on the one card
 PAR_ELL_CLAIMS = 1024  # the ELL engine's batch
 PAR_DP_STEPS = 3  # make_dp_train_step against make_train_step, bit for bit
-PAR_TRAIN_STEPS, PAR_TRAIN_LOG = 20, 10  # ContrastiveTrainer(mesh=), phase 21's corpus
+PAR_TRAIN_STEPS, PAR_TRAIN_LOG = 10, 5  # ContrastiveTrainer(mesh=), phase 21's corpus
 # the trainer's two losses: TrainConfig() (InfoNCE), and ProtoNCE refreshed at
-# steps 0 and 10 at phase 21's granularities cut by ten with its corpus
+# steps 0 and 5 at phase 21's granularities cut by ten with its corpus
 PAR_TRAINERS = {"InfoNCE": CT_TRAIN,
                 "ProtoNCE": dict(CT_TRAIN, loss="ProtoNCE", cluster_start_steps=0,
                                  cluster_update_steps=PAR_TRAIN_LOG,
@@ -4922,7 +4939,8 @@ def _report():
               for m, names in kernels.items() if m in sys.modules for n in names}
     if out and counts:
         with open(os.path.join(out, f"{os.getpid()}.json"), "w") as f:
-            json.dump({"argv": sys.argv, "launches": counts}, f)
+            json.dump({"argv": sys.argv, "rank": os.environ.get("RANK"),
+                       "launches": counts}, f)
 
 atexit.register(_report)
 _here = os.path.dirname(os.path.abspath(__file__))
@@ -5276,6 +5294,213 @@ def phase29_tools(dev, root, tmpdir, smi, counted):
     del state0, feat, cfg
     torch.cuda.empty_cache()
     return launches, reh_launches
+
+
+# ---- phase 30: the graft entry points and the sharded-scale tool ---------------
+
+ENTRY_RANKS = 8  # the reference's dry run and scripts/sharded_scale.py: 8 devices
+ENTRY_LOSS_RTOL = 1e-5  # entry()'s loss, card against CPU: fp32, TF32 off
+# the shapes of the reference's numbers in its dry run at 8 devices, which
+# tests/test_torch_graft_entry.py holds the port's to on the CPU
+DRYRUN_SHAPES = dict(
+    dp=dict(loss=(), grad_norm=()), dense=dict(scores=(8, 5), ids=(8, 5)),
+    ell=dict(scores=(128, 3), ids=(128, 3)), hybrid=dict(scores=(6, 3), ids=(6, 3)),
+    cp=dict(logits=(4, 2), loss=()),
+    **{s: dict(loss=()) for s in ("tp", "sp", "pp", "pp_moe", "pp_ep_tp", "ep", "checkpoint")})
+
+
+def rank_launches(launch_dir):
+    """The launch counts of #1 and #2 in each rank that wrote into
+    ``launch_dir`` (the processes that ``parallel/launch.py`` gave a
+    ``RANK``), in rank order."""
+    ranks = {}
+    for name in os.listdir(launch_dir):
+        rec = json.load(open(os.path.join(launch_dir, name)))
+        if rec.get("rank") is not None:
+            ranks[int(rec["rank"])] = [rec["launches"].get(k, 0)
+                                       for k in ("membership_slab", "membership_slab_windowed")]
+    return [ranks[r] for r in sorted(ranks)]
+
+
+def shard0_slab_equal(dev, split, u_pad):
+    """#2 on rank 0's block of the heavy ELL of 8 ranks (the block
+    ``parallel/common.py::pad_and_shard_ell_t`` cuts: K padded to 8 with -1
+    terms, docs to 8 x 256) with the tool's heavy union, against its plain
+    version: bit for bit, and the slab's shape."""
+    import torch
+
+    from ircl_tpu_torch.ops.hybrid import _u_tile
+    from ircl_tpu_torch.ops.membership_cuda import (membership_slab_ref,
+                                                    membership_slab_windowed)
+
+    n, k_w = split.heavy.terms.shape
+    rows = -(-n // (ENTRY_RANKS * 256)) * 256
+    terms = np.full((-(-k_w // 8) * 8, rows), -1, np.int32)
+    vals = np.zeros(terms.shape, np.float32)
+    m = min(rows, n)
+    terms[:k_w, :m] = split.heavy.terms[:m].T
+    vals[:k_w, :m] = split.heavy.vals[:m].T
+    u, t, v = (torch.as_tensor(x, device=dev) for x in (u_pad, terms, vals))
+    got = membership_slab_windowed(u, t, v, u_tile=_u_tile(u.shape[0], 256), d_tile=256)
+    return torch.equal(got, membership_slab_ref(u, t, v)), tuple(got.shape)
+
+
+@contextlib.contextmanager
+def reporting_ranks(site_path, launch_dir):
+    """While open, the ranks this process spawns start with the
+    ``sitecustomize`` in ``site_path``, which refuses JAX and writes each
+    rank's launch counts into ``launch_dir`` at its exit."""
+    saved = {k: os.environ.get(k) for k in ("PYTHONPATH", "SMOKE_LAUNCH_DIR")}
+    os.environ.update(PYTHONPATH=site_path, SMOKE_LAUNCH_DIR=launch_dir)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase30_graft_entry(dev, root, tmpdir, smi, counted):
+    """The graft entry points and the sharded-scale tool on the card:
+    (b) ``entry()`` card against CPU, and one backward; (c)
+    ``dryrun_multichip(8)`` on 8 gloo ranks sharing the card; (a)
+    ``tools/sharded_scale.py``'s ``main()`` at its defaults (``--ref
+    scipy``) on 8 gloo ranks sharing the card, its sharded top-k also held
+    to the ``--ref hybrid`` reference, and #2 on rank 0's shard against its
+    plain version. The ranks are spawned from this process one launch at a
+    time (beside each other, ranks' start-ups and collectives slowed each
+    other down); each refuses JAX and writes its launches at exit. Returns
+    the launches of #1 and #2 by rank, by run."""
+    import torch
+
+    from ircl_tpu_torch import graft_entry
+    from ircl_tpu_torch.tools import sharded_scale
+    from ircl_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    seconds, launches = {}, {}
+    site = os.path.join(tmpdir, "graft_site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(_TOOL_PROCESS_SITE)
+    site_path = os.pathsep.join(p for p in (site, root, os.environ.get("PYTHONPATH")) if p)
+
+    # (b) entry() on the card against the CPU; a backward reaches params_q only
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    fn_cpu, args_cpu = graft_entry.entry("cpu")
+    for a, b in zip(tree_leaves(list(args)), tree_leaves(list(args_cpu))):
+        if not torch.equal(a.cpu(), b):
+            fail("phase 30 (b): entry()'s arguments on the card differ from the CPU's")
+    q_leaves, k_leaves = tree_leaves(args[0]), tree_leaves(args[1])
+    for leaf in q_leaves + k_leaves:
+        leaf.requires_grad_()
+    loss = fn(*args)
+    loss.backward()
+    loss, loss_cpu = float(loss.detach()), float(fn_cpu(*args_cpu))
+    if not np.isclose(loss, loss_cpu, rtol=ENTRY_LOSS_RTOL, atol=0.0):
+        fail(f"phase 30 (b): entry()'s loss {loss} on the card, {loss_cpu} on the CPU")
+    if any(x.grad is not None for x in k_leaves) or any(
+            x.grad is None for x in q_leaves) or not any(
+            bool(x.grad.abs().max() > 0) for x in q_leaves):
+        fail("phase 30 (b): the backward of entry()'s loss reached params_k or "
+             "missed params_q")
+    launched = {name: fn_.launches for name, fn_ in counted.items() if fn_.launches}
+    if launched:
+        fail(f"phase 30 (b): entry() launched {launched}: its path runs no counted kernel")
+    seconds["entry"] = round(time.perf_counter() - t0, 2)
+    log(f"phase 30 (b): entry() on the card: loss {loss!r} against {loss_cpu!r} on the "
+        f"CPU (rtol {ENTRY_LOSS_RTOL}); the backward reaches the {len(q_leaves)} "
+        f"leaves of params_q and none of params_k")
+
+    # (c) the dry run on 8 gloo ranks sharing the card
+    t0 = time.perf_counter()
+    dry_dir = os.path.join(tmpdir, "graft_dryrun")
+    os.makedirs(dry_dir)
+    try:
+        with reporting_ranks(site_path, dry_dir):
+            dry = graft_entry.dryrun_multichip(ENTRY_RANKS)
+    except Exception as e:
+        fail(f"phase 30 (c): dryrun_multichip({ENTRY_RANKS}) failed: {e}")
+    seconds["dryrun"] = round(time.perf_counter() - t0, 2)
+    if dry.pop("backend") != "gloo" or set(dry) != set(DRYRUN_SHAPES):
+        fail(f"phase 30 (c): the dry run returned sections {sorted(dry)}")
+    for name, want in DRYRUN_SHAPES.items():
+        for key, shape in want.items():
+            value = np.asarray(dry[name][key])
+            if value.shape != shape or not np.isfinite(value).all():
+                fail(f"phase 30 (c): {name}'s {key} {value} is not finite of shape {shape}")
+    launches["dryrun"] = rank_launches(dry_dir)
+    if len(launches["dryrun"]) != ENTRY_RANKS or not all(
+            n1 and n2 for n1, n2 in launches["dryrun"]):
+        fail(f"phase 30 (c): #1 and #2 did not run on every shard: {launches['dryrun']}")
+    log(f"phase 30 (c): dryrun_multichip({ENTRY_RANKS}) on {ENTRY_RANKS} gloo ranks "
+        f"sharing the card: every section finite in the reference's shapes; losses "
+        f"{ {n: float(dry[n]['loss']) for n in DRYRUN_SHAPES if 'loss' in dry[n]} }, "
+        f"grad norm {float(dry['dp']['grad_norm'])!r}; launches of (#1, #2) by rank "
+        f"{launches['dryrun']}; {seconds['dryrun']} s")
+
+    # (a) the tool's main() at its defaults; its host inputs and sharded top-k
+    # are kept for the hybrid reference and the slab check
+    t0 = time.perf_counter()
+    scale_dir = os.path.join(tmpdir, "graft_scale")
+    os.makedirs(scale_dir)
+    kept = {}
+    undo = [spy_on(sharded_scale, "sharded_inputs",
+                   lambda a, out: kept.update(single=a[0], qb=a[1], qw=a[2], inputs=out)),
+            spy_on(sharded_scale, "sharded_topk", lambda a, out: kept.update(topk=out))]
+    printed = io.StringIO()
+    try:
+        with reporting_ranks(site_path, scale_dir), contextlib.redirect_stdout(printed):
+            line = sharded_scale.main([])
+    except (Exception, SystemExit) as e:
+        fail(f"phase 30 (a): sharded_scale failed: {e!r}")
+    finally:
+        for u in undo:
+            u()
+    seconds["sharded_scale"] = round(time.perf_counter() - t0, 2)
+    launched = {name: fn_.launches for name, fn_ in counted.items() if fn_.launches}
+    if launched:
+        fail(f"phase 30 (a): main() launched {launched} in this process, where its "
+             f"kernels run in the ranks")
+    opts = sharded_scale.parse_args([])
+    want = dict(docs=opts.docs, parity=f"{opts.batch}/{opts.batch}", backend="gloo",
+                ranks=ENTRY_RANKS)
+    if json.loads(printed.getvalue().strip().splitlines()[-1]) != line or any(
+            line.get(k) != v for k, v in want.items()):
+        fail(f"phase 30 (a): sharded_scale printed {printed.getvalue()!r}, returned {line}")
+    launches["sharded_scale"] = rank_launches(scale_dir)
+    if len(launches["sharded_scale"]) != ENTRY_RANKS or not all(
+            n1 and n2 for n1, n2 in launches["sharded_scale"]):
+        fail(f"phase 30 (a): #1 and #2 did not run on every shard: "
+             f"{launches['sharded_scale']}")
+    # --ref hybrid: the one-device hybrid engine's top-k (its launches here are
+    # the reference's, not the path's), the tool's gate
+    t0 = time.perf_counter()
+    single, (s, i, shard_s, _) = kept["single"], kept["topk"]
+    ref = sharded_scale.hybrid_reference(single, kept["qb"], kept["qw"], sharded_scale.K)
+    bad = sharded_scale.parity_failures(s[:opts.batch], i[:opts.batch], *ref)
+    hybrid_line = sharded_scale.result_line(opts.docs, opts.batch, bad, single._split, "gloo")
+    if hybrid_line != line:
+        fail(f"phase 30 (a): against the one-device hybrid engine {hybrid_line}")
+    # #2 on rank 0's shard of the tool's index, against its plain version
+    equal, slab_shape = shard0_slab_equal(dev, single._split, kept["inputs"]["u_pad"])
+    if not equal:
+        fail("phase 30 (a): membership_slab_windowed on rank 0's shard differs from its "
+             "plain version")
+    seconds["hybrid_ref_and_slab"] = round(time.perf_counter() - t0, 2)
+    log(f"phase 30 (a): sharded_scale at its defaults: {json.dumps(line)}; the same top-k "
+        f"against the one-device hybrid engine: parity {hybrid_line['parity']}; rank 0's "
+        f"top-k {shard_s:.2f} s; membership_slab_windowed on rank 0's shard "
+        f"{list(slab_shape)} bit-equal to its plain version; launches of (#1, #2) by rank "
+        f"{launches['sharded_scale']}")
+    del single, kept
+    seconds["phase"] = round(time.perf_counter() - t_phase, 2)
+    log(f"phase 30: {smi}; seconds {json.dumps(seconds)}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serve_lines(service, lines):
@@ -5910,6 +6135,12 @@ def main() -> None:
     log(f"phase 29: kernel launches in this process "
         f"{ {k: v for k, v in tools_launches.items() if v} }")
 
+    # ---- the graft entry points and the sharded-scale tool: phase 30 --------
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    graft_launches = phase30_graft_entry(dev, root, tmp.name, smi, counted)
+
     tmp.cleanup()
     loaded = jax_modules()
     if loaded:
@@ -5993,6 +6224,10 @@ def main() -> None:
             report[-1]["launches_tools_path"] = tools_launches[name]
             report[-1]["launches_rehearsal_path"] = {
                 command: c.get(name, 0) for command, c in reh_launches.items()}
+            # phase 30: by run, each rank's launches
+            k = ("membership_slab", "membership_slab_windowed").index(name)
+            report[-1]["launches_graft_entry_path"] = {
+                run: [rank[k] for rank in ranks] for run, ranks in graft_launches.items()}
     log(smi)
     log(json.dumps({"kernels": report}))
     print(json.dumps({

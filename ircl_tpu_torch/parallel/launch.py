@@ -43,6 +43,16 @@ from ircl_tpu_torch.utils.device import resolve_device
 _GRACE_S = 10.0  # how long the other ranks may take to fail after the first
 
 
+def backend_for(device, world_size: int) -> str:
+    """The backend of ``world_size`` ranks on ``device``'s type (by default
+    the card): gloo on the CPU; NCCL where the host has a card for every
+    rank; otherwise gloo, whose collectives take CUDA tensors, so that
+    several ranks share a card (NCCL cannot put two ranks on one card)."""
+    if resolve_device(device).type != "cuda":
+        return "gloo"
+    return "nccl" if torch.cuda.device_count() >= world_size else "gloo"
+
+
 def launch(fn, world_size: int, *args, device=None, backend=None,
            timeout: float = 900.0):
     """``fn(*args)`` in ``world_size`` ranks on ``device``'s type (by

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from ircl_tpu_torch import graft_entry
 from ircl_tpu_torch.contrastive import cluster as t_cluster
 from ircl_tpu_torch.contrastive import state as t_state
 from ircl_tpu_torch.models import encoder as t_enc
@@ -98,6 +99,7 @@ ENTRY_POINTS = {
                                                     num_redo=1, **kw).centroids,
     "run_hierarchical": lambda **kw: t_cluster.run_hierarchical(EMB, (2,), 0.05,
                                                                 **kw).density,
+    "graft_entry.entry": lambda **kw: list(graft_entry.entry(**kw)[1]),
     "train_verdict": lambda **kw: t_train.train_verdict(
         VCFG, np.zeros((4, 8), np.int32), np.ones((4, 8), np.float32),
         np.zeros((4, 8), np.int32), np.zeros(4, np.int32), epochs=1, batch_size=2,

@@ -5,6 +5,7 @@ The check runs in a subprocess, because this test process has loaded JAX
 already (``tests/conftest.py``).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -341,6 +342,60 @@ def test_port_tools_import_without_jax():
     load neither JAX nor the JAX package, and default to the card."""
     _run_fresh(_TOOLS)
 
+
+# The sitecustomize of a fresh process and of every rank it spawns (they
+# inherit PYTHONPATH): an import of JAX or of the JAX package fails there.
+# A sitecustomize it shadows still runs.
+_REFUSE_JAX_SITE = r"""
+import importlib.abc, importlib.machinery, importlib.util, os, sys
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ircl_tpu"):
+            raise ImportError(f"{name}: the port's process imported it")
+        return None
+
+sys.meta_path.insert(0, _Refuse())
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+def _run_module_refusing_jax(tmp_path, module, *argv):
+    """``python -m module argv`` in a fresh process whose imports of JAX or
+    ``ircl_tpu`` fail, in it and in every rank it spawns; its JSON line."""
+    (tmp_path / "sitecustomize.py").write_text(_REFUSE_JAX_SITE)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(tmp_path), ROOT, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-m", module, *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_dry_run_runs_without_loading_jax(tmp_path):
+    """``python -m ircl_tpu_torch.graft_entry dryrun 2 --device cpu``: the
+    launching process and both ranks run every section without JAX."""
+    line = _run_module_refusing_jax(tmp_path, "ircl_tpu_torch.graft_entry", "dryrun", "2",
+                                    "--device", "cpu")
+    assert line["dryrun"] == 2 and line["backend"] == "gloo"
+    assert list(line["sections"]) == ["dp", "dense", "ell", "hybrid", "tp", "sp", "pp",
+                                      "pp_moe", "ep", "checkpoint", "cp"]
+
+
+def test_port_sharded_scale_runs_without_loading_jax(tmp_path):
+    """``python -m ircl_tpu_torch.tools.sharded_scale --docs 500 --device
+    cpu``: the launching process and its 8 ranks, without JAX."""
+    line = _run_module_refusing_jax(tmp_path, "ircl_tpu_torch.tools.sharded_scale",
+                                    "--docs", "500", "--device", "cpu")
+    assert (line["docs"], line["parity"], line["ranks"]) == (500, "64/64", 8)
+
 def _port_files():
     for base in ("ircl_tpu_torch",):
         for dirpath, _, files in os.walk(os.path.join(ROOT, base)):
@@ -368,7 +423,7 @@ def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
                 "common.py", "sharded_index.py", "sharded_hybrid.py", "dp.py",
                 "tp.py", "ep.py", "pp.py", "cp.py", "ring_attention.py", "eval_e2e.py",
                 "similarity_ab.py", "verdict_table2.py", "rehearsal_scale.py",
-                "results.py"):
+                "results.py", "graft_entry.py", "sharded_scale.py"):
         assert any(p.endswith(os.sep + new) for p in files), new
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders
