@@ -21,8 +21,11 @@ Phases, each printed as it runs:
 3. the served path, hybrid: ``make_service`` + ``serve_stdin`` over JSONL,
    every reply held against scipy's top-k;
 4. the served path, ELL (20K docs, ``mode="auto"``), checked the same way;
-5. the judged ranker (``bench.py``'s settings) on all 4096 claims, held to
-   the bench's full-batch scipy gate, then q/s and a per-stage split;
+5. the judged benchmark, ``tools/bench.py``'s ``run_judged`` (the port of
+   ``bench.py``) on phase 1's index and claims: its full-batch scipy gate
+   (4096/4096), its plateau rounds (6-16) and its line, held to the
+   reference's metric and unit, then latency at B=4096, 512 and 128 and a
+   per-stage split of one batch;
 6. the dense chunk-max kernels (``cosine_topk_fused``'s phase 1; the bf16
    tensor-core kernel and the SIMT kernel, as ``chunk_max_route`` routes a
    call) against their plain version at ``bench_dense.py``'s shape and on a
@@ -5534,8 +5537,8 @@ def main() -> None:
     from ircl_tpu_torch.corpus.hashing import native_available
     from ircl_tpu_torch.corpus.store import MemoryDocStore
     from ircl_tpu_torch.corpus.synthetic import generate
-    from ircl_tpu_torch.index.build import CountIndex, build_count_index, to_scipy
-    from ircl_tpu_torch.index.ranker import TfidfRanker, vectorize_queries
+    from ircl_tpu_torch.index.build import CountIndex, build_count_index
+    from ircl_tpu_torch.index.ranker import TfidfRanker
     from ircl_tpu_torch.index.tfidf import tfidf_transform
     from ircl_tpu_torch.ops import hybrid as hy
     from ircl_tpu_torch.ops.light_add_cuda import (
@@ -5736,45 +5739,40 @@ def main() -> None:
         f"scipy (rtol 1e-4); the malformed line got an error reply")
     del svc
 
-    # ---- phase 5: the judged configuration ---------------------------------
-    before = {name: fn.launches for name, fn in kernels.items()}
-    t0 = time.perf_counter()
-    results5 = ranker.closest_docs_batch(claims, k=K)
-    first_s = time.perf_counter() - t0
-    mat = to_scipy(index)
-    b_ref, w_ref = vectorize_queries(
-        claims, HASH_SIZE, 2, index.doc_freqs, index.num_docs
-    )
-    import scipy.sparse as sp
+    # ---- phase 5: the judged configuration, through tools/bench.py --------
+    from ircl_tpu_torch.tools import bench as judged_bench
 
-    doc2idx = index.doc2idx
-    mismatches = 0
-    scipy_top = []  # per claim, scipy's top-K scores (phase 26 gates on them too)
-    for b in range(NUM_CLAIMS):  # bench.py's full-batch gate
-        nz = w_ref[b] != 0
-        spvec = sp.csr_matrix(
-            (w_ref[b][nz], b_ref[b][nz], [0, int(nz.sum())]),
-            shape=(1, HASH_SIZE),
-        )
-        res = spvec * mat
-        if len(res.data) <= K:
-            o = np.argsort(-res.data)
-        else:
-            o = np.argpartition(-res.data, K)[:K]
-            o = o[np.argsort(-res.data[o])]
-        ref_scores = res.data[o]
-        scipy_top.append(ref_scores)
-        got_ids = np.array([doc2idx[d] for d in results5[b][0]])
-        got_scores = results5[b][1]
-        n = min(len(o), len(got_ids))
-        if not np.allclose(
-            np.sort(ref_scores[:n]), np.sort(got_scores[:n]), rtol=1e-4
-        ):
-            mismatches += 1
-    log(f"phase 5: parity {NUM_CLAIMS - mismatches}/{NUM_CLAIMS} queries "
-        f"match scipy (rtol 1e-4); first batch {first_s:.2f} s")
-    if mismatches:
-        fail(f"phase 5: top-k parity failed on {mismatches} queries")
+    t_phase = time.perf_counter()
+    del ranker  # phase 2's judged ranker: the bench builds its own
+    before = {name: fn.launches for name, fn in kernels.items()}
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            bench_run = judged_bench.run_judged(index, claims, device=dev)
+    except judged_bench.BenchFailure as e:
+        fail(f"phase 5: {e}")
+    line = bench_run.line
+    log(f"phase 5: tools/bench.py's judged run: {json.dumps(line)}")
+    if printed.getvalue() != json.dumps(line) + "\n":
+        fail(f"phase 5: the bench printed {printed.getvalue()!r}, returned {line}")
+    if bench_run.failures:
+        fail(f"phase 5: the bench failed after its line: {bench_run.failures}")
+    if len(bench_run.scipy_top) != NUM_CLAIMS:
+        fail(f"phase 5: {len(bench_run.scipy_top)} scipy top-{K} lists")
+    if (line["metric"], line["unit"]) != ("sparse_tfidf_retrieval_qps_per_chip",
+                                          "queries/s"):
+        fail(f"phase 5: the line's metric and unit are {line['metric']}, {line['unit']}")
+    if not (6 <= line.get("rounds", 0) <= 16
+            and line["value"] >= line["median"] > 0 and line["vs_baseline"] > 1):
+        fail(f"phase 5: the line is not a plateaued gated run: {line}")
+    if sorted(bench_run.latency) != [128, 512, NUM_CLAIMS]:
+        fail(f"phase 5: latency at B={sorted(bench_run.latency)}")
+    scipy_top = bench_run.scipy_top  # per claim, scipy's top-K scores (phase 26 too)
+    log(f"phase 5: parity {NUM_CLAIMS}/{NUM_CLAIMS} queries match scipy "
+        f"(rtol 1e-4); {line['rounds']} rounds "
+        f"{', '.join(f'{q:.1f}' for q in bench_run.rounds)} q/s; latency p50/p95 ms "
+        + ", ".join(f"B={b}: {p50:.1f}/{p95:.1f}"
+                    for b, (p50, p95) in bench_run.latency.items()))
     for name in ("membership_slab_windowed", "light_add_topk_t"):
         if kernels[name].launches == before[name]:
             fail(f"phase 5 did not launch {name}")
@@ -5782,17 +5780,10 @@ def main() -> None:
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main path")
-    log(f"phases 3-5: kernel launches {launches}")
-
-    qps = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ranker.closest_docs_batch(claims, k=K)
-        qps.append(NUM_CLAIMS / (time.perf_counter() - t0))
-    log(f"phase 5: end to end at B={NUM_CLAIMS}: "
-        f"{', '.join(f'{q:.1f}' for q in qps)} q/s "
-        f"(median {float(np.median(qps)):.1f})")
+    in_phase5 = {name: launches[name] - before[name] for name in launches}
+    log(f"phases 3-5: kernel launches {launches} (phase 5: {in_phase5})")
+    ranker = bench_run.ranker
+    del bench_run
 
     # per-stage split of one batch
     t0 = time.perf_counter()
@@ -5830,6 +5821,7 @@ def main() -> None:
         f"first batch, which allocates the buffers: {first:.3f} ms), GEMM "
         f"{ms[1]:.3f} ms, light-add + top-k {ms[2]:.3f} ms")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase 5: {time.perf_counter() - t_phase:.1f} s")
     log(f"phases 1-5: {time.perf_counter() - t_sparse:.1f} s")
     del ranker, m, wt, h_t, ts, ti, top_s, top_pos, u_pad, qb_t, qw_t, ld, lc
     torch.cuda.empty_cache()

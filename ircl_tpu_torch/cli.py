@@ -30,8 +30,9 @@ starts that many ranks, one a CUDA device, and refuses a count past the
 devices with the reference's message. Only rank 0 prints the history line
 and writes the checkpoint.
 
-Not ported yet, raising ``NotImplementedError``: ``bench`` (the port has no
-benchmark, ROADMAP.md queue 1 item 4).
+``bench`` runs the judged sparse benchmark (``tools/bench.py``) at its
+defaults on ``--device``; the reference's ``bench`` hands the subcommand
+on to ``bench.py``'s parser, which refuses it.
 
 Where the JAX package writes orbax checkpoints, the port writes its own
 (``utils/checkpoint.py``, ``verdict/infer.py``) under the same names.
@@ -44,12 +45,6 @@ import dataclasses
 import json
 import os
 import sys
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})"
-    )
 
 
 def _seed_everything(seed: int) -> None:
@@ -465,7 +460,11 @@ def cmd_eval_verdict(args):
 
 
 def cmd_bench(args):
-    raise _not_ported("cli bench (a benchmark of the port)", 4)
+    """The judged sparse benchmark (``tools/bench.py``) at its defaults;
+    its exit code. No argument of this command line reaches its parser."""
+    from ircl_tpu_torch.tools import bench
+
+    return bench.main(["--device", str(args.device)])
 
 
 def cmd_serve(args):

@@ -425,13 +425,19 @@ class TfidfRanker:
     ):
         """Hybrid scoring from prebuilt query vectors ([B, T] buckets +
         weights); returns device tensors (no sync)."""
+        return self.hybrid_from_host_async(
+            self.hybrid_host_inputs(buckets, weights), k
+        )
+
+    def hybrid_from_host_async(self, host, k: int):
+        """The device half of a hybrid batch: ``hybrid_host_inputs``'
+        arrays uploaded and scored; returns device tensors (no sync)."""
         from ircl_tpu_torch.ops.hybrid import (
             hybrid_topk,
             hybrid_topk_bucketed,
             hybrid_topk_bucketed_fused,
         )
 
-        host = self.hybrid_host_inputs(buckets, weights)
         u_pad, qb_t, qw_t, ld, lc = (_put(x, self.device) for x in host)
         if self._bucketed is not None:
             kw = dict(

@@ -391,12 +391,64 @@ def test_serve_native_front_answers_and_stops_on_a_signal(workspaces):
             proc.wait(timeout=TIMEOUT)
 
 
-# ---- what is not ported raises, naming its item --------------------------------
+# ---- bench: the judged sparse benchmark -------------------------------------------
 
 
-def test_bench_raises_item_4():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run_t(["bench"])
+def test_bench_raises_item_4(monkeypatch, capsys):
+    """``cli bench`` runs ``tools/bench.py``'s judged run at its defaults
+    and exits with its code; no argument of the CLI's command line reaches
+    the tool's parser. The corpus, the claims and the depth are narrowed
+    through the tool's constants (one batch a round, one round, one latency
+    call), on four torch threads."""
+    from ircl_tpu_torch.tools import bench
+
+    for name, value in (("NUM_DOCS", 2000), ("NUM_CLAIMS", 64), ("REPS", 1),
+                        ("MAX_ROUNDS", 1), ("LATENCY_CALLS", 1),
+                        ("LATENCY_BURN_IN", 0)):
+        monkeypatch.setattr(bench, name, value)
+    argvs = []
+    parse_args = bench.parse_args
+    monkeypatch.setattr(bench, "parse_args",
+                        lambda argv=None: argvs.append(argv) or parse_args(argv))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        rc = run_t(["bench"])
+    finally:
+        torch.set_num_threads(threads)
+    out, err = capsys.readouterr()
+    assert rc == 0, err
+    assert argvs == [["--device", "cpu"]]
+    (line,) = out.splitlines()
+    got = json.loads(line)
+    assert list(got) == ["metric", "value", "unit", "vs_baseline", "median", "rounds"]
+    assert got["metric"] == "sparse_tfidf_retrieval_qps_per_chip" and got["rounds"] == 1
+    assert "index built" in err and "2000 docs" in err
+    assert "parity: 64/64 queries match" in err
+
+
+def test_reference_bench_refuses_its_own_subcommand(monkeypatch, capsys):
+    """The reference's ``cli bench`` hands ``sys.argv`` on to ``bench.py``'s
+    parser, which refuses the subcommand before any work (exit 2); the
+    port's passes the tool an argument list of its own."""
+    monkeypatch.setattr(sys, "argv", ["cli.py", "bench"])
+    with pytest.raises(SystemExit) as e:
+        j_cli.main(["bench"])
+    assert e.value.code == 2
+    assert "unrecognized arguments: bench" in capsys.readouterr().err
+
+
+def test_bench_help_stays_in_the_cli(capsys):
+    """``--device cpu bench --help`` is the CLI's help of a command without
+    flags, not the tool's."""
+    with pytest.raises(SystemExit) as e:
+        t_cli.main(["--device", "cpu", "bench", "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "--claims" not in out and "--df-threshold" not in out
+
+
+# ---- what once raised, naming its item --------------------------------------------
 
 
 def test_cli_train_dp_raises_item_12_over_several_devices(workspaces, capsys, tmp_path):

@@ -265,18 +265,20 @@ print("JAX_MODULES", sorted(set(sum(every, [])) | {
 """
 
 
-# The four experiment tools imported in a fresh process; each entry point
-# defaults to the card, so without one it raises before any work.
+# The four experiment tools and the judged bench imported in a fresh process;
+# each entry point defaults to the card, so without one it raises before any
+# work.
 _TOOLS = r"""
 import sys
 import torch
-from ircl_tpu_torch.tools import eval_e2e, rehearsal_scale, similarity_ab, verdict_table2
+from ircl_tpu_torch.tools import (bench, eval_e2e, rehearsal_scale, similarity_ab,
+                                  verdict_table2)
 
-for tool in (eval_e2e, similarity_ab, verdict_table2, rehearsal_scale):
+for tool in (eval_e2e, similarity_ab, verdict_table2, rehearsal_scale, bench):
     if not torch.cuda.is_available():
         try:
             tool.main(["--out", "/nonexistent/never-written.md"]
-                      if tool is not rehearsal_scale else [])
+                      if tool not in (rehearsal_scale, bench) else [])
         except RuntimeError as e:
             assert "no CUDA device" in str(e), e
         else:
@@ -338,8 +340,9 @@ def test_port_runs_sharded_ranks_without_loading_jax():
 
 
 def test_port_tools_import_without_jax():
-    """``tools/{eval_e2e,similarity_ab,verdict_table2,rehearsal_scale}.py``
-    load neither JAX nor the JAX package, and default to the card."""
+    """``tools/{eval_e2e,similarity_ab,verdict_table2,rehearsal_scale,
+    bench}.py`` load neither JAX nor the JAX package, and default to the
+    card."""
     _run_fresh(_TOOLS)
 
 
