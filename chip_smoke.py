@@ -41,6 +41,19 @@ Phases, each printed as it runs:
 9. served sentence search over those docs (``make_service`` with a
    precomputed sentence table, ``serve_stdin``), every reply checked, and
    the dense top-k over the sentence table against numpy;
+31. (run right after phase 9) phase 8's transformer written as a
+    ``bert-base-uncased``-shaped HuggingFace checkpoint (``config.json``,
+    ``vocab.txt``, ``tokenizer_config.json``; the weights under the original
+    names, ``bert.`` prefix, LayerNorm ``gamma``/``beta``, ``[out, in]``,
+    pooler and ``cls`` heads, once as ``pytorch_model.bin`` and once as
+    ``model.safetensors``) and once more in a temporary hub cache; each form
+    loaded by ``TransformerFeaturizer.from_huggingface`` onto the card: the
+    config equal to phase 8's, every parameter and ``features`` on 16
+    sentences bit-equal to phase 8's, the card within ``ENC_DEVICE_ATOL``
+    of the CPU; then about 2,000 sentences embedded through it with the
+    port's BERT tokenizer, 4 request lines of served sentence search over
+    phase 9's index with that table (replies checked as phase 9 checks its
+    own) and the dense top-k over it against numpy;
 10. the flash-attention kernel against its plain version (in full fp32, and
     with its products split into TF32 halves as the kernel takes them) at
     the verdict model's shape, ``[32, 12, 512, 64]``, with segment ids from
@@ -95,11 +108,11 @@ Phases, each printed as it runs:
     micro-batches, queue 12,544, Adam) on ``bench_train.py``'s seeded ids:
     one step on the card against the CPU from one state (loss, grad norm,
     both encoders, Adam's moments, the queue, pointer and step), the queue
-    term switching on at ``queue_start_steps``, a bfloat16 step, then 30
+    term switching on at ``queue_start_steps``, a bfloat16 step, then 15
     timed steps (steps/s, device ms, peak memory), their CUDA launches and
     idle share by ``torch.profiler``, and one step's device time by stage;
 21. ``bench_train.py --e2e``: ``ContrastiveTrainer`` over 2,000 synthetic
-    docs with augment pairs, 30 timed steps; its checkpoint restored bit
+    docs with augment pairs, 20 timed steps; its checkpoint restored bit
     for bit and resumed; stage 2's claim/evidence cosine from the trained
     state; then ProtoNCE at (4096, 6144, 8192) clusters over 10,000 docs,
     refreshed twice by k-means on the card, its centroids and densities
@@ -121,7 +134,7 @@ Phases, each printed as it runs:
     phases' objects frozen out of the collector's walk);
 23. the CLI chain on a 1,000-doc synthetic corpus, each command a fresh
     ``python -m ircl_tpu_torch.cli`` process on the card with a JSON config:
-    ``prepare``, ``build-index``, ``train`` (``TrainConfig()``, 20 steps),
+    ``prepare``, ``build-index``, ``train`` (``TrainConfig()``, 10 steps),
     ``retrieve --dense-ckpt``, ``train-verdict``, ``eval-verdict``,
     ``serve --stdin`` with all three stages and ``serve --native-front``
     stopped by SIGINT; recall, replies and evidence held to the port's API
@@ -191,7 +204,7 @@ Phases, each printed as it runs:
     wall ms a step of each, with the card's name and power limit.
 29. the paper's measured experiments and the scale rehearsal through the
     port's tools (``ircl_tpu_torch/tools/``) at the scripts' widths and a
-    cut depth: (a) ``eval_e2e`` (1,000 docs, 100 claims, 20 steps a trained
+    cut depth: (a) ``eval_e2e`` (1,000 docs, 100 claims, 10 steps a trained
     variant) in this process, its ``doc_tfidf``, ``sparse`` and
     ``dense_untrained`` rows held to the same functions on the CPU: the
     card's stage-1 lists equal the CPU's but where an exact tie breaks
@@ -199,7 +212,7 @@ Phases, each printed as it runs:
     ``dense_untrained`` reruns on the card's doc lists with the untrained
     state and featurizer moved to the CPU (a stage-2 rank may move only
     among near-equal cosines, and the moves are logged); (b)
-    ``similarity_ab`` (500 docs, 10 steps), its divergence counts against
+    ``similarity_ab`` (500 docs, 5 steps), its divergence counts against
     the CPU's; (c) ``verdict_table2`` (100 docs, 400 train claims, 1 epoch,
     1 restart, the phase-C replay), its retrievals equal to the CPU's up to
     exact ties, and on them every phase's encoded arrays and every dev
@@ -224,7 +237,9 @@ Phases, each printed as it runs:
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
-dense path), before phase 11 and read after phase 12 (the verdict path),
+dense path), before phase 31 and read after it (the HuggingFace
+checkpoint's path: #1 and #4 must run), before phase 11 and read after
+phase 12 (the verdict path),
 before phase 14 and read after phase 15 (the training path), inside phase
 16 after its comparisons (the probes' paths) and before phase 17, read after
 phase 19 (the scale path); every kernel must have run on its path, and
@@ -263,6 +278,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -287,6 +303,9 @@ ENC_DOCS = 5_000
 ENC_BATCH = 256
 ENC_SEED = 0  # the BiLSTM head's generator (the transformer uses its config's)
 ENC_DEVICE_ATOL = 1e-4  # card against CPU: fp32 through 12 layers, TF32 off
+HF_SENTENCES = 2_000  # phase 31: sentences embedded through the loaded checkpoint
+HF_REPO = "smoke/bert-base-width"  # its name in phase 31's hub cache
+HF_SEED = 31  # the pooler and pretraining heads the encoder drops
 # the verdict phases: bench_verdict.py's roberta-base shape, cli serve's batch
 VERDICT_L, VERDICT_BATCH, VERDICT_SEED = 512, 32, 3
 VERDICT_ENCODER = dict(  # bench_verdict.py:83-97, f32, flash attention
@@ -306,10 +325,11 @@ TRAINER_PAIRS, TRAINER_EPOCHS, PREDICT_BATCH = 256, 2, 64
 # the contrastive training phases: bench_train.py's two shapes, TrainConfig()
 CT_FEAT = dict(dim=768, max_len=64)  # HashEmbedFeaturizer: a 2^18 x 768 table
 CT_TRAIN = {}  # TrainConfig's defaults: BiLSTM 3 x 256 bi over 768-d -> 128
-CT_WARMUP, CT_TIMED_STEPS, CT_PROFILED_STEPS = 3, 30, 3
-# bench_train.py --e2e times 200 steps; 30 here, for the script's time limit
-CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 20, 30, 256
-CT_STAGED_STEPS = 20
+CT_WARMUP, CT_TIMED_STEPS, CT_PROFILED_STEPS = 3, 15, 3  # 30 timed steps until PR 19
+# bench_train.py --e2e times 200 steps; 20 here (30 until PR 19), for the script's
+# time limit
+CT_E2E_DOCS, CT_E2E_WARMUP, CT_E2E_STEPS, CT_E2E_CLAIMS = 2000, 10, 20, 256
+CT_STAGED_STEPS = 10
 # ProtoNCE's corpus: 10,000 docs (20,000 until the script's time limit cut it),
 # above the largest granularity, 8192
 CT_PROTO_DOCS, CT_PROTO_STEPS, CT_PROTO_EVERY, CT_PROTO_LOG = 10_000, 20, 10, 5
@@ -326,15 +346,15 @@ ONEPASS_RTOL = 1e-5  # against the slab GEMM: another summation order
 # the serving phase: bench_serve.py's scenarios A and B through the port's fronts
 SERVE_QUERIES, SERVE_SENT_QUERIES, SERVE_SAMPLE = 512, 64, 256
 SERVE_CLIENTS = (1, 8, 64)
-SERVE_SECONDS = 2.0  # bench_serve.py runs 8 s a scenario; cut to 2 for the time limit
+SERVE_SECONDS = 1.0  # bench_serve.py runs 8 s a scenario; cut to 1 for the time limit
 SERVE_WAIT_MS, SERVE_WORKERS = 5.0, 2
 SENT_RTOL = 1e-5  # a claim's embedding in another batch: fp32 sums in another order
 # the CLI phase: a synthetic corpus through every command, each in a fresh process
-CLI_DOCS, CLI_CLAIMS, CLI_TRAIN_STEPS, CLI_TIMEOUT = 1000, 200, 20, 600
+CLI_DOCS, CLI_CLAIMS, CLI_TRAIN_STEPS, CLI_TIMEOUT = 1000, 200, 10, 600
 # the experiment tools' phase: the scripts' widths, their depth cut
-TOOLS_EVAL = ["--docs", "1000", "--claims", "100", "--steps", "20", "--skip-stem-ab",
+TOOLS_EVAL = ["--docs", "1000", "--claims", "100", "--steps", "10", "--skip-stem-ab",
               "--skip-proto"]
-TOOLS_AB = ["--docs", "500", "--claims", "60", "--steps", "10"]
+TOOLS_AB = ["--docs", "500", "--claims", "60", "--steps", "5"]
 TOOLS_TABLE2 = ["--docs", "100", "--train-claims", "400", "--dev-claims", "100",
                 "--epochs", "1", "--restarts", "1"]
 TOOLS_REHEARSAL = ["--docs", "2000", "--claims", "200", "--shards", "2",
@@ -714,16 +734,12 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
                            doc_sentences, table, tmpdir):
     """Served sentence search over the encoder docs, each reply checked; then
     the dense top-k over the sentence table against numpy."""
-    import torch
-
     from ircl_tpu_torch.index.build import build_count_index
     from ircl_tpu_torch.index.tfidf import tfidf_transform
-    from ircl_tpu_torch.ops.dense_topk_cuda import chunk_max, cosine_topk_fused, pad_corpus_t
     from ircl_tpu_torch.pipeline.dense_scorer import (
         ContrastiveSentenceScorer, PrecomputedSentenceScorer,
     )
-    from ircl_tpu_torch.pipeline.retrieve import gather_candidates
-    from ircl_tpu_torch.serve import RetrievalService, make_service
+    from ircl_tpu_torch.serve import make_service
 
     index = tfidf_transform(build_count_index(
         store, ngram=2, hash_size=HASH_SIZE, doc_ids=doc_ids
@@ -735,11 +751,6 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
     svc = make_service(path, device=dev, doc_sentences=doc_sentences,
                        sentence_scorer=pre)
     svc.warmup()
-    row_of = {}
-    for d in doc_ids:
-        for si, s in enumerate(doc_sentences[d]):
-            if s:
-                row_of[(d, si)] = len(row_of)
     own = set(doc_ids)
     mine = [c.claim for c in wiki.claims if set(c.evidences) & own]
     if len(mine) < 111:
@@ -762,19 +773,44 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
     served, replies = serve_lines(svc, lines)
     log(f"phase 9: served {served} sentence requests in "
         f"{time.perf_counter() - t0:.2f} s; metrics {svc.metrics.snapshot()}")
+    checked = check_sentence_replies("phase 9", svc, fly, requests, replies, index,
+                                     table, doc_sentences)
+    log(f"phase 9: {checked} sentence results checked: docs against scipy "
+        f"(rtol 1e-4), every score the table row's dot with the claim (rtol "
+        f"1e-5), the top k_sents of the candidates, and the same (doc, sent) "
+        f"lists from the on-the-fly scorer; the malformed line got an error")
+    dense_table_topk("phase 9", dev, fly.embed(claims[:DENSE_B]), table)
+    return path, pre, mine
+
+
+def check_sentence_replies(label, svc, fly, requests, replies, index, table,
+                           doc_sentences):
+    """Each sentence-search reply: its docs against scipy, every score the
+    table row's dot with the claim's embedding, the top ``k_sents`` of the
+    candidates, and the same (doc, sent) lists as the on-the-fly scorer
+    ``fly`` gives; a malformed line must get an error. Returns the number
+    of results checked."""
+    from ircl_tpu_torch.pipeline.retrieve import gather_candidates
+    from ircl_tpu_torch.serve import RetrievalService
+
+    row_of = {}
+    for d, sents in doc_sentences.items():
+        for si, sent in enumerate(sents):
+            if sent:
+                row_of[(d, si)] = len(row_of)
     svc_fly = RetrievalService(svc.ranker, batch_size=svc.batch_size,
                                doc_sentences=doc_sentences, sentence_scorer=fly)
     checked = 0
     for req, rep in zip(requests, replies):
         if req is None:
             if "error" not in rep:
-                fail(f"phase 9: malformed line answered without an error: {rep}")
+                fail(f"{label}: malformed line answered without an error: {rep}")
             continue
         if "results" not in rep:
-            fail(f"phase 9: request failed: {rep}")
+            fail(f"{label}: request failed: {rep}")
         queries, k, k_sents = req
         docs = svc.search(queries, k=k)
-        check_replies([{"results": docs}], [(queries, k)], index, "phase 9 docs")
+        check_replies([{"results": docs}], [(queries, k)], index, f"{label} docs")
         doc_lists = [[h["doc_id"] for h in hits] for hits in docs]
         _, cand_keys = gather_candidates(doc_lists, doc_sentences)
         claim_emb = fly.embed(queries)
@@ -784,29 +820,32 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
             got = np.array([h["score"] for h in hits], np.float32)
             if len(got) != len(all_scores) or not np.allclose(got, all_scores,
                                                               rtol=1e-5):
-                fail(f"phase 9: sentences are not the top {k_sents} of their "
+                fail(f"{label}: sentences are not the top {k_sents} of their "
                      f"candidates: {got} != {all_scores}")
             for h in hits:
                 if h["doc_id"] not in doc_lists[q]:
-                    fail(f"phase 9: {h['doc_id']} is not among the top {k} docs")
+                    fail(f"{label}: {h['doc_id']} is not among the top {k} docs")
                 want = float(table[row_of[(h["doc_id"], h["sent_id"])]] @ claim_emb[q])
                 if not np.isclose(h["score"], want, rtol=1e-5, atol=0.0):
-                    fail(f"phase 9: score {h['score']} != table dot {want}")
+                    fail(f"{label}: score {h['score']} != table dot {want}")
                 if h["sentence"] != doc_sentences[h["doc_id"]][h["sent_id"]]:
-                    fail("phase 9: a reply names the wrong sentence")
+                    fail(f"{label}: a reply names the wrong sentence")
             checked += 1
         on_the_fly = svc_fly.search_sentences(queries, k=k, k_sents=k_sents)
         for a, b in zip(rep["results"], on_the_fly):
             if not same_keys_up_to_ties(a, b):
-                fail("phase 9: the precomputed and on-the-fly services differ")
-    log(f"phase 9: {checked} sentence results checked: docs against scipy "
-        f"(rtol 1e-4), every score the table row's dot with the claim (rtol "
-        f"1e-5), the top k_sents of the candidates, and the same (doc, sent) "
-        f"lists from the on-the-fly scorer; the malformed line got an error")
+                fail(f"{label}: the precomputed and on-the-fly services differ")
+    return checked
 
-    # dense search over the sentence table with the claims' embeddings
+
+def dense_table_topk(label, dev, q_emb, table):
+    """The dense top-K of the claims' embeddings ``q_emb`` over a sentence
+    table through ``cosine_topk_fused`` (fold/high3), against numpy."""
+    import torch
+
+    from ircl_tpu_torch.ops.dense_topk_cuda import chunk_max, cosine_topk_fused, pad_corpus_t
+
     before = chunk_max.launches
-    q_emb = fly.embed(claims[:DENSE_B])
     tab_d = torch.tensor(table, device=dev)
     ct, m = pad_corpus_t(tab_d, DENSE_TILE)
     rows = ct.T.contiguous()
@@ -816,7 +855,7 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
         corpus_rows=rows,
     )
     if chunk_max.launches == before:
-        fail("phase 9: the dense top-k did not launch the chunk-max kernel")
+        fail(f"{label}: the dense top-k did not launch the chunk-max kernel")
     ref = q_emb @ table.T
     ref_s = -np.sort(-ref, axis=1)[:, :K]
     s, i = s.cpu().numpy(), i.cpu().numpy()
@@ -826,12 +865,269 @@ def phase9_sentence_search(dev, store, wiki, claims, doc_ids, tcfg, feat, state,
     bad = (~np.isclose(s, ref_s, rtol=1e-5, atol=0.0)).any(axis=1) | (
         ~np.isclose(own, s, rtol=1e-5, atol=0.0)).any(axis=1)
     if bad.any() or i.max() >= m or any(len(set(r)) < K for r in i):
-        fail(f"phase 9: dense top-{K} over the sentence table differs from "
+        fail(f"{label}: dense top-{K} over the sentence table differs from "
              f"numpy on {int(bad.sum())} claims")
-    log(f"phase 9: dense top-{K} of {DENSE_B} claims over {m} sentence rows "
+    log(f"{label}: dense top-{K} of {len(q_emb)} claims over {m} sentence rows "
         f"(fold/high3) equals numpy's exact top-{K} (rtol 1e-5; distinct ids, "
         f"each carrying its own score)")
-    return path, pre, mine
+
+
+
+def write_safetensors(path, tensors):
+    """``tensors`` in the safetensors format (a little-endian u64 header
+    length, a JSON header padded to 8 bytes, the raw data), written here:
+    the card's machine has no ``safetensors`` package."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.int64: "I64"}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().numpy().tobytes())
+
+
+def bert_checkpoint(params, tcfg):
+    """Phase 8's transformer as the original ``bert-base-uncased`` files
+    name it (``BertForPreTraining``: the ``bert.`` prefix, LayerNorm
+    ``gamma``/``beta``, dense weights ``[out, in]``), with the pooler and
+    pretraining heads, which the encoder drops, drawn from ``HF_SEED``."""
+    import torch
+
+    from ircl_tpu_torch.utils.convert import to_device
+
+    p = to_device(params, "cpu")
+    sd = {}
+
+    def dense(name, tree):
+        sd[name + ".weight"] = tree["w"].T.contiguous()
+        sd[name + ".bias"] = tree["b"]
+
+    def ln(name, tree):
+        sd[name + ".gamma"] = tree["scale"]
+        sd[name + ".beta"] = tree["bias"]
+
+    sd["bert.embeddings.word_embeddings.weight"] = p["tok_emb"]
+    sd["bert.embeddings.position_embeddings.weight"] = p["pos_emb"]
+    sd["bert.embeddings.token_type_embeddings.weight"] = p["type_emb"]
+    sd["bert.embeddings.position_ids"] = torch.arange(tcfg.max_positions)[None]
+    ln("bert.embeddings.LayerNorm", p["emb_ln"])
+    for i, lp in enumerate(p["layers"]):
+        b = f"bert.encoder.layer.{i}."
+        dense(b + "attention.self.query", lp["q"])
+        dense(b + "attention.self.key", lp["k"])
+        dense(b + "attention.self.value", lp["v"])
+        dense(b + "attention.output.dense", lp["o"])
+        ln(b + "attention.output.LayerNorm", lp["attn_ln"])
+        dense(b + "intermediate.dense", lp["ff1"])
+        dense(b + "output.dense", lp["ff2"])
+        ln(b + "output.LayerNorm", lp["ff_ln"])
+    gen = torch.Generator().manual_seed(HF_SEED)
+    h = tcfg.hidden
+    for name, shape in (("bert.pooler.dense.weight", (h, h)), ("bert.pooler.dense.bias", (h,)),
+                        ("cls.predictions.transform.dense.weight", (h, h)),
+                        ("cls.predictions.transform.dense.bias", (h,)),
+                        ("cls.predictions.transform.LayerNorm.gamma", (h,)),
+                        ("cls.predictions.transform.LayerNorm.beta", (h,)),
+                        ("cls.predictions.bias", (tcfg.vocab_size,)),
+                        ("cls.seq_relationship.weight", (2, h)),
+                        ("cls.seq_relationship.bias", (2,))):
+        sd[name] = torch.randn(shape, generator=gen) * 0.02
+    return sd
+
+
+def write_hf_checkpoints(root, feat):
+    """Phase 8's featurizer as a BERT checkpoint directory in three forms:
+    ``pytorch_model.bin``, ``model.safetensors``, and the latter in a hub
+    cache under ``HF_REPO`` (snapshot files linked, as the hub links its
+    blobs). Returns the two directories and the cache's root."""
+    import torch
+
+    tcfg = feat.tcfg
+    config = {
+        "architectures": ["BertForPreTraining"], "model_type": "bert",
+        "vocab_size": tcfg.vocab_size, "hidden_size": tcfg.hidden,
+        "num_hidden_layers": tcfg.layers, "num_attention_heads": tcfg.heads,
+        "intermediate_size": tcfg.intermediate, "hidden_act": "gelu",
+        "max_position_embeddings": tcfg.max_positions,
+        "type_vocab_size": tcfg.type_vocab, "layer_norm_eps": tcfg.layernorm_eps,
+        "pad_token_id": 0,
+    }
+    sd = bert_checkpoint(feat.params, tcfg)
+    dirs = {}
+    for form in ("bin", "safetensors"):
+        d = os.path.join(root, form)
+        os.makedirs(d)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+        with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+            json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True}, f)
+        feat.tokenizer.save_vocab(os.path.join(d, "vocab.txt"))
+        if form == "bin":
+            torch.save(sd, os.path.join(d, "pytorch_model.bin"))
+        else:
+            write_safetensors(os.path.join(d, "model.safetensors"), sd)
+        dirs[form] = d
+    cache = os.path.join(root, "hub")
+    repo = os.path.join(cache, "models--" + HF_REPO.replace("/", "--"))
+    snapshot = os.path.join(repo, "snapshots", "0" * 40)
+    os.makedirs(snapshot)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write("0" * 40)
+    for name in os.listdir(dirs["safetensors"]):
+        os.symlink(os.path.join(dirs["safetensors"], name), os.path.join(snapshot, name))
+    return dirs["bin"], dirs["safetensors"], cache
+
+
+def phase31_hf_checkpoint(dev, wiki, claims, doc_ids, train_cfg, feat, state,
+                          doc_sentences, index_path, mine, tmpdir):
+    """Phase 8's featurizer written as a HuggingFace checkpoint, loaded back
+    in each form and held to it, then served: ``HF_SENTENCES`` sentences
+    embedded through it, 4 request lines over phase 9's index, and the dense
+    top-k over the new table."""
+    import torch
+
+    from ircl_tpu_torch.index.build import CountIndex
+    from ircl_tpu_torch.models.featurizer import FeaturizerConfig, TransformerFeaturizer
+    from ircl_tpu_torch.pipeline.dense_scorer import (
+        ContrastiveSentenceScorer, PrecomputedSentenceScorer,
+    )
+    from ircl_tpu_torch.serve import make_service
+    from ircl_tpu_torch.utils.convert import to_device
+
+    root = os.path.join(tmpdir, "hf")
+    t0 = time.perf_counter()
+    bin_dir, st_dir, cache = write_hf_checkpoints(root, feat)
+    sizes = {os.path.basename(os.path.dirname(f)): os.path.getsize(f) / 2**20 for f in (
+        os.path.join(bin_dir, "pytorch_model.bin"), os.path.join(st_dir, "model.safetensors"))}
+    log(f"phase 31: checkpoint written in {time.perf_counter() - t0:.2f} s: "
+        f"pytorch_model.bin {sizes['bin']:.1f} MiB, model.safetensors "
+        f"{sizes['safetensors']:.1f} MiB, and {HF_REPO} in a hub cache")
+
+    sents = [s for d in doc_ids for s in doc_sentences[d] if s]
+    ids, mask = feat.encode_host(sents[:16])
+    want = feat.features(ids, mask)
+    want_leaves = dict(named_leaves(feat.params))
+    fcfg = FeaturizerConfig(kind="hf", max_len=feat.config.max_len)
+    load_s = {}
+    loaded = None
+    for form, name in (("bin", bin_dir), ("safetensors", st_dir), ("hub cache", HF_REPO)):
+        before = os.environ.get("HF_HUB_CACHE")
+        os.environ["HF_HUB_CACHE"] = cache
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded = TransformerFeaturizer.from_huggingface(name, fcfg, device=dev)
+            torch.cuda.synchronize()
+            load_s[form] = time.perf_counter() - t0
+        finally:
+            if before is None:
+                del os.environ["HF_HUB_CACHE"]
+            else:
+                os.environ["HF_HUB_CACHE"] = before
+        if loaded.tcfg != feat.tcfg:
+            fail(f"phase 31 ({form}): config {loaded.tcfg} != phase 8's {feat.tcfg}")
+        got_leaves = dict(named_leaves(loaded.params))
+        if got_leaves.keys() != want_leaves.keys():
+            fail(f"phase 31 ({form}): the parameter tree differs from phase 8's")
+        unequal = [n for n, w in want_leaves.items()
+                   if got_leaves[n].device != w.device or not torch.equal(got_leaves[n], w)]
+        if unequal:
+            fail(f"phase 31 ({form}): parameters not bit-equal to phase 8's: {unequal[:5]}")
+        if not torch.equal(loaded.features(ids, mask), want):
+            fail(f"phase 31 ({form}): features of 16 sentences differ from phase 8's")
+        if form != "hub cache":
+            del loaded
+    log(f"phase 31: loaded onto the card in "
+        + ", ".join(f"{form} {s:.2f} s" for form, s in load_s.items())
+        + f": config equal to phase 8's, all {len(want_leaves)} parameters and the "
+        f"features of 16 sentences bit-equal")
+
+    # the card against the CPU, on the new tokenizer's ids
+    cpu = TransformerFeaturizer(loaded.tokenizer, loaded.tcfg,
+                                to_device(loaded.params, "cpu"), loaded.config, device="cpu")
+    ids, mask = loaded.encode_host(sents[:16])
+    err = float((loaded.features(ids, mask).cpu() - cpu.features(ids, mask)).abs().max())
+    if not err <= ENC_DEVICE_ATOL:
+        fail(f"phase 31: the card and the CPU differ by {err}")
+    del cpu
+
+    # host tokenization, the port's BERT tokenizer beside phase 8's WordPiece
+    batch = sents[:ENC_BATCH]
+    tok_ms = {}
+    for label, f in (("BERT", loaded), ("WordPiece", feat)):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            f.encode_host(batch)
+        tok_ms[label] = 1e3 * (time.perf_counter() - t0) / 3
+    same = int((loaded.encode_host(batch)[0] == feat.encode_host(batch)[0]).all(axis=1).sum())
+    log(f"phase 31: card against CPU within {err:.3g} (bound {ENC_DEVICE_ATOL}); host "
+        f"tokenization of {len(batch)} sentences: BERT {tok_ms['BERT']:.1f} ms, phase "
+        f"8's WordPiece {tok_ms['WordPiece']:.1f} ms ({same} of {len(batch)} rows equal)")
+
+    # about HF_SENTENCES sentences of the first docs, embedded through it
+    sub, n = {}, 0
+    for d in doc_ids:
+        if n >= HF_SENTENCES:
+            break
+        sub[d] = doc_sentences[d]
+        n += sum(1 for s in sub[d] if s)
+    fly = ContrastiveSentenceScorer(train_cfg, loaded, state, batch_size=ENC_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = PrecomputedSentenceScorer(fly.embed, sub)
+    dt = time.perf_counter() - t0
+    table = pre.table
+    if table.shape != (n, train_cfg.encoder.output_size):
+        fail(f"phase 31: table shape {table.shape}")
+    if not np.isfinite(table).all() or not np.allclose(np.linalg.norm(table, axis=1), 1.0,
+                                                       atol=1e-5):
+        fail("phase 31: sentence embeddings are not finite unit rows")
+    sents_per_s = n / dt
+    log(f"phase 31: embedded {n} sentences of {len(sub)} docs at batch {ENC_BATCH} in "
+        f"{dt:.2f} s: {sents_per_s:.1f} sentences/s (host tokenization included); all "
+        f"finite, unit norm within 1e-5")
+
+    # served sentence search over phase 9's index with that table
+    own = set(sub)
+    queries = [c.claim for c in wiki.claims if set(c.evidences) & own]
+    n_own, seen = len(queries), set(queries)
+    queries += [c for c in mine if c not in seen]
+    svc = make_service(index_path, device=dev, doc_sentences=sub, sentence_scorer=pre)
+    svc.warmup()
+    requests = [([queries[0]], 5, 5), (queries[1:21], 5, 3), (queries[21:25], 2, 7), None]
+    lines = [
+        json.dumps({"query": queries[0], "sentences": True}),
+        json.dumps({"queries": queries[1:21], "k_sents": 3}),
+        json.dumps({"queries": queries[21:25], "k": 2, "k_sents": 7}),
+        json.dumps({"queries": [queries[0]], "k_sents": -1}),
+    ]
+    t0 = time.perf_counter()
+    served, replies = serve_lines(svc, lines)
+    serve_s = time.perf_counter() - t0
+    checked = check_sentence_replies("phase 31", svc, fly, requests, replies,
+                                     CountIndex.load(index_path), table, sub)
+    hits = sum(len(hits) for rep in replies if "results" in rep for hits in rep["results"])
+    if hits == 0:
+        fail("phase 31: no request found a sentence of the embedded docs")
+    log(f"phase 31: served {served} sentence requests in {serve_s:.2f} s over phase 9's "
+        f"index ({len(sub)} docs with table rows; {n_own} claims have evidence in "
+        f"them): {checked} results, "
+        f"{hits} sentences, checked as phase 9 checks its own")
+    dense_table_topk("phase 31", dev, fly.embed(claims[:DENSE_B]), table)
+    shutil.rmtree(root)
+    return dict(load_s=load_s, tok_ms=tok_ms, sents_per_s=sents_per_s)
 
 
 def verdict_pairs(wiki, doc_ids, claims, n):
@@ -5875,6 +6171,21 @@ def main() -> None:
         f"by route {dense_routes}")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(phases 7-9)")
+
+    # ---- phase 31: a HuggingFace checkpoint of phase 8's encoder, served ----
+    for fn in kernels.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    hf = phase31_hf_checkpoint(dev, wiki, claims, enc_docs, tcfg, feat, enc_state,
+                               doc_sentences, index_path, mine, tmp.name)
+    hf_launches = {name: kernels[name].launches
+                   for name in ("membership_slab", "cosine_topk_fused")}
+    if 0 in hf_launches.values():
+        fail(f"the HuggingFace checkpoint's path launched {hf_launches}")
+    others = {name: fn.launches for name, fn in kernels.items()
+              if fn.launches and name not in hf_launches}
+    log(f"phase 31: {time.perf_counter() - t_phase:.1f} s; kernel launches {hf_launches}"
+        + (f", and {others}" if others else "") + f"; {json.dumps(hf)}")
     del table, enc_state
     torch.cuda.empty_cache()
 
@@ -6188,6 +6499,8 @@ def main() -> None:
         ))
         if name == "cosine_topk_fused":  # the dense path's launches, by kernel
             report[-1]["launches_by_route"] = dense_routes
+        if name in hf_launches:  # phase 31, through the loaded checkpoint
+            report[-1]["launches_hf_path"] = hf_launches[name]
         if name == "flash_attention":  # it also runs on the training path
             report[-1]["launches_training_path"] = train_launches[name]
         if name in flash_names:  # and on the bf16 and MoE verdict paths

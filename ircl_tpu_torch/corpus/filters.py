@@ -2,7 +2,9 @@
 
 Counterpart of ``ircl_tpu/corpus/filters.py``, carried over line for line apart from
 imports: the port keeps its own copy of every module it needs and imports
-nothing of the JAX package.
+nothing of the JAX package. Its punctuation pattern is matched by ``re``,
+with ``\\p{P}`` spelled out by ``corpus/uniclass.py``, where the reference
+uses the ``regex`` package.
 
 Behavior matches the reference's recall-critical filters
 (``preprocessing/drqa/retriever/utils.py:54-108``): NFD normalization, a
@@ -13,11 +15,12 @@ parity between index build and query time.
 
 from __future__ import annotations
 
+import re
 import unicodedata
 from functools import lru_cache
 from typing import Sequence
 
-import regex
+from ircl_tpu_torch.corpus.uniclass import translate
 
 STOPWORDS = frozenset({
     'i', 'me', 'my', 'myself', 'we', 'our', 'ours', 'ourselves', 'you', 'your',
@@ -39,7 +42,10 @@ STOPWORDS = frozenset({
     'won', 'wouldn', "'ll", "'re", "'ve", "n't", "'s", "'d", "'m", "''", "``",
 })
 
-_PUNCT_RE = regex.compile(r'^\p{P}+$')
+
+@lru_cache(maxsize=1)
+def _punct_re():
+    return re.compile(translate(r'^[\p{P}]+$'))
 
 
 def normalize(text: str) -> str:
@@ -51,7 +57,7 @@ def normalize(text: str) -> str:
 def filter_word(text: str) -> bool:
     """True if the token should be filtered (punctuation or stopword)."""
     text = normalize(text)
-    if _PUNCT_RE.match(text):
+    if _punct_re().match(text):
         return True
     if text.lower() in STOPWORDS:
         return True

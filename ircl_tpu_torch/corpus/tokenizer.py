@@ -2,7 +2,9 @@
 
 Counterpart of ``ircl_tpu/corpus/tokenizer.py``, carried over line for line apart from
 imports: the port keeps its own copy of every module it needs and imports
-nothing of the JAX package.
+nothing of the JAX package. The patterns are the reference's, matched by
+``re`` instead of the ``regex`` package: ``corpus/uniclass.py`` spells out
+their ``\\p{...}`` classes as ``regex`` reads them.
 
 ``SimpleTokenizer`` reproduces the token stream of the reference's live
 tokenizer (``preprocessing/drqa/tokenizers/simple_tokenizer.py:18-57``):
@@ -23,9 +25,10 @@ third-party models this environment lacks.
 
 from __future__ import annotations
 
+import re
 from typing import Callable, List, Optional, Sequence
 
-import regex
+from ircl_tpu_torch.corpus.uniclass import translate
 
 
 class Tokens:
@@ -102,9 +105,9 @@ class SimpleTokenizer:
     NON_WS = r'[^\p{Z}\p{C}]'
 
     def __init__(self):
-        self._regexp = regex.compile(
-            '(%s)|(%s)' % (self.ALPHA_NUM, self.NON_WS),
-            flags=regex.IGNORECASE + regex.UNICODE + regex.MULTILINE,
+        self._regexp = re.compile(
+            translate('(%s)|(%s)' % (self.ALPHA_NUM, self.NON_WS)),
+            flags=re.IGNORECASE + re.UNICODE + re.MULTILINE,
         )
 
     def tokenize(self, text: str) -> Tokens:
@@ -139,8 +142,8 @@ class RegexpTokenizer:
     """
 
     def __init__(self):
-        self._regexp = regex.compile(
-            self.PATTERN, flags=regex.UNICODE + regex.MULTILINE
+        self._regexp = re.compile(
+            translate(self.PATTERN), flags=re.UNICODE + re.MULTILINE
         )
 
     def tokenize(self, text: str) -> Tokens:

@@ -14,8 +14,12 @@ BiLSTM head (``src/contrastor/contrastive_module.py:32-41``):
 
 ``encode_host`` turns strings into padded ``(ids, mask)`` numpy arrays on
 the host; ``features`` maps them to ``[B, L, D]`` on the featurizer's
-device. ``kind="hf"`` (real HuggingFace weights from a local cache) is
-refused: the repository holds no such files.
+device.
+
+``kind="hf"`` is ``TransformerFeaturizer.from_huggingface``: a local
+HuggingFace BERT or RoBERTa checkpoint (a directory, or a name in the hub
+cache), its weights read by ``models/hf_checkpoint.py`` and its tokenizer by
+``models/hf_tokenizer.py``, without ``transformers``; nothing is fetched.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ import torch
 from ircl_tpu_torch.corpus.filters import normalize
 from ircl_tpu_torch.corpus.hashing import hash_tokens
 from ircl_tpu_torch.corpus.tokenizer import default_tokenizer
-from ircl_tpu_torch.models.transformer import from_huggingface
 from ircl_tpu_torch.utils.convert import to_device
 from ircl_tpu_torch.utils.device import resolve_device
 
@@ -237,8 +240,27 @@ class TransformerFeaturizer:
         config: FeaturizerConfig = FeaturizerConfig(kind="hf"),
         device=None,
     ) -> "TransformerFeaturizer":
-        """Refused: see ``models.transformer.from_huggingface``."""
-        from_huggingface(name)
+        """Pretrained weights and tokenizer of a local HuggingFace checkpoint
+        (``models.transformer.from_huggingface``,
+        ``hf_tokenizer.from_pretrained_dir``); ``max_len`` is the caller's,
+        the widths the checkpoint's."""
+        device = resolve_device(device)  # before the weights are read
+        from ircl_tpu_torch.models.hf_checkpoint import resolve_checkpoint
+        from ircl_tpu_torch.models.hf_tokenizer import from_pretrained_dir
+        from ircl_tpu_torch.models.transformer import from_huggingface
+
+        path = resolve_checkpoint(name)
+        tcfg, params = from_huggingface(path)
+        cfg = FeaturizerConfig(
+            kind="hf",
+            dim=tcfg.hidden,
+            max_len=config.max_len,
+            tf_layers=tcfg.layers,
+            tf_heads=tcfg.heads,
+            tf_intermediate=tcfg.intermediate,
+            hf_name=name,
+        )
+        return cls(from_pretrained_dir(path), tcfg, params, cfg, device=device)
 
     def encode_host(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """Strings -> ([B, L] int32 ids, [B, L] f32 mask): [CLS] text [SEP]."""

@@ -53,9 +53,11 @@ path: ``x`` and the pad bias hold this rank's block of the sequence,
 ``transformer_embed(pos_start=)`` gives the block its global positions, and
 the attention is ``ops/ring_attention.py``'s ring over the axis (the
 position-wise LayerNorms and FFN need no collective). As in the reference
-it refuses ``attention="flash"`` and MoE blocks. ``from_huggingface`` is
-refused with ``NotImplementedError``: the repository holds no HuggingFace
-weights.
+it refuses ``attention="flash"`` and MoE blocks.
+
+``from_huggingface`` maps a local HuggingFace BERT or RoBERTa checkpoint
+(read by ``models/hf_checkpoint.py``, without ``transformers``) onto this
+parameter tree, as the reference maps ``AutoModel``'s state dict.
 """
 
 from __future__ import annotations
@@ -530,11 +532,64 @@ def transformer_apply(
 
 
 def from_huggingface(name: str = "bert-base-uncased"):
-    """Refused: HuggingFace checkpoints are read from a local cache, and the
-    repository holds neither the weights nor the tokenizer files."""
-    raise NotImplementedError(
-        f"from_huggingface({name!r}) needs the {name} weights and tokenizer "
-        "files (config.json, the model weights, vocab.txt) from a local "
-        "HuggingFace cache; the repository holds none of them, so this "
-        "loader waits until they are added"
+    """``(TransformerConfig, params)`` of a local HuggingFace BERT or RoBERTa
+    checkpoint: a directory, or a name in the hub cache
+    (``hf_checkpoint.resolve_checkpoint``; nothing is downloaded). Dense
+    weights are transposed to ``[in, out]``; RoBERTa's position table keeps
+    its two leading rows (``position_offset=2``, ``max_positions =
+    max_position_embeddings - 2``). Float32 tensors on the CPU."""
+    from ircl_tpu_torch.models.hf_checkpoint import (
+        read_config,
+        read_weights,
+        resolve_checkpoint,
     )
+    from ircl_tpu_torch.utils.convert import transformer_params_from_numpy
+
+    path = resolve_checkpoint(name)
+    hc = read_config(path)
+    sd = read_weights(path)
+    is_roberta = "roberta" in hc["model_type"]
+    cfg = TransformerConfig(
+        vocab_size=hc["vocab_size"],
+        hidden=hc["hidden_size"],
+        layers=hc["num_hidden_layers"],
+        heads=hc["num_attention_heads"],
+        intermediate=hc["intermediate_size"],
+        max_positions=hc["max_position_embeddings"] - (2 if is_roberta else 0),
+        type_vocab=hc["type_vocab_size"],
+        layernorm_eps=hc["layer_norm_eps"],
+        position_offset=2 if is_roberta else 0,
+    )
+
+    def t(key, transpose=False):
+        if key not in sd:
+            raise KeyError(f"{path}: the checkpoint has no tensor {key!r}")
+        return (sd[key].T.contiguous() if transpose else sd[key]).numpy()
+
+    def dense(key):
+        return {"w": t(key + ".weight", transpose=True), "b": t(key + ".bias")}
+
+    def ln(key):
+        return {"scale": t(key + ".weight"), "bias": t(key + ".bias")}
+
+    layers = []
+    for layer in range(cfg.layers):
+        b = f"encoder.layer.{layer}."
+        layers.append({
+            "q": dense(b + "attention.self.query"),
+            "k": dense(b + "attention.self.key"),
+            "v": dense(b + "attention.self.value"),
+            "o": dense(b + "attention.output.dense"),
+            "attn_ln": ln(b + "attention.output.LayerNorm"),
+            "ff1": dense(b + "intermediate.dense"),
+            "ff2": dense(b + "output.dense"),
+            "ff_ln": ln(b + "output.LayerNorm"),
+        })
+    params = transformer_params_from_numpy({
+        "tok_emb": t("embeddings.word_embeddings.weight"),
+        "pos_emb": t("embeddings.position_embeddings.weight"),
+        "type_emb": t("embeddings.token_type_embeddings.weight"),
+        "emb_ln": ln("embeddings.LayerNorm"),
+        "layers": layers,
+    }, device="cpu")
+    return cfg, params

@@ -2,7 +2,9 @@
 
 Counterpart of ``ircl_tpu/models/wordpiece.py``, carried over line for
 line: ``ircl_tpu.models`` loads JAX through its package ``__init__``, and
-this port runs where JAX is not installed.
+this port runs where JAX is not installed. The greedy longest-match loop is
+the module function ``greedy_pieces``, which the HuggingFace BERT tokenizer
+(``models/hf_tokenizer.py``) shares.
 
 Replaces the downloaded HF tokenizers the reference relies on
 (``contrastive_module.py:32``, ``src/QA/dataset.py:75``). Works from any
@@ -22,6 +24,33 @@ from ircl_tpu_torch.corpus.tokenizer import default_tokenizer
 
 PAD, UNK, CLS, SEP, MSK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = [PAD, UNK, CLS, SEP, MSK]
+
+
+def greedy_pieces(word: str, vocab, unk: str = UNK, prefix: str = "##",
+                  max_input_chars: int = 100) -> List[str]:
+    """Greedy longest-match subwords of ``word``, continuations marked with
+    ``prefix``; ``[unk]`` for a word over ``max_input_chars`` characters or
+    one with a part no piece matches."""
+    if len(word) > max_input_chars:
+        return [unk]
+    out = []
+    start = 0
+    while start < len(word):
+        end = len(word)
+        cur = None
+        while start < end:
+            sub = word[start:end]
+            if start > 0:
+                sub = prefix + sub
+            if sub in vocab:
+                cur = sub
+                break
+            end -= 1
+        if cur is None:
+            return [unk]
+        out.append(cur)
+        start = end
+    return out
 
 
 class WordPieceTokenizer:
@@ -86,26 +115,7 @@ class WordPieceTokenizer:
     # -- tokenization -------------------------------------------------------
 
     def _wordpiece(self, word: str) -> List[str]:
-        if len(word) > self.max_input_chars:
-            return [UNK]
-        out = []
-        start = 0
-        while start < len(word):
-            end = len(word)
-            cur = None
-            while start < end:
-                sub = word[start:end]
-                if start > 0:
-                    sub = "##" + sub
-                if sub in self.vocab:
-                    cur = sub
-                    break
-                end -= 1
-            if cur is None:
-                return [UNK]
-            out.append(cur)
-            start = end
-        return out
+        return greedy_pieces(word, self.vocab, max_input_chars=self.max_input_chars)
 
     def tokenize(self, text: str) -> List[str]:
         words = default_tokenizer().tokenize(text).words(uncased=True)

@@ -33,6 +33,7 @@ from ircl_tpu_torch.corpus import hashing as t_hash
 from ircl_tpu_torch.corpus import store as t_store
 from ircl_tpu_torch.corpus import synthetic as t_syn
 from ircl_tpu_torch.corpus import tokenizer as t_tok
+from ircl_tpu_torch.corpus import uniclass
 from ircl_tpu_torch.utils import native_build as t_build
 
 TEXTS = [
@@ -60,6 +61,36 @@ def test_tokens_and_ngrams_are_equal(text):
             == j.ngrams(2, uncased=True, filter_fn=j_filters.filter_ngram))
     rj, rt = j_tok.get_tokenizer("regexp"), t_tok.get_tokenizer("regexp")
     assert rt.tokenize(text).words() == rj.tokenize(text).words()
+
+
+def test_character_classes_match_the_regex_package():
+    """``corpus/uniclass.py``'s tables equal the ones read back from
+    ``regex`` over every code point (``tests/_torch_unicode_tables.py``),
+    and each class it spells out for ``re`` matches what ``regex`` does."""
+    from _torch_unicode_tables import regex_tables
+
+    names = {"L": "LETTER", "N": "NUMBER", "M": "MARK", "Z": "SEPARATOR", "C": "OTHER",
+             "P": "PUNCTUATION", "W": "WORD"}
+    for prop, rows in regex_tables().items():
+        assert tuple(map(tuple, getattr(uniclass, f"_{names[prop]}_FLIP"))) == rows, prop
+
+
+def test_tokenizers_are_equal_over_every_code_point():
+    """Both tokenizers of both packages on one text holding every code
+    point, with ASCII words, numbers and clitics between them; the filters
+    on every token and code point."""
+    rng = np.random.default_rng(0)
+    bits = list("aZ09 '.-,\t\n") + ["n't", "'ll", "U.S.", "...", "--", "3.14", "1,000",
+                                     "'s", "N'T", "don't", "it's"]
+    cps = [chr(c) for c in range(0x110000) if not 0xD800 <= c <= 0xDFFF]
+    picks = rng.integers(0, 2 * len(bits), size=len(cps))
+    text = "".join(c + (bits[k] if k < len(bits) else "") for c, k in zip(cps, picks))
+    for name in ("simple", "regexp"):
+        j, t = j_tok.get_tokenizer(name).tokenize(text), t_tok.get_tokenizer(name).tokenize(text)
+        assert t.words() == j.words(), name
+        assert t.offsets() == j.offsets(), name
+    words = set(j_tok.default_tokenizer().tokenize(text).words()) | set(cps)
+    assert [w for w in words if t_filters.filter_word(w) != j_filters.filter_word(w)] == []
 
 
 def test_filters_are_equal():
@@ -195,17 +226,40 @@ def test_doc_stores_are_equal(wikis, tmp_path):
 
 def test_package_exports_and_sources_match():
     """The copy exports what the original exports, and differs from it in
-    the import lines and the note in the module docstring only."""
+    the import lines, the note in the module docstring, and, in
+    ``tokenizer.py`` and ``filters.py``, the patterns' compilation: ``re``
+    through ``uniclass.translate`` where the originals use ``regex``."""
     import ircl_tpu.corpus as j_corpus
 
     assert t_corpus.__all__ == j_corpus.__all__
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    through_re = {  # module -> (lines only the copy has, lines only the original has)
+        "tokenizer": ({"from ircl_tpu_torch.corpus.uniclass import translate",
+                       "            translate('(%s)|(%s)' % (self.ALPHA_NUM, self.NON_WS)),",
+                       "            translate(self.PATTERN), flags=re.UNICODE + re.MULTILINE"},
+                      {"            '(%s)|(%s)' % (self.ALPHA_NUM, self.NON_WS),",
+                       "            self.PATTERN, flags=re.UNICODE + re.MULTILINE"}),
+        "filters": ({"from ircl_tpu_torch.corpus.uniclass import translate",
+                     "@lru_cache(maxsize=1)", "def _punct_re():",
+                     "    return re.compile(translate(r'^[\\p{P}]+$'))",
+                     "    if _punct_re().match(text):"},
+                    {"_PUNCT_RE = re.compile(r'^\\p{P}+$')", "    if _PUNCT_RE.match(text):"}),
+    }
     for name in ("tokenizer", "hashing", "filters", "fastpath", "store", "synthetic",
                  "fever"):
         want = open(os.path.join(root, "ircl_tpu", "corpus", name + ".py")).read()
         got = open(os.path.join(root, "ircl_tpu_torch", "corpus", name + ".py")).read()
-        want_lines = [ln.replace("ircl_tpu.", "ircl_tpu_torch.") for ln in want.splitlines()]
-        extra = [ln for ln in got.splitlines() if ln not in set(want_lines)]
-        assert len(extra) <= 3 and all("arried over" in ln or "imports" in ln
-                                        or "JAX package" in ln for ln in extra), (name, extra)
-        assert [ln for ln in want_lines if ln not in set(got.splitlines())] == [], name
+        want = want.replace("ircl_tpu.", "ircl_tpu_torch.")
+        if name in through_re:
+            want = want.replace("import regex", "import re").replace("regex.", "re.")
+        note_end = got.index('"""', 3)  # the module docstring's close
+        note, code = got[:note_end].splitlines(), got[note_end:].splitlines()
+        want_lines = set(want.splitlines())
+        extra = [ln for ln in note if ln not in want_lines]
+        assert len(extra) <= 5 and all("arried over" in ln or "imports" in ln
+                                        or "JAX package" in ln or "re``" in ln
+                                        or "regex" in ln or "uniclass" in ln
+                                        for ln in extra), (name, extra)
+        only_here = {ln for ln in code if ln not in want_lines}
+        only_there = {ln for ln in want.splitlines() if ln not in set(got.splitlines())}
+        assert (only_here, only_there) == through_re.get(name, (set(), set())), name

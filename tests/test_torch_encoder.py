@@ -13,6 +13,7 @@ held to the reference's shapes and distributions, not its values.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -390,11 +391,17 @@ def _named(tree, prefix=""):
         yield prefix, tree
 
 
-def test_from_huggingface_names_the_missing_files():
-    with pytest.raises(NotImplementedError, match="bert-base-uncased"):
+def test_from_huggingface_names_the_missing_files(tmp_path, monkeypatch):
+    """No checkpoint in the hub cache: the loader and the factory raise an
+    error that names the paths searched (nothing is downloaded)."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
+    searched = os.path.join(str(tmp_path), "models--bert-base-uncased", "refs", "main")
+    with pytest.raises(FileNotFoundError, match="bert-base-uncased") as e:
         t_tf.from_huggingface()
-    with pytest.raises(NotImplementedError, match="local"):
-        t_feat.make_featurizer(t_feat.FeaturizerConfig(kind="hf"))
+    assert searched in str(e.value)
+    with pytest.raises(FileNotFoundError, match="searched") as e:
+        t_feat.make_featurizer(t_feat.FeaturizerConfig(kind="hf"), device="cpu")
+    assert searched in str(e.value)
 
 
 HASH_CFG = dict(dim=16, max_len=8, vocab_buckets=1 << 10)

@@ -288,6 +288,27 @@ print("JAX_MODULES", sorted(
     if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu")))
 """
 
+# A HuggingFace checkpoint directory (written by the test) loaded as a
+# featurizer, with the packages the GPU machine lacks hidden, and two
+# sentences through it.
+_HF_FEATURIZER = r"""
+import sys
+for name in ("tensorflow",) + {hidden}:
+    sys.modules[name] = None
+from ircl_tpu_torch.models.featurizer import FeaturizerConfig, make_featurizer
+
+feat = make_featurizer(FeaturizerConfig(kind="hf", hf_name={path!r}, max_len=12),
+                       device="cpu")
+ids, mask = feat.encode_host(["A claim, about Σ things.", "second one"])
+assert feat.config.dim == 32 and ids.shape == (2, 12) and mask[0].sum() > 3
+out = feat.features(ids, mask)
+assert out.shape == (2, 12, 32) and bool(out.isfinite().all())
+print("JAX_MODULES", sorted(  # the hidden names stand as None
+    m for m, mod in sys.modules.items()
+    if m.split(".")[0] in ("jax", "jaxlib", "ircl_tpu") + {hidden} and mod is not None))
+"""
+
+
 def _run_fresh(script):
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
     proc = subprocess.run(
@@ -337,6 +358,24 @@ def test_port_runs_sharded_ranks_without_loading_jax():
     verdict model (the ring) on a fresh 2-rank gloo group: neither the
     launching process nor either rank loads JAX or the JAX package."""
     _run_fresh(_SHARDED_RANKS)
+
+
+def test_port_loads_a_hf_checkpoint_without_transformers(tmp_path):
+    """``make_featurizer(kind="hf")`` on a tiny BERT checkpoint directory in
+    a fresh process where ``transformers``, ``tokenizers``,
+    ``safetensors``, ``huggingface_hub`` and ``regex`` cannot be imported;
+    the directory is written here with ``transformers``."""
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "claim", ",", "about",
+             "σ", "things", ".", "second", "one", "##s"]
+    (tmp_path / "vocab.txt").write_text("\n".join(words) + "\n")
+    torch.manual_seed(0)
+    transformers.BertModel(transformers.BertConfig(
+        vocab_size=len(words), hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+        intermediate_size=64, max_position_embeddings=16)).save_pretrained(tmp_path)
+    _run_fresh(_HF_FEATURIZER.format(hidden=HF_PACKAGES, path=str(tmp_path)))
 
 
 def test_port_tools_import_without_jax():
@@ -410,9 +449,13 @@ def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
+HF_PACKAGES = ("transformers", "tokenizers", "safetensors", "huggingface_hub", "regex")
+
+
 @pytest.mark.parametrize(
     "banned",
-    ["import jax", "from jax", "torch.compile", "scaled_dot_product_attention"],
+    ["import jax", "from jax", "torch.compile", "scaled_dot_product_attention"]
+    + [f"{verb} {pkg}" for pkg in HF_PACKAGES for verb in ("import", "from")],
 )
 def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
     files = list(_port_files())
@@ -426,7 +469,8 @@ def test_no_port_file_uses_jax_or_stand_in_kernels(banned):
                 "common.py", "sharded_index.py", "sharded_hybrid.py", "dp.py",
                 "tp.py", "ep.py", "pp.py", "cp.py", "ring_attention.py", "eval_e2e.py",
                 "similarity_ab.py", "verdict_table2.py", "rehearsal_scale.py",
-                "results.py", "graft_entry.py", "sharded_scale.py"):
+                "results.py", "graft_entry.py", "sharded_scale.py", "hf_checkpoint.py",
+                "hf_tokenizer.py", "hf_unicode.py"):
         assert any(p.endswith(os.sep + new) for p in files), new
     offenders = [p for p in files if banned in open(p, encoding="utf-8").read()]
     assert not offenders, offenders
