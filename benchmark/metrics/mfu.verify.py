@@ -1,0 +1,9 @@
+"""Model FLOPs of the window's requests' real tokens (``rooflines/
+verdict_model.py``) at the TF32 rate, over the window's time."""
+
+from benchmark.harness import step_mfu
+from benchmark.rooflines import peaks, verdict_model
+
+
+def read(run):
+    return step_mfu(run, lambda w: verdict_model.forward_flops(w) / peaks.TF32_FLOPS)

@@ -1,0 +1,6 @@
+"""(claim, evidence) pairs trained on in the window, over the window's
+seconds."""
+
+
+def read(run):
+    return run.rate()
