@@ -33,6 +33,7 @@ from ircl_tpu_torch.corpus.fastpath import batch_vectorize
 from ircl_tpu_torch.index.build import CountIndex
 from ircl_tpu_torch.index.tfidf import idf_vector
 from ircl_tpu_torch.ops import ragged
+from ircl_tpu_torch.utils.profiling import span
 
 
 def candidate_docs(
@@ -84,36 +85,38 @@ def vectorize_queries(
     (``tfidf_doc_ranker.py:92-126``): unique hashed ngrams, log1p(tf) * idf
     with clipped idf. ``binary_tf=True`` reproduces the reference's "BM25"
     ranker variant (tf = 1 per present term). Empty queries produce
-    all-zero rows. Pads are bucket 0 with weight 0.
+    all-zero rows. Pads are bucket 0 with weight 0. Traced as the span
+    ``ranker.vectorize``.
     """
-    if idfs is None:
-        idfs = idf_vector(doc_freqs, num_docs)
-    per_q = batch_vectorize(queries, hash_size, ngram)
-    B = len(queries)
-    lens = np.fromiter(
-        (len(u) for u, _ in per_q), dtype=np.int64, count=B
-    ) if B else np.empty(0, np.int64)
-    T = max_terms or int(lens.max(initial=1)) or 1
-    buckets = np.zeros((B, T), dtype=np.int32)
-    weights = np.zeros((B, T), dtype=np.float32)
-    if B and lens.sum():
-        # Bulk run-expansion: every query's (uniq, counts) concatenated,
-        # weights in one vectorized pass, scattered into the padded [B, T]
-        # arrays by (row, position within the query), truncated at T.
-        all_u = np.concatenate([u for u, _ in per_q])
-        all_c = np.concatenate([c for _, c in per_q])
-        all_w = (
-            idfs[all_u].astype(np.float32)
-            if binary_tf
-            else np.log1p(all_c.astype(np.float32)) * idfs[all_u]
-        )
-        rows = np.repeat(np.arange(B, dtype=np.int64), lens)
-        offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
-        cols = np.arange(len(all_u), dtype=np.int64) - offsets[rows]
-        keep = cols < T
-        buckets[rows[keep], cols[keep]] = all_u[keep].astype(np.int32)
-        weights[rows[keep], cols[keep]] = all_w[keep].astype(np.float32)
-    return buckets, weights
+    with span("ranker.vectorize"):
+        if idfs is None:
+            idfs = idf_vector(doc_freqs, num_docs)
+        per_q = batch_vectorize(queries, hash_size, ngram)
+        B = len(queries)
+        lens = np.fromiter(
+            (len(u) for u, _ in per_q), dtype=np.int64, count=B
+        ) if B else np.empty(0, np.int64)
+        T = max_terms or int(lens.max(initial=1)) or 1
+        buckets = np.zeros((B, T), dtype=np.int32)
+        weights = np.zeros((B, T), dtype=np.float32)
+        if B and lens.sum():
+            # Bulk run-expansion: every query's (uniq, counts) concatenated,
+            # weights in one vectorized pass, scattered into the padded [B, T]
+            # arrays by (row, position within the query), truncated at T.
+            all_u = np.concatenate([u for u, _ in per_q])
+            all_c = np.concatenate([c for _, c in per_q])
+            all_w = (
+                idfs[all_u].astype(np.float32)
+                if binary_tf
+                else np.log1p(all_c.astype(np.float32)) * idfs[all_u]
+            )
+            rows = np.repeat(np.arange(B, dtype=np.int64), lens)
+            offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
+            cols = np.arange(len(all_u), dtype=np.int64) - offsets[rows]
+            keep = cols < T
+            buckets[rows[keep], cols[keep]] = all_u[keep].astype(np.int32)
+            weights[rows[keep], cols[keep]] = all_w[keep].astype(np.float32)
+        return buckets, weights
 
 
 def _put(x: np.ndarray, device) -> torch.Tensor:
@@ -383,41 +386,46 @@ class TfidfRanker:
         """Host half of a hybrid batch, as numpy arrays: (u_pad [U], qb_t
         [T8, B_pad], qw_t [T8, B_pad], light docs [B, P], light contribs
         [B, P]). Pools are in the permuted doc space and doc-sorted when the
-        ranker has width buckets."""
+        ranker has width buckets. Traced as two spans: ``ranker.query_slab``
+        (heavy terms, their union and the query slab rows) and
+        ``ranker.light_pools`` (the light terms' posting pools)."""
         from ircl_tpu_torch.index.split import gather_light_pools
         from ircl_tpu_torch.ops.membership_cuda import pad_for_slab
 
-        heavy_q = self._split.doc_freqs[buckets] > self._split.df_threshold
-        hw = np.where(heavy_q, weights, 0.0).astype(np.float32)
-        u_pad = self._union_slots(
-            buckets, hw, floor=self.fixed_union_cap or 512
-        )
-        # Per-query ascending term sort (pads trailing): the windowed slab's
-        # precondition. Term order within a query does not change scores.
-        key = np.where(hw != 0.0, buckets, np.int32(2**31 - 1))
-        order = np.argsort(key, axis=1, kind="stable")
-        sb = np.take_along_axis(buckets, order, axis=1).astype(np.int32)
-        sw = np.take_along_axis(hw, order, axis=1)
-        sb = np.where(sw != 0.0, sb, -1)
-        qb_t, qw_t = pad_for_slab(
-            np.ascontiguousarray(sb.T),
-            np.ascontiguousarray(sw.T),
-            d_tile=128,
-        )
-        if self._bucketed is not None:
-            # Pools remapped to the permuted doc space and doc-sorted in one
-            # C++ pass; pads carry an out-of-range position, so no doc tile
-            # ever reads them.
-            ld, lc, _ = gather_light_pools(
-                self._split,
-                buckets,
-                weights,
-                old2pos=self._bucketed.old2pos,
-                sort_pools=True,
-                pad_doc=len(self._bucketed.pos2old),
+        with span("ranker.query_slab"):
+            heavy_q = self._split.doc_freqs[buckets] > self._split.df_threshold
+            hw = np.where(heavy_q, weights, 0.0).astype(np.float32)
+            u_pad = self._union_slots(
+                buckets, hw, floor=self.fixed_union_cap or 512
             )
-        else:
-            ld, lc, _ = gather_light_pools(self._split, buckets, weights)
+            # Per-query ascending term sort (pads trailing): the windowed
+            # slab's precondition. Term order within a query does not change
+            # scores.
+            key = np.where(hw != 0.0, buckets, np.int32(2**31 - 1))
+            order = np.argsort(key, axis=1, kind="stable")
+            sb = np.take_along_axis(buckets, order, axis=1).astype(np.int32)
+            sw = np.take_along_axis(hw, order, axis=1)
+            sb = np.where(sw != 0.0, sb, -1)
+            qb_t, qw_t = pad_for_slab(
+                np.ascontiguousarray(sb.T),
+                np.ascontiguousarray(sw.T),
+                d_tile=128,
+            )
+        with span("ranker.light_pools"):
+            if self._bucketed is not None:
+                # Pools remapped to the permuted doc space and doc-sorted in
+                # one C++ pass; pads carry an out-of-range position, so no
+                # doc tile ever reads them.
+                ld, lc, _ = gather_light_pools(
+                    self._split,
+                    buckets,
+                    weights,
+                    old2pos=self._bucketed.old2pos,
+                    sort_pools=True,
+                    pad_doc=len(self._bucketed.pos2old),
+                )
+            else:
+                ld, lc, _ = gather_light_pools(self._split, buckets, weights)
         return u_pad, qb_t, qw_t, ld, lc
 
     def hybrid_from_vectors_async(
@@ -431,48 +439,52 @@ class TfidfRanker:
 
     def hybrid_from_host_async(self, host, k: int):
         """The device half of a hybrid batch: ``hybrid_host_inputs``'
-        arrays uploaded and scored; returns device tensors (no sync)."""
+        arrays uploaded and scored; returns device tensors (no sync).
+        Traced as two spans: ``ranker.upload`` (the five host-to-device
+        copies) and ``ranker.launch`` (the engine's launches)."""
         from ircl_tpu_torch.ops.hybrid import (
             hybrid_topk,
             hybrid_topk_bucketed,
             hybrid_topk_bucketed_fused,
         )
 
-        u_pad, qb_t, qw_t, ld, lc = (_put(x, self.device) for x in host)
-        if self._bucketed is not None:
-            kw = dict(
+        with span("ranker.upload"):
+            u_pad, qb_t, qw_t, ld, lc = (_put(x, self.device) for x in host)
+        with span("ranker.launch"):
+            if self._bucketed is not None:
+                kw = dict(
+                    k=k,
+                    precision=self.precision,
+                    queries_sorted=True,
+                    pools_sorted=True,  # the C++ gather sorted the pools
+                    d_tile=self.d_tile,
+                )
+                # select_rescore lives in the staged engine (the fused kernel
+                # never materializes the score matrix the option is about),
+                # so it forces the staged path.
+                if (
+                    self.dev.num_docs <= self.FUSED_LIGHT_MAX_DOCS
+                    and not self.select_rescore
+                ):
+                    return hybrid_topk_bucketed_fused(
+                        *self._heavy_a, *self._heavy_b,
+                        u_pad, qb_t, qw_t, ld, lc, **kw,
+                    )
+                return hybrid_topk_bucketed(
+                    *self._heavy_a, *self._heavy_b,
+                    u_pad, qb_t, qw_t, ld, lc,
+                    select_rescore=self.select_rescore, **kw,
+                )
+            return hybrid_topk(
+                self._heavy_terms_t,
+                self._heavy_vals_t,
+                u_pad, qb_t, qw_t, ld, lc,
                 k=k,
+                num_real_docs=self.dev.num_docs,
+                d_tile=self.d_tile,
                 precision=self.precision,
                 queries_sorted=True,
-                pools_sorted=True,  # the C++ gather sorted the permuted pools
-                d_tile=self.d_tile,
             )
-            # select_rescore lives in the staged engine (the fused kernel
-            # never materializes the score matrix the option is about), so
-            # it forces the staged path.
-            if (
-                self.dev.num_docs <= self.FUSED_LIGHT_MAX_DOCS
-                and not self.select_rescore
-            ):
-                return hybrid_topk_bucketed_fused(
-                    *self._heavy_a, *self._heavy_b,
-                    u_pad, qb_t, qw_t, ld, lc, **kw,
-                )
-            return hybrid_topk_bucketed(
-                *self._heavy_a, *self._heavy_b,
-                u_pad, qb_t, qw_t, ld, lc,
-                select_rescore=self.select_rescore, **kw,
-            )
-        return hybrid_topk(
-            self._heavy_terms_t,
-            self._heavy_vals_t,
-            u_pad, qb_t, qw_t, ld, lc,
-            k=k,
-            num_real_docs=self.dev.num_docs,
-            d_tile=self.d_tile,
-            precision=self.precision,
-            queries_sorted=True,
-        )
 
     def hybrid_from_vectors(
         self, buckets: np.ndarray, weights: np.ndarray, k: int
@@ -483,36 +495,45 @@ class TfidfRanker:
             self.hybrid_from_vectors_async(buckets, weights, k), len(buckets)
         )
 
-    def _finish_hybrid(self, pending, b: int):
+    def _read_back(self, pending, b: int):
+        """A pending top-k's first ``b`` rows copied to the host, the wait
+        for the device included; traced as the span ``ranker.readback``."""
         scores, doc_idx = pending
-        scores = scores.cpu().numpy()[:b]
-        doc_idx = doc_idx.cpu().numpy()[:b]
-        if self._bucketed is not None:
-            # permuted-space positions -> original doc ids
-            valid = doc_idx >= 0
-            doc_idx = np.where(
-                valid, self._bucketed.pos2old[np.maximum(doc_idx, 0)], -1
-            )
-        return scores, doc_idx
+        with span("ranker.readback"):
+            return scores.cpu().numpy()[:b], doc_idx.cpu().numpy()[:b]
+
+    def _doc_indices(self, doc_idx: np.ndarray) -> np.ndarray:
+        """Engine positions -> original doc indices (-1 stays -1): the
+        width-bucketed engine scores docs in a permuted order."""
+        if self._bucketed is None:
+            return doc_idx
+        valid = doc_idx >= 0
+        return np.where(
+            valid, self._bucketed.pos2old[np.maximum(doc_idx, 0)], -1
+        )
+
+    def _finish_hybrid(self, pending, b: int):
+        scores, doc_idx = self._read_back(pending, b)
+        with span("ranker.id_map"):
+            return scores, self._doc_indices(doc_idx)
 
     def finalize_closest(
         self, pending, n: int
     ) -> List[Tuple[List[str], np.ndarray]]:
         """Turn a pending async result (from ``_closest_hybrid_async`` /
         ``_closest_ell_async``) into ``closest_docs_batch``'s output
-        format; this is where the host waits for the device."""
-        if self.mode == "hybrid":
-            scores, doc_idx = self._finish_hybrid(pending, n)
-        else:
-            scores, doc_idx = pending
-            scores = scores.cpu().numpy()[:n]
-            doc_idx = doc_idx.cpu().numpy()[:n]
-        out = []
-        for b in range(n):
-            keep = doc_idx[b] >= 0
-            ids = [self.dev.doc_ids[i] for i in doc_idx[b][keep]]
-            out.append((ids, scores[b][keep]))
-        return out
+        format; this is where the host waits for the device. Traced as two
+        spans: ``ranker.readback`` (the wait and the copies) and
+        ``ranker.id_map`` (positions to doc ids, one list a query)."""
+        scores, doc_idx = self._read_back(pending, n)
+        with span("ranker.id_map"):
+            doc_idx = self._doc_indices(doc_idx)
+            out = []
+            for b in range(n):
+                keep = doc_idx[b] >= 0
+                ids = [self.dev.doc_ids[i] for i in doc_idx[b][keep]]
+                out.append((ids, scores[b][keep]))
+            return out
 
     def closest_docs_batch(
         self, queries: Sequence[str], k: int = 5

@@ -1,31 +1,50 @@
-"""Profiling helpers: device traces and a throughput meter.
+"""Profiling helpers: device traces and the program's own spans.
 
-Counterpart of ``ircl_tpu/utils/profiling.py``. ``trace`` records the
-enclosed block with ``torch.profiler`` (CPU activity, and CUDA activity
-where a card is present) and writes a Chrome trace into ``logdir``, which
-Perfetto or ``chrome://tracing`` open; ``Throughput`` is carried over line
-for line.
+``trace``, the counterpart of ``ircl_tpu/utils/profiling.py``'s, records
+the enclosed block with ``torch.profiler`` (CPU activity, and CUDA
+activity where a card is present) and writes a Chrome trace into
+``logdir``, which Perfetto or ``chrome://tracing`` open.
+
+``span(name)`` marks a stretch of the program's host work as
+``ircl.<name>`` in whatever ``torch.profiler`` session is recording
+(``trace``'s or a caller's own): a ``user_annotation`` event on the
+profiler's clock, in the same trace as the kernels, so that every stretch
+in which the card sat idle lies under the host work that kept it waiting.
+With no session recording, a span costs one check and returns a shared
+no-op object. Spans nest by time on their thread; a span's self time is its
+duration less the spans inside it.
+
+The first ``trace``, or the first span entered while a session records,
+installs one ``gc`` callback that marks each pass of Python's collector the
+same way, as ``ircl.python.gc<generation>``, inside whatever span it
+interrupts; with no session recording it returns after one check. A process
+that never profiles has no callback.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import time
-from typing import Iterator, Optional
+from typing import Iterator
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+_recording = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[None]:
     """Capture a trace of the enclosed block into
     ``{logdir}/trace_{pid}_{time_ns}.json``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    collector_spans.install()
     prof = profile(activities=activities)
     prof.start()
     try:
@@ -37,23 +56,38 @@ def trace(logdir: str) -> Iterator[None]:
         )
 
 
-class Throughput:
-    """Sliding throughput meter: items/sec over the last window."""
+def span(name: str):
+    """A context manager that marks the enclosed host work as
+    ``ircl.<name>`` while a ``torch.profiler`` session records, and the
+    shared no-op context otherwise."""
+    if not _recording():
+        return _OFF
+    collector_spans.install()
+    return record_function("ircl." + name)
+
+
+class _CollectorSpans:
+    """The ``gc`` callback: a span from each collection's start to its stop.
+    Collections never nest, so one open span at a time suffices."""
 
     def __init__(self):
-        self._t0: Optional[float] = None
-        self._items = 0
+        self.open = None
+        self.installed = False
 
-    def start(self) -> None:
-        self._t0 = time.time()
-        self._items = 0
+    def install(self) -> None:
+        """Append the callback to ``gc.callbacks``, once a process."""
+        if not self.installed:
+            gc.callbacks.append(self)
+            self.installed = True
 
-    def add(self, n: int = 1) -> None:
-        if self._t0 is None:
-            self.start()
-        self._items += n
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            if _recording():
+                self.open = record_function(f"ircl.python.gc{info['generation']}")
+                self.open.__enter__()
+        elif self.open is not None:
+            self.open.__exit__(None, None, None)
+            self.open = None
 
-    def rate(self) -> float:
-        if self._t0 is None or self._items == 0:
-            return 0.0
-        return self._items / max(time.time() - self._t0, 1e-9)
+
+collector_spans = _CollectorSpans()

@@ -32,6 +32,7 @@ from ircl_tpu_torch.models.moe import MoEConfig
 from ircl_tpu_torch.models.transformer import TransformerConfig
 from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
 from ircl_tpu_torch.utils.convert import to_device, verdict_params_from_numpy
+from ircl_tpu_torch.utils.profiling import span
 from ircl_tpu_torch.verdict.model import VerdictConfig, verdict_apply
 
 # inverse of corpus.fever.LABEL_MAP (SUPPORTS=1 / REFUTES=0)
@@ -116,7 +117,13 @@ class VerdictClassifier:
         self, claims: Sequence[str], evidence_texts: Sequence[str]
     ) -> List[dict]:
         """One ``{"label", "label_id", "confidence"}`` per claim;
-        ``confidence`` is the softmax probability of the argmax label."""
+        ``confidence`` is the softmax probability of the argmax label.
+
+        Each device batch is traced as four spans: ``verdict.tokenize``
+        (host WordPiece of the pairs), ``verdict.upload`` (ids, mask and
+        types to the device), ``verdict.forward`` (the forward's launches)
+        and ``verdict.readback`` (the wait for the device and the copy of
+        the probabilities)."""
         if len(claims) != len(evidence_texts):
             raise ValueError(
                 f"{len(claims)} claims vs {len(evidence_texts)} evidence texts"
@@ -127,13 +134,18 @@ class VerdictClassifier:
             pairs = list(zip(claims[lo : lo + B], evidence_texts[lo : lo + B]))
             n_real = len(pairs)
             pairs += [("", "")] * (B - n_real)
-            ids, mask, types = (
-                torch.as_tensor(x, device=self.device)
-                for x in self.tokenizer.encode_batch(pairs, self.cfg.max_length)
-            )
-            probs = _probs_batch(
-                self.params, self.cfg, ids.long(), mask, types.long()
-            ).cpu().numpy()[:n_real]
+            with span("verdict.tokenize"):
+                enc = self.tokenizer.encode_batch(pairs, self.cfg.max_length)
+            with span("verdict.upload"):
+                ids, mask, types = (
+                    torch.as_tensor(x, device=self.device) for x in enc
+                )
+            with span("verdict.forward"):
+                probs = _probs_batch(
+                    self.params, self.cfg, ids.long(), mask, types.long()
+                )
+            with span("verdict.readback"):
+                probs = probs.cpu().numpy()[:n_real]
             pred = probs.argmax(axis=-1)
             out.extend(
                 {
