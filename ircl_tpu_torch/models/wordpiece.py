@@ -6,6 +6,16 @@ this port runs where JAX is not installed. The greedy longest-match loop is
 the module function ``greedy_pieces``, which the HuggingFace BERT tokenizer
 (``models/hf_tokenizer.py``) shares.
 
+One addition: ``encode_batch`` encodes every pair whose texts are both
+ASCII in one call of the port's native C++ encoder
+(``csrc/wordpiece.cpp::ircl_wordpiece_encode_pairs``, built by
+``utils/native_build.py`` when missing or older than its source), which
+gives ids, mask and types bit-identical to ``encode_pair``'s. A pair with a
+non-ASCII text takes ``encode_pair`` into its own row (the C++ word split
+knows only ASCII's character classes), as does the whole batch where the
+library cannot be built or loaded. ``native_rows`` and ``python_rows``
+count the rows each path encoded.
+
 Replaces the downloaded HF tokenizers the reference relies on
 (``contrastive_module.py:32``, ``src/QA/dataset.py:75``). Works from any
 vocab: a cached ``vocab.txt`` if one exists locally, or a vocabulary trained
@@ -15,6 +25,9 @@ framework runs with zero downloads.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import weakref
 from collections import Counter
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -53,6 +66,43 @@ def greedy_pieces(word: str, vocab, unk: str = UNK, prefix: str = "##",
     return out
 
 
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+@functools.cache
+def _native_encoder():
+    """The WordPiece library (``csrc/wordpiece.cpp``), built first if it is
+    missing or older than its source, or None where it cannot be."""
+    from ircl_tpu_torch.utils.native_build import build_native
+
+    path = build_native(lib="wordpiece")
+    if path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(path)
+        lib.ircl_wordpiece_vocab_new.argtypes = [ctypes.c_char_p, _I64P, _I32P,
+                                                 ctypes.c_int64]
+        lib.ircl_wordpiece_vocab_new.restype = ctypes.c_void_p
+        lib.ircl_wordpiece_vocab_free.argtypes = [ctypes.c_void_p]
+        lib.ircl_wordpiece_vocab_free.restype = None
+        lib.ircl_wordpiece_encode_pairs.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, _I64P, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            _I32P, ctypes.POINTER(ctypes.c_float), _I32P]
+        lib.ircl_wordpiece_encode_pairs.restype = None
+    except (OSError, AttributeError):  # not loadable, or without the symbols
+        return None
+    return lib
+
+
+def _packed(texts: List[str]) -> Tuple[bytes, np.ndarray]:
+    """ASCII texts back to back, and their offsets (length n+1)."""
+    offsets = np.zeros(len(texts) + 1, np.int64)
+    np.cumsum([len(t) for t in texts], out=offsets[1:])
+    return "".join(texts).encode("ascii"), offsets
+
+
 class WordPieceTokenizer:
     def __init__(self, vocab: Dict[str, int], max_input_chars: int = 100):
         self.vocab = vocab
@@ -60,6 +110,14 @@ class WordPieceTokenizer:
         self.max_input_chars = max_input_chars
         for s in SPECIALS:
             assert s in vocab, f"missing special token {s}"
+        self.native_rows = 0
+        self.python_rows = 0
+        self._table = None  # the native vocabulary table, built on first use
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_table"] = None  # a pointer into this process
+        return state
 
     # -- vocab construction -------------------------------------------------
 
@@ -153,11 +211,51 @@ class WordPieceTokenizer:
         types += [0] * pad
         return ids, mask, types
 
+    def _native_table(self):
+        """(library, table handle) of this vocabulary, or None without the
+        native encoder. The table is freed with the tokenizer."""
+        lib = _native_encoder()
+        if lib is None:
+            return None
+        if self._table is None:
+            keys = [k for k in self.vocab if k.isascii()]  # no other key can match
+            packed, offsets = _packed(keys)
+            ids = np.asarray([self.vocab[k] for k in keys], np.int32)
+            handle = lib.ircl_wordpiece_vocab_new(
+                packed, offsets.ctypes.data_as(_I64P), ids.ctypes.data_as(_I32P), len(keys))
+            weakref.finalize(self, lib.ircl_wordpiece_vocab_free, handle)
+            self._table = handle
+        return lib, self._table
+
     def encode_batch(
         self,
         pairs: Sequence[Tuple[str, Optional[str]]],
         max_length: int = 128,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``encode_pair`` of every pair, stacked: (ids int32, mask float32,
+        types int32). Pairs whose texts are both ASCII are encoded natively
+        in one call, the others by ``encode_pair``."""
+        rows = [r for r, (a, b) in enumerate(pairs)
+                if a.isascii() and (b is None or b.isascii())]
+        # under 2, encode_pair's [CLS] [SEP] rows outgrow max_length
+        native = self._native_table() if rows and max_length >= 2 else None
+        if native is None:
+            self.python_rows += len(pairs)
+            return self._encode_python(pairs, max_length)
+        out = self._encode_native(*native, [pairs[r] for r in rows], max_length)
+        self.native_rows += len(rows)
+        if len(rows) == len(pairs):
+            return out
+        rest = sorted(set(range(len(pairs))).difference(rows))
+        self.python_rows += len(rest)
+        mixed = tuple(np.empty((len(pairs), max_length), x.dtype) for x in out)
+        py = self._encode_python([pairs[r] for r in rest], max_length)
+        for m, x, y in zip(mixed, out, py):
+            m[rows] = x
+            m[rest] = y
+        return mixed
+
+    def _encode_python(self, pairs, max_length: int):
         ids, masks, types = [], [], []
         for a, b in pairs:
             i, m, t = self.encode_pair(a, b, max_length)
@@ -169,6 +267,19 @@ class WordPieceTokenizer:
             np.asarray(masks, np.float32),
             np.asarray(types, np.int32),
         )
+
+    def _encode_native(self, lib, table, pairs, max_length: int):
+        packed, offsets = _packed([t or "" for pair in pairs for t in pair])
+        ids = np.empty((len(pairs), max_length), np.int32)
+        mask = np.empty((len(pairs), max_length), np.float32)
+        types = np.empty((len(pairs), max_length), np.int32)
+        v = self.vocab
+        lib.ircl_wordpiece_encode_pairs(
+            table, packed, offsets.ctypes.data_as(_I64P), len(pairs), max_length,
+            self.max_input_chars, v[UNK], v[CLS], v[SEP], v[PAD],
+            ids.ctypes.data_as(_I32P), mask.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            types.ctypes.data_as(_I32P))
+        return ids, mask, types
 
     @property
     def vocab_size(self) -> int:

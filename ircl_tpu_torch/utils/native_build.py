@@ -1,8 +1,8 @@
 """Build helper for the native C++ host libraries (ctypes-loaded).
 
 Counterpart of ``ircl_tpu/utils/native_build.py``, carried over line for line apart from
-imports and the atomic write below: the port keeps its own copy of every
-module it needs and imports nothing of the JAX package.
+imports, the atomic write and the port's own library below: the port keeps its
+own copy of every module it needs and imports nothing of the JAX package.
 
 Compiles each source in ``native/src/`` into its shared object with g++ if
 the .so is missing or stale:
@@ -11,6 +11,12 @@ the .so is missing or stale:
   hashing, tokenization, split fill, pool gather)
 - ``ircl_http.cpp`` -> ``native/libircl_http.so`` (epoll HTTP front for the
   serving layer; needs -pthread)
+
+The port adds one library of its own, from a source it owns (``_PORT_LIBS``):
+
+- ``ircl_tpu_torch/csrc/wordpiece.cpp`` ->
+  ``ircl_tpu_torch/_build/libircl_wordpiece.so`` (the WordPiece pair
+  encoder of ``models/wordpiece.py``)
 
 Build is best-effort: every caller has a pure-Python fallback, so failure
 here degrades performance only.
@@ -33,6 +39,11 @@ _LIBS = {
     "native": ("ircl_native.cpp", "libircl_native.so", []),
     "http": ("ircl_http.cpp", "libircl_http.so", ["-pthread"]),
 }
+# lib -> (source, library, extra flags), the paths from the repository root
+_PORT_LIBS = {
+    "wordpiece": ("ircl_tpu_torch/csrc/wordpiece.cpp",
+                  "ircl_tpu_torch/_build/libircl_wordpiece.so", []),
+}
 
 
 def repo_root() -> str:
@@ -40,10 +51,14 @@ def repo_root() -> str:
 
 
 def build_native(force: bool = False, lib: str = "native") -> str | None:
-    src_name, out_name, extra = _LIBS[lib]
     root = repo_root()
-    src = os.path.join(root, "native", "src", src_name)
-    out = os.path.join(root, "native", out_name)
+    if lib in _PORT_LIBS:
+        src_name, out_name, extra = _PORT_LIBS[lib]
+        src, out = os.path.join(root, src_name), os.path.join(root, out_name)
+    else:
+        src_name, out_name, extra = _LIBS[lib]
+        src = os.path.join(root, "native", "src", src_name)
+        out = os.path.join(root, "native", out_name)
     if not os.path.exists(src):
         return None
     if not force and os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
@@ -63,6 +78,7 @@ def build_native(force: bool = False, lib: str = "native") -> str | None:
         src,
     ]
     try:
+        os.makedirs(os.path.dirname(out), exist_ok=True)
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, out)
     except Exception:
@@ -74,6 +90,6 @@ def build_native(force: bool = False, lib: str = "native") -> str | None:
 
 
 if __name__ == "__main__":
-    for lib in _LIBS:
+    for lib in (*_LIBS, *_PORT_LIBS):
         path = build_native(force=True, lib=lib)
         print(f"{lib}: {path or 'build failed'}")

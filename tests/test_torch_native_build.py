@@ -105,3 +105,25 @@ def test_a_library_newer_than_its_source_is_not_rebuilt(toy):
     stamp = os.stat(first).st_mtime_ns
     assert nb.build_native(lib="toy") == first
     assert os.stat(first).st_mtime_ns == stamp
+
+
+def test_the_loader_rebuilds_a_library_older_than_its_source(toy, monkeypatch):
+    """``models/wordpiece.py::_native_encoder`` builds a library that is
+    older than its source before it loads it, so a checkout that holds a
+    library built before new entry points were added does not load it as it
+    is (a stale one here lacks the encoder's symbols and would load as None)."""
+    from ircl_tpu_torch.models import wordpiece as wp
+
+    src = toy.parent / "src" / "toy.cpp"
+    monkeypatch.setattr(nb, "_PORT_LIBS", {"wordpiece": ("native/src/toy.cpp",
+                                                         "native/libtoy.so", [])})
+    assert nb.build_native(lib="wordpiece") == str(toy)
+    src.write_text(SOURCE + "".join(
+        f'extern "C" void {name}() {{}}\n' for name in
+        ("ircl_wordpiece_vocab_new", "ircl_wordpiece_vocab_free",
+         "ircl_wordpiece_encode_pairs")))
+    past = os.stat(src).st_mtime - 60
+    os.utime(toy, (past, past))
+    lib = wp._native_encoder.__wrapped__()
+    assert lib is not None and lib.ircl_toy_answer() == 42
+    assert os.stat(toy).st_mtime > past
