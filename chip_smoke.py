@@ -234,6 +234,16 @@ Phases, each printed as it runs:
     ``--ref hybrid``'s one-device engine, and #2 on rank 0's shard bit for
     bit against its plain version. Every rank refuses JAX and the JAX
     package.
+32. the grouped bf16 expert GEMM of the Moonlight-16B-A3B body (#9,
+    ``csrc/moe_grouped_gemm.cu``) at its widths (64 experts, hidden 2,048,
+    expert width 1,408): gate+up with the SwiGLU epilogue and down over
+    98,304 rows, 66,000 routed unevenly (three experts empty, one of 37
+    rows), each output within half a bf16 unit of the exact product plus
+    2^-11 of its terms' magnitudes, under 1% of entries a rounding off the
+    plain version, two launches bit-equal; times of the kernel, its plain
+    version and ``torch._grouped_mm`` (the two products alone) where the
+    card's PyTorch has it; then a 3-layer body at the published widths
+    through ``VerdictClassifier.classify`` on 64 pairs.
 
 Kernel launch counts are zeroed before phase 3 and read after phase 5 (the
 sparse path), zeroed again before phase 7 and read after phase 9 (the
@@ -262,7 +272,9 @@ process and nothing else, and (d)'s ``retrieve`` and ``serve`` processes
 must launch #1 (each process of the chain writes its counts at exit).
 Before phase 30 every count is zeroed again: every rank of (a) and of (c)
 must launch #1 and #2 (each rank writes its counts at exit), and this
-process nothing until (a)'s references and slab check.
+process nothing until (a)'s references and slab check. Phase 32 zeroes
+#9's count after its comparisons: the 3-layer body's classify must launch it
+twice a MoE layer and batch (8).
 The script exits non-zero at the first
 failure, and when no CUDA device is present. The line before the last is a
 JSON object of the kernels' numbers, each with the least time the card could
@@ -5802,6 +5814,167 @@ def phase30_graft_entry(dev, root, tmpdir, smi, counted):
     return launches
 
 
+# phase 32: the grouped expert GEMM of the Moonlight cell (models/mla_moe.py)
+GROUPED_ROWS, GROUPED_ROUTED = 98_304, 66_000  # 6 x 32 x 512 routed places; the
+# cell's ~66K real ones (6 x ~11K real tokens), the rest past offsets[E]
+
+
+def grouped_offsets(E, rows, gen):
+    """Skewed counts of ``rows`` rows over ``E`` experts: experts 3, 17 and
+    40 empty, expert 5 shorter than a tile."""
+    import torch
+
+    w = torch.rand(E, generator=gen) ** 3
+    w[[3, 17, 40]] = 0.0
+    counts = torch.floor(w / w.sum() * rows).long()
+    counts[5] = 37
+    counts[0] += rows - int(counts.sum())
+    return torch.cat([torch.zeros(1, dtype=torch.long), counts.cumsum(0)]).to(torch.int32)
+
+
+def grouped_within_rounding(label, got, a, w, offsets):
+    """Each expert's rows of ``got`` within half a bf16 unit of the exact
+    (f64) product plus 2^-11 of the sum of the terms' magnitudes; a wrong
+    row, column or expert is off by about the product itself."""
+    off = offsets.tolist()
+    worst = 0.0
+    for e in range(len(off) - 1):
+        lo, hi = off[e], off[e + 1]
+        if hi == lo:
+            continue
+        exact = a[lo:hi].double() @ w[e].double().T
+        scale = a[lo:hi].double().abs() @ w[e].double().abs().T
+        over = ((got[lo:hi].double() - exact).abs() - 2 ** -8 * exact.abs()) / scale
+        worst = max(worst, float(over.max()))
+        del exact, scale, over
+    if worst > 2 ** -11:
+        fail(f"phase 32: {label} off the exact product by {worst:.3g} of the terms' "
+             f"magnitudes past half a bf16 unit (at most 2^-11)")
+    return worst
+
+
+def phase32_grouped_gemm(dev, tok, pairs, results):
+    """#9, the grouped bf16 expert GEMM (``csrc/moe_grouped_gemm.cu``), at
+    the Moonlight cell's widths: (a) gate+up with its SwiGLU epilogue and
+    down over ``GROUPED_ROWS`` rows, ``GROUPED_ROUTED`` of them routed
+    unevenly over the 64 experts (three empty, one shorter than a tile),
+    each held to the exact product and to its plain version, timed against
+    the plain version and ``torch._grouped_mm`` where the card's PyTorch
+    has it; (b) a 3-layer body at the published widths (one dense, two MoE
+    layers) through ``VerdictClassifier.classify`` on 64 pairs: two
+    launches a MoE layer and batch, routed rows 6 x the real tokens. Its
+    launch count is zeroed before (b); (a)'s comparisons are not counted."""
+    import torch
+
+    from ircl_tpu_torch.models.mla_moe import ExpertCounters, MLAMoEConfig, init_mla_moe_params
+    from ircl_tpu_torch.ops.moe_grouped_gemm_cuda import (
+        grouped_gemm, grouped_gemm_ref, interleave_gate_up, swiglu_interleaved,
+    )
+    from ircl_tpu_torch.utils.precision import float32_precision
+    from ircl_tpu_torch.verdict.infer import VerdictClassifier
+    from ircl_tpu_torch.verdict.model import VerdictConfig
+
+    t0 = time.perf_counter()
+    cfg = MLAMoEConfig()
+    E, H, I = cfg.experts, cfg.hidden, cfg.expert_width
+    offsets = grouped_offsets(E, GROUPED_ROUTED, torch.Generator().manual_seed(32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = torch.randn(GROUPED_ROWS, H, generator=g, device=dev).to(torch.bfloat16)
+    gate = (0.02 * torch.randn(E, I, H, generator=g, device=dev)).to(torch.bfloat16)
+    up = (0.02 * torch.randn(E, I, H, generator=g, device=dev)).to(torch.bfloat16)
+    down = (0.02 * torch.randn(E, H, I, generator=g, device=dev)).to(torch.bfloat16)
+    w13 = interleave_gate_up(gate, up).contiguous()
+    del gate, up
+    end = GROUPED_ROUTED
+    raw = grouped_gemm(x, w13, offsets)
+    h = grouped_gemm(x, w13, offsets, swiglu=True)
+    y = grouped_gemm(h, down, offsets)
+    torch.cuda.synchronize()
+    err_up = grouped_within_rounding("gate+up", raw, x, w13, offsets)
+    err_down = grouped_within_rounding("down", y, h, down, offsets)
+    want = swiglu_interleaved(raw[:end]).float()
+    if not bool(((h[:end].float() - want).abs() <= 2 ** -7 * want.abs()).all()):
+        fail("phase 32: the SwiGLU epilogue is not silu(gate) * up of the kernel's products")
+    del want
+    with float32_precision():
+        plain_h = grouped_gemm_ref(x, w13, offsets, swiglu=True)
+        plain_y = grouped_gemm_ref(h, down, offsets)
+    moved = {name: float((a[:end] != b[:end]).float().mean())
+             for name, a, b in (("gate+up", h, plain_h), ("down", y, plain_y))}
+    if max(moved.values()) > 0.01:
+        fail(f"phase 32: the kernel and its plain version differ on {moved} of the entries "
+             f"(rounding ties allow under 1%)")
+    if not torch.equal(grouped_gemm(h, down, offsets)[:end], y[:end]):
+        fail("phase 32: two launches of the down product gave different bits")
+    t_up = cuda_ms(lambda: grouped_gemm(x, w13, offsets, swiglu=True), reps=10)
+    t_down = cuda_ms(lambda: grouped_gemm(h, down, offsets), reps=10)
+    with float32_precision():
+        t_plain = (cuda_ms(lambda: grouped_gemm_ref(x, w13, offsets, swiglu=True), reps=2)
+                   + cuda_ms(lambda: grouped_gemm_ref(h, down, offsets), reps=2))
+    # torch._grouped_mm (bf16, sm90): the raw gate+up product and down, a
+    # yardstick of the same products (the epilogue's silu * u not included)
+    t_lib, lib_note = None, "torch._grouped_mm absent"
+    mm = getattr(torch, "_grouped_mm", None)
+    if mm is not None:
+        ends = offsets[1:].contiguous()
+        try:
+            lib_up = mm(x[:end], w13.transpose(-2, -1), offs=ends, out_dtype=torch.bfloat16)
+            lib_down = mm(h[:end], down.transpose(-2, -1), offs=ends, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            grouped_within_rounding("torch._grouped_mm gate+up", lib_up, x, w13, offsets)
+            grouped_within_rounding("torch._grouped_mm down", lib_down, h, down, offsets)
+            t_lib = (cuda_ms(lambda: mm(x[:end], w13.transpose(-2, -1), offs=ends,
+                                        out_dtype=torch.bfloat16), reps=10)
+                     + cuda_ms(lambda: mm(h[:end], down.transpose(-2, -1), offs=ends,
+                                          out_dtype=torch.bfloat16), reps=10))
+            lib_note = "torch._grouped_mm, the two products without the epilogue"
+            del lib_up, lib_down
+        except (RuntimeError, TypeError) as e:
+            lib_note = f"torch._grouped_mm refused the shapes: {str(e).splitlines()[0][:160]}"
+    ops = 2 * end * H * (2 * I) + 2 * end * I * H
+    bound = least_time((x[:end], w13, h[:end], h[:end], down, y[:end]), ops, BF16_FLOPS)
+    results["moe_grouped_gemm"] = dict(
+        max_rounding_over=max(err_up, err_down), ms=t_up + t_down, gate_up_ms=t_up,
+        down_ms=t_down, plain_ms=t_plain, library_ms=t_lib, library=lib_note, **bound)
+    log(f"phase 32 (a): {end} routed rows of {GROUPED_ROWS} over {E} experts (3 empty, one "
+        f"of 37 rows): gate+up with SwiGLU {t_up:.3f} ms, down {t_down:.3f} ms, "
+        f"{ops / (t_up + t_down) / 1e9:.1f} TFLOP/s (bound {bound['bound_ms']:.3f} ms by "
+        f"{bound['bound_by']}); plain {t_plain:.3f} ms; library "
+        f"{'not measured' if t_lib is None else f'{t_lib:.3f} ms'} ({lib_note}); within "
+        f"the exact product's bound (worst {max(err_up, err_down):.3g} of 2^-11), "
+        f"entries off the plain version {moved}")
+    del x, w13, h, y, raw, plain_h, plain_y, down
+    torch.cuda.empty_cache()
+
+    body = MLAMoEConfig(layers=3)
+    params = init_mla_moe_params(body, 32, dev)
+    clf = VerdictClassifier(VerdictConfig(encoder=body, max_length=VERDICT_L), params, tok,
+                            batch_size=VERDICT_BATCH)
+    del params
+    batch = pairs[: 2 * VERDICT_BATCH]
+    clf.classify([c for c, _ in batch[:VERDICT_BATCH]], [e for _, e in batch[:VERDICT_BATCH]])
+    grouped_gemm.launches = 0
+    clf.expert_counters = ExpertCounters()
+    out = clf.classify([c for c, _ in batch], [e for _, e in batch])
+    counters = clf.expert_counters
+    want_launches = 2 * (body.layers - body.first_dense) * 2
+    _, mask, _ = tok.encode_batch(batch, VERDICT_L)
+    real = int(np.asarray(mask).sum())
+    if len(out) != len(batch) or grouped_gemm.launches != want_launches:
+        fail(f"phase 32 (b): {len(out)} answers, {grouped_gemm.launches} grouped launches "
+             f"(want {len(batch)}, {want_launches})")
+    if counters.routed_rows != body.experts_per_token * real:
+        fail(f"phase 32 (b): {counters.routed_rows} routed rows, not "
+             f"{body.experts_per_token} x {real} real tokens")
+    results["moe_grouped_gemm"]["launches_path"] = grouped_gemm.launches
+    log(f"phase 32 (b): a {body.layers}-layer body at the published widths through classify: "
+        f"{len(out)} answers, {grouped_gemm.launches} grouped launches, "
+        f"{counters.routed_rows} routed rows (6 x {real} real tokens); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del clf
+    torch.cuda.empty_cache()
+
+
 def serve_lines(service, lines):
     from ircl_tpu_torch.serve import serve_stdin
 
@@ -6444,6 +6617,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     graft_launches = phase30_graft_entry(dev, root, tmp.name, smi, counted)
 
+    # ---- the Moonlight body's grouped expert GEMM: phase 32 -----------------
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    phase32_grouped_gemm(dev, vtok, pairs, results)
+    log(f"phase 32: {time.perf_counter() - t_phase:.1f} s")
+
     tmp.cleanup()
     loaded = jax_modules()
     if loaded:
@@ -6490,7 +6669,12 @@ def main() -> None:
             "ircl_tpu_torch/csrc/dense_cmax.cu",
             "scripts/probe_dense_presplit.py:35",
         ),
+        "moe_grouped_gemm": (
+            "ircl_tpu_torch/csrc/moe_grouped_gemm.cu",
+            "none (ircl_tpu/models/moe.py: one-hot einsums)",
+        ),
     }
+    launches["moe_grouped_gemm"] = results["moe_grouped_gemm"].pop("launches_path")
     report = []
     for name, (src, replaces) in sources.items():
         report.append(dict(

@@ -2,8 +2,10 @@
 
 Counterpart of ``ircl_tpu/models/``: the BiLSTM head (``encoder``), the
 transformer (``transformer``, both attention paths, float32 and bfloat16),
-the Mixture-of-Experts FFN (``moe``), WordPiece and the featurizers. The
-verdict model lives in ``ircl_tpu_torch/verdict/``.
+the Mixture-of-Experts FFN (``moe``), the Moonlight MLA + MoE decoder body
+(``mla_moe``, its dropless router and grouped experts in ``moe_dropless``),
+WordPiece and the featurizers. The verdict model lives in
+``ircl_tpu_torch/verdict/``.
 """
 
 from ircl_tpu_torch.models.encoder import EncoderConfig, init_encoder_params, seq2vec

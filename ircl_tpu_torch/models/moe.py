@@ -1,5 +1,13 @@
 """Mixture-of-Experts FFN (GShard's dense dispatch) for the transformer.
 
+Which router each path uses: this module is the encoder's MoE
+(``TransformerConfig.moe``, its verdict and contrastive models and their
+expert parallelism): softmax top-k with a capacity limit and dropped tokens,
+one-hot dispatch and combine, GELU experts. The Moonlight decoder
+(``models/mla_moe.py``) uses ``models/moe_dropless.py`` instead: sigmoid
+scores with a correction bias, no capacity and no dropped token, the routed
+rows sorted by expert into a grouped GEMM.
+
 Counterpart of ``ircl_tpu/models/moe.py``: top-k routing with a capacity
 limit, written as GShard's one-hot dispatch and combine tensors
 ``[B, S, E, C]`` (group = batch row, or ``group_size`` tokens; S tokens a

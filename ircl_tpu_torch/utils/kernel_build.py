@@ -69,6 +69,7 @@ _SIGNATURES = {
     "ircl_flash_attention_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, ctypes.c_float,
                                      _P, _P], ctypes.c_int),
+    "ircl_moe_grouped_gemm": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], ctypes.c_int),
     "ircl_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

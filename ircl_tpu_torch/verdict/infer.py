@@ -28,11 +28,13 @@ from typing import List, Sequence
 
 import torch
 
+from ircl_tpu_torch.models.mla_moe import ExpertCounters, MLAMoEConfig
 from ircl_tpu_torch.models.moe import MoEConfig
 from ircl_tpu_torch.models.transformer import TransformerConfig
 from ircl_tpu_torch.models.wordpiece import WordPieceTokenizer
 from ircl_tpu_torch.utils.convert import to_device, verdict_params_from_numpy
 from ircl_tpu_torch.utils.profiling import span
+from ircl_tpu_torch.utils.tree import tree_leaves
 from ircl_tpu_torch.verdict.model import VerdictConfig, verdict_apply
 
 # inverse of corpus.fever.LABEL_MAP (SUPPORTS=1 / REFUTES=0)
@@ -84,8 +86,8 @@ def load_verdict_checkpoint(ckptdir: str, device):
     return cfg, verdict_params_from_numpy(params, device), tok
 
 
-def _probs_batch(params, cfg: VerdictConfig, ids, mask, types) -> torch.Tensor:
-    return torch.softmax(verdict_apply(params, cfg, ids, mask, types), dim=-1)
+def _probs_batch(params, cfg: VerdictConfig, ids, mask, types, **kw) -> torch.Tensor:
+    return torch.softmax(verdict_apply(params, cfg, ids, mask, types, **kw), dim=-1)
 
 
 class VerdictClassifier:
@@ -103,7 +105,11 @@ class VerdictClassifier:
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.params = params
-        self.device = params["head_out"]["b"].device
+        self.device = tree_leaves(params)[0].device
+        # an MoE decoder body's routing counts, from each batch's read-back
+        self.expert_counters = (
+            ExpertCounters() if isinstance(cfg.encoder, MLAMoEConfig) else None
+        )
 
     @classmethod
     def from_checkpoint(cls, ckptdir: str, batch_size: int = 32, *, device):
@@ -123,7 +129,9 @@ class VerdictClassifier:
         (host WordPiece of the pairs), ``verdict.upload`` (ids, mask and
         types to the device), ``verdict.forward`` (the forward's launches)
         and ``verdict.readback`` (the wait for the device and the copy of
-        the probabilities)."""
+        the probabilities). With an MoE decoder body the expert offsets of
+        its layers come back in the same copy as the probabilities and go
+        to ``expert_counters``."""
         if len(claims) != len(evidence_texts):
             raise ValueError(
                 f"{len(claims)} claims vs {len(evidence_texts)} evidence texts"
@@ -140,12 +148,21 @@ class VerdictClassifier:
                 ids, mask, types = (
                     torch.as_tensor(x, device=self.device) for x in enc
                 )
+            kw = {} if self.expert_counters is None else {"offsets_out": []}
             with span("verdict.forward"):
                 probs = _probs_batch(
-                    self.params, self.cfg, ids.long(), mask, types.long()
+                    self.params, self.cfg, ids.long(), mask, types.long(), **kw
                 )
             with span("verdict.readback"):
-                probs = probs.cpu().numpy()[:n_real]
+                if kw:  # one copy: the probabilities, then the offsets (exact in f32)
+                    offsets = kw["offsets_out"][0]
+                    both = torch.cat([probs.reshape(-1), offsets.reshape(-1).float()])
+                    both = both.cpu().numpy()
+                    self.expert_counters.add(both[probs.numel():].reshape(offsets.shape))
+                    probs = both[: probs.numel()].reshape(probs.shape)
+                else:
+                    probs = probs.cpu().numpy()
+                probs = probs[:n_real]
             pred = probs.argmax(axis=-1)
             out.extend(
                 {

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ircl_tpu_torch.models.mla_moe import MLAMoEConfig, score_logits
 from ircl_tpu_torch.models.transformer import (
     TransformerConfig,
     _dense_init,
@@ -59,7 +60,10 @@ from ircl_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten, val
 
 @dataclasses.dataclass(frozen=True)
 class VerdictConfig:
-    encoder: TransformerConfig = TransformerConfig()
+    # the body: the encoder (a [CLS] head), or the causal MLA + MoE decoder,
+    # whose params are its own tree with a linear ``score`` head pooled at
+    # each row's last real token (models/mla_moe.py; served, not trained)
+    encoder: TransformerConfig | MLAMoEConfig = TransformerConfig()
     num_labels: int = 2
     learning_rate: float = 1e-5
     warmup_steps: int = 5000
@@ -128,11 +132,20 @@ def verdict_apply(
     ep_constrain=None,
     *,
     mesh=None,
+    offsets_out: Optional[list] = None,
 ) -> torch.Tensor:
     """Logits [B, num_labels], without autograd and in full fp32 (the aux
     loss discarded): the serving forward. With ``mesh`` the inputs are this
     rank's rows (``parallel.tp.shard_batch``) and the logits those of the
-    whole batch, on every rank."""
+    whole batch, on every rank. An ``MLAMoEConfig`` body runs in bf16 and
+    pools at each row's last real token (``models/mla_moe.py``; one device,
+    no ``type_ids``); ``offsets_out`` then receives its MoE layers' expert
+    offsets on the device."""
+    if isinstance(cfg.encoder, MLAMoEConfig):
+        if mesh is not None or constrain is not None or ep_constrain is not None:
+            raise ValueError("the MLA + MoE body runs on one device")
+        with torch.no_grad():
+            return score_logits(params, cfg.encoder, ids, mask, offsets_out)
     with torch.no_grad():
         logits = verdict_apply_with_aux(params, cfg, ids, mask, type_ids, constrain,
                                         ep_constrain, mesh=mesh)[0]

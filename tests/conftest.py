@@ -27,3 +27,11 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng_seed():
     return 1337
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA device and skips without one (files that import no JAX, run on "
+        "the card's machine with --noconftest)",
+    )

@@ -19,7 +19,7 @@ def test_sources_are_the_package_csrc():
     names = sorted(os.path.basename(p) for p in kb.sources())
     assert names == ["dense_cmax.cu", "flash_attention.cu", "flash_attention_bwd.cu",
                      "fused_dot_light.cu", "fused_hybrid.cu", "light_add_topk.cu",
-                     "membership_slab.cu"]
+                     "membership_slab.cu", "moe_grouped_gemm.cu"]
     for path in kb.sources():
         text = open(path, encoding="utf-8").read()
         assert 'extern "C"' in text and "cudaGetLastError()" in text
@@ -45,7 +45,8 @@ def test_every_entry_point_has_a_signature():
     assert ctypes.c_int not in kb._SIGNATURES["ircl_light_add_topk"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_dense_cmax"][0]
     assert ctypes.c_int not in kb._SIGNATURES["ircl_flash_attention"][0]
-    for name in ("ircl_dense_cmax_presplit", "ircl_fused_hybrid", "ircl_fused_dot_light"):
+    for name in ("ircl_dense_cmax_presplit", "ircl_fused_hybrid", "ircl_fused_dot_light",
+                 "ircl_moe_grouped_gemm"):
         assert ctypes.c_int not in kb._SIGNATURES[name][0]
     # the pre-split entry swaps the mode for a second corpus pointer
     assert len(kb._SIGNATURES["ircl_dense_cmax_presplit"][0]) == len(
