@@ -236,9 +236,10 @@ Phases, each printed as it runs:
     package.
 32. the grouped bf16 expert GEMM of the Moonlight-16B-A3B body (#9,
     ``csrc/moe_grouped_gemm.cu``) at its widths (64 experts, hidden 2,048,
-    expert width 1,408): gate+up with the SwiGLU epilogue and down over
-    98,304 rows, 66,000 routed unevenly (three experts empty, one of 37
-    rows), each output within half a bf16 unit of the exact product plus
+    expert width 1,408): its registers, shared memory and spills as ptxas
+    printed them (a spill fails the phase), then gate+up with the SwiGLU
+    epilogue and down over 98,304 rows, 66,000 routed unevenly (three
+    experts empty, one of 37 rows), each output within half a bf16 unit of the exact product plus
     2^-11 of its terms' magnitudes, under 1% of entries a rounding off the
     plain version, two launches bit-equal; times of the kernel, its plain
     version and ``torch._grouped_mm`` (the two products alone) where the
@@ -5853,11 +5854,27 @@ def grouped_within_rounding(label, got, a, w, offsets):
     return worst
 
 
+def ptxas_resources(build_log, name):
+    """``-Xptxas -v``'s lines (registers, shared memory, spills) for each
+    kernel whose mangled name holds ``name``: [(entry, [lines])]."""
+    found, lines = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            lines = [] if name in line else None
+            if lines is not None:
+                found.append((line.split("'")[1], lines))
+        elif lines is not None and ("registers" in line or "spill" in line
+                                    or "smem" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return found
+
+
 def phase32_grouped_gemm(dev, tok, pairs, results):
     """#9, the grouped bf16 expert GEMM (``csrc/moe_grouped_gemm.cu``), at
-    the Moonlight cell's widths: (a) gate+up with its SwiGLU epilogue and
-    down over ``GROUPED_ROWS`` rows, ``GROUPED_ROUTED`` of them routed
-    unevenly over the 64 experts (three empty, one shorter than a tile),
+    the Moonlight cell's widths: ptxas's resource lines for its kernels,
+    then (a) gate+up with its SwiGLU epilogue and down over ``GROUPED_ROWS``
+    rows, ``GROUPED_ROUTED`` of them routed unevenly over the 64 experts
+    (three empty, one shorter than a tile),
     each held to the exact product and to its plain version, timed against
     the plain version and ``torch._grouped_mm`` where the card's PyTorch
     has it; (b) a 3-layer body at the published widths (one dense, two MoE
@@ -5870,11 +5887,19 @@ def phase32_grouped_gemm(dev, tok, pairs, results):
     from ircl_tpu_torch.ops.moe_grouped_gemm_cuda import (
         grouped_gemm, grouped_gemm_ref, interleave_gate_up, swiglu_interleaved,
     )
+    from ircl_tpu_torch.utils.kernel_build import load_kernels
     from ircl_tpu_torch.utils.precision import float32_precision
     from ircl_tpu_torch.verdict.infer import VerdictClassifier
     from ircl_tpu_torch.verdict.model import VerdictConfig
 
     t0 = time.perf_counter()
+    resources = ptxas_resources(load_kernels().build_log, "moe_grouped_gemm_kernel")
+    for entry, lines in resources:
+        log(f"phase 32: {entry}: {'; '.join(lines)}")
+    if not resources:
+        log("phase 32: no ptxas lines (the kernels were built by an earlier process)")
+    if any("0 bytes spill stores" not in " ".join(lines) for _, lines in resources):
+        fail("phase 32: the grouped kernel spills registers")
     cfg = MLAMoEConfig()
     E, H, I = cfg.experts, cfg.hidden, cfg.expert_width
     offsets = grouped_offsets(E, GROUPED_ROUTED, torch.Generator().manual_seed(32)).to(dev)
@@ -5935,11 +5960,13 @@ def phase32_grouped_gemm(dev, tok, pairs, results):
     bound = least_time((x[:end], w13, h[:end], h[:end], down, y[:end]), ops, BF16_FLOPS)
     results["moe_grouped_gemm"] = dict(
         max_rounding_over=max(err_up, err_down), ms=t_up + t_down, gate_up_ms=t_up,
-        down_ms=t_down, plain_ms=t_plain, library_ms=t_lib, library=lib_note, **bound)
+        down_ms=t_down, plain_ms=t_plain, library_ms=t_lib, library=lib_note,
+        ptxas={entry: lines for entry, lines in resources}, **bound)
     log(f"phase 32 (a): {end} routed rows of {GROUPED_ROWS} over {E} experts (3 empty, one "
         f"of 37 rows): gate+up with SwiGLU {t_up:.3f} ms, down {t_down:.3f} ms, "
         f"{ops / (t_up + t_down) / 1e9:.1f} TFLOP/s (bound {bound['bound_ms']:.3f} ms by "
-        f"{bound['bound_by']}); plain {t_plain:.3f} ms; library "
+        f"{bound['bound_by']}, {100 * bound['bound_ms'] / (t_up + t_down):.1f}% of it); "
+        f"plain {t_plain:.3f} ms; library "
         f"{'not measured' if t_lib is None else f'{t_lib:.3f} ms'} ({lib_note}); within "
         f"the exact product's bound (worst {max(err_up, err_down):.3g} of 2^-11), "
         f"entries off the plain version {moved}")

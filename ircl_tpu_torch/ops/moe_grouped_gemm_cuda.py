@@ -15,10 +15,14 @@ which reads the offsets from device memory: nothing here waits for the
 card. Rows at or past ``offsets[E]`` are left unwritten there (zero in the
 plain version); the caller never reads them. On CPU tensors it runs
 ``grouped_gemm_ref``, a loop over the experts. ``grouped_gemm.launches``
-counts the kernel's launches.
+counts the kernel's launches. ``tile_schedule`` is the kernel's mapping of
+its linear tile index to (expert, rows, first column), written out for the
+CPU tests.
 """
 
 from __future__ import annotations
+
+import bisect
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +50,37 @@ def swiglu_interleaved(z: torch.Tensor) -> torch.Tensor:
     gu = z.to(_BF16).reshape(rows, n // 16, 2, 8)
     g, u = gu[:, :, 0].reshape(rows, n // 2), gu[:, :, 1].reshape(rows, n // 2)
     return F.silu(g) * u
+
+
+TILE_ROWS = 128  # the kernel's rows a tile
+
+
+def tile_width(n: int) -> int:
+    """The kernel's columns a tile: 256 where they divide ``n``, else 128."""
+    return 256 if n % 256 == 0 else 128
+
+
+def tile_schedule(offsets, n: int, block: int = 0, grid: int = 1) -> list:
+    """``(expert, row0, row1, n0)`` of the output tiles that block ``block``
+    of ``grid`` computes, in its order: tile ``t`` is the ``t // (n /
+    tile_width(n))``-th tile of 128 rows over the experts' runs (expert
+    ``e``'s tiles after those of the experts before it), columns fastest,
+    and the block takes ``t = block, block + grid, ...``. ``row1`` is the
+    end of the rows that the tile writes: at most 128 past ``row0`` and never
+    past its expert's last row. The default walks every tile once."""
+    off = [int(v) for v in offsets]
+    bn = tile_width(n)
+    n_cols = n // bn
+    tiles = [0]  # tiles[e]: the tiles of rows of the experts before e
+    for lo, hi in zip(off, off[1:]):
+        tiles.append(tiles[-1] + max(0, hi - lo + TILE_ROWS - 1) // TILE_ROWS)
+    out = []
+    for t in range(block, tiles[-1] * n_cols, grid):
+        rt, col = divmod(t, n_cols)
+        e = bisect.bisect_right(tiles, rt) - 1
+        row0 = off[e] + (rt - tiles[e]) * TILE_ROWS
+        out.append((e, row0, min(off[e + 1], row0 + TILE_ROWS), col * bn))
+    return out
 
 
 def _check(x, w, offsets, swiglu):

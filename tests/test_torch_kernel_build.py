@@ -82,13 +82,14 @@ def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
     """An edited ``csrc/*.cuh`` rebuilds the sources that include it."""
     names = [os.path.basename(p) for p in kb.headers()]
     assert names == ["flash_attention_common.cuh", "mma_tf32.cuh", "topk_columns.cuh",
-                     "topk_registers.cuh"]
+                     "topk_registers.cuh", "wgmma_tma.cuh"]
     users = {
         "flash_attention_common.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
         "mma_tf32.cuh": ["flash_attention.cu", "flash_attention_bwd.cu"],
         "topk_columns.cuh": ["fused_dot_light.cu", "fused_hybrid.cu",
                              "light_add_topk.cu"],
         "topk_registers.cuh": ["fused_dot_light.cu", "light_add_topk.cu"],
+        "wgmma_tma.cuh": ["fused_dot_light.cu", "moe_grouped_gemm.cu"],
     }
     for name in names:
         included = [p for p in kb.sources()
@@ -106,11 +107,21 @@ def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("source,needs", [
     # the fused dot: TMA tiles into an mbarrier ring, warpgroup products on
-    # MN-major operands, a producer warpgroup that hands its registers over
+    # MN-major operands (both transpose bits set), a producer warpgroup that
+    # hands its registers over
     ("fused_dot_light.cu", ["cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
                             "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
-                            "p, 1, 1, 1, 1;", "setmaxnreg.dec", "setmaxnreg.inc",
+                            "wgmma_m64n256k16<true>(", "p, 1, 1, %131, %131;",
+                            "setmaxnreg.dec", "setmaxnreg.inc",
                             "cuTensorMapEncodeTiled", "CU_TENSOR_MAP_SWIZZLE_128B"]),
+    # the grouped expert GEMM: the same ring and products on K-major operands,
+    # one persistent block an SM walking the tiles, 16-byte stores
+    ("moe_grouped_gemm.cu", ["cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity",
+                             "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                             "wgmma_m64n256k16<false>(", "setmaxnreg.dec",
+                             "setmaxnreg.inc", "cudaDevAttrMultiProcessorCount",
+                             "t += gridDim.x", "quad_transpose",
+                             "CU_TENSOR_MAP_SWIZZLE_128B"]),
     # the light add: row groups streamed through bulk-copy rings, register
     # lists, and the column kernel for k above the list
     ("light_add_topk.cu", ["cp.async.bulk.shared::cluster.global",
@@ -119,6 +130,8 @@ def test_shared_headers_are_part_of_the_build_key(tmp_path, monkeypatch):
 ])
 def test_kernels_take_their_hopper_design(source, needs):
     text = open(os.path.join(kb.package_root(), "csrc", source), encoding="utf-8").read()
+    text += "".join(open(p, encoding="utf-8").read() for p in kb.headers()  # and its headers
+                    if f'#include "{os.path.basename(p)}"' in text)
     for word in needs:
         assert word in text, word
     # the tensor-map encoder is looked up through the runtime: the library

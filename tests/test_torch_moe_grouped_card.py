@@ -91,6 +91,62 @@ def test_grouped_kernel_against_its_plain_version_at_the_cell_widths():
     assert torch.equal(grouped_gemm(h, down, offsets)[:end], y[:end])
 
 
+# name: (E, K, N, R, rows of each expert); rows past their sum stay unwritten
+SHAPES = {
+    # R off the 128-row tile, the last run ending at the buffer's end: the
+    # TMA unit fills the last tile's rows past R with zeros
+    "last_run_ends_at_an_unaligned_buffer_end": (4, 256, 512, 333, [100, 0, 200, 33]),
+    "runs_start_mid_tile": (6, 128, 256, 800, [5, 130, 1, 257, 128, 127]),
+    "every_row_on_one_expert": (1, 192, 768, 1000, [1000]),
+    "one_expert_of_sixteen_has_rows": (16, 128, 256, 900, [0] * 9 + [700] + [0] * 6),
+    "k_1408_wraps_the_ring_unevenly": (3, 1408, 256, 600, [300, 0, 211]),  # 22 k-steps
+    "n_384_takes_the_narrow_tile": (4, 128, 384, 500, [64, 200, 0, 190]),
+}
+
+
+def _launch(x, w, offsets, swiglu, fill):
+    """The C entry point into an output filled with ``fill`` beforehand."""
+    from ircl_tpu_torch.utils.kernel_build import load_kernels
+
+    E, N, K = w.shape
+    y = torch.full((x.shape[0], N // 2 if swiglu else N), fill, dtype=torch.bfloat16,
+                   device=x.device)
+    kern = load_kernels()
+    rc = kern.lib.ircl_moe_grouped_gemm(x.data_ptr(), w.data_ptr(), offsets.data_ptr(), E,
+                                        x.shape[0], K, N, int(swiglu), y.data_ptr(),
+                                        torch.cuda.current_stream().cuda_stream)
+    kern.check(rc, "grouped_gemm launch")
+    return y
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_grouped_kernel_on_edge_shapes(shape):
+    dev = _card()
+    E, K, N, R, counts = SHAPES[shape]
+    offsets = torch.tensor([0, *torch.tensor(counts).cumsum(0).tolist()], dtype=torch.int32,
+                           device=dev)
+    end = int(offsets[-1])
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    x = torch.randn(R, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn(E, N, K, generator=g, device=dev)).to(torch.bfloat16)
+    raw = grouped_gemm(x, w, offsets)
+    h = grouped_gemm(x, w, offsets, swiglu=True)
+    torch.cuda.synchronize()
+    _within_rounding(raw, x, w, offsets)
+    want = swiglu_interleaved(raw[:end]).float()
+    assert bool(((h[:end].float() - want).abs() <= 2 ** -7 * want.abs()).all())
+    with float32_precision():
+        plain, plain_h = grouped_gemm_ref(x, w, offsets), grouped_gemm_ref(x, w, offsets, True)
+    for got, ref in ((raw, plain), (h, plain_h)):  # a rounding apart on few entries
+        assert float((got[:end] != ref[:end]).float().mean()) < 0.01
+    # rows at or past offsets[E] keep what was there; two launches, one answer
+    for swiglu, first in ((False, raw), (True, h)):
+        y = _launch(x, w, offsets, swiglu, -7.0)
+        torch.cuda.synchronize()
+        assert bool((y[end:] == -7.0).all()) and torch.equal(y[:end], first[:end])
+
+
 @pytest.mark.card
 def test_forward_makes_no_host_sync():
     dev = _card()
